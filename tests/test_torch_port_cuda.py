@@ -1,0 +1,87 @@
+"""The port's CUDA kernels on the card: each against its plain version.
+
+Marked ``cuda``; each test skips without a CUDA device (decided in the
+fixture, never at import). Run on a machine with the card and nvcc:
+
+    python -m pytest tests/test_torch_port_cuda.py -m cuda -q
+
+Tolerance for fp32 storage: 1e-4 + 1e-4 |plain| (sums over the hidden width
+in another order, atanf against torch.atan); bf16 storage: one bf16
+rounding step.
+"""
+
+import pytest
+import torch
+
+from sin_inn_tpu_torch.core import rng as R
+from sin_inn_tpu_torch.ops import subnet as S
+from sin_inn_tpu_torch.ops.cuda import coupling as K
+
+pytestmark = pytest.mark.cuda
+
+CLAMP = 1.2
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    return torch.device("cuda", 0)
+
+
+def _params(c, len1, hidden, dev, kernel=1):
+    gen = R.root_generator(c * 1000 + len1)
+    len2 = c - len1
+    p = {"s1": S.conv_subnet_init(gen, len1, 2 * len2, kernel, hidden),
+         "s2": S.conv_subnet_init(gen, len2, 2 * len1, kernel, hidden)}
+    return {s: {k: {n: t.to(dev) for n, t in conv.items()}
+                for k, conv in sub.items()} for s, sub in p.items()}
+
+
+@pytest.mark.parametrize("shape,len1,hidden", [
+    ((2, 9, 13, 48), 24, 256),     # ragged last tile
+    ((1, 5, 7, 192), 96, 256),
+    ((3, 4, 5, 12), 5, 32),        # uneven split, narrow hidden
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain(dev, shape, len1, hidden, dtype):
+    p = _params(shape[-1], len1, hidden, dev)
+    x = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev).to(dtype)
+    step = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        for fn, plain in ((K.fused_glow_forward_1x1,
+                           K.fused_glow_forward_1x1_plain),
+                          (K.fused_glow_inverse_1x1,
+                           K.fused_glow_inverse_1x1_plain)):
+            got = fn(p, x, CLAMP, len1).float()
+            ref = plain(p, x, CLAMP, len1).float()
+            torch.cuda.synchronize()
+            assert ((got - ref).abs() <= 1e-4 + step * ref.abs()).all()
+        assert K.launch_counts() == {"fused_glow_forward_1x1": 1,
+                                     "fused_glow_inverse_1x1": 1}
+
+
+def test_kernel_round_trip(dev):
+    p = _params(48, 24, 256, dev)
+    x = torch.randn((4, 16, 16, 48), device=dev)
+    with torch.inference_mode():
+        back = K.fused_glow_inverse_1x1(
+            p, K.fused_glow_forward_1x1(p, x, CLAMP, 24), CLAMP, 24)
+    assert (back - x).abs().max().item() <= 1e-4
+
+
+def test_kernel_refuses_what_it_cannot_take(dev):
+    p = _params(48, 24, 256, dev)
+    x = torch.randn((2, 4, 4, 48), device=dev)
+    with pytest.raises(RuntimeError, match="training slice"):
+        K.fused_glow_forward_1x1(p, x.requires_grad_(), CLAMP, 24)
+    with torch.inference_mode():
+        with pytest.raises(ValueError):
+            K.fused_glow_forward_1x1(p, x.detach().transpose(1, 2), CLAMP, 24)
+        with pytest.raises(TypeError):
+            K.fused_glow_forward_1x1(p, x.detach().half(), CLAMP, 24)
+        with pytest.raises(ValueError):
+            K.fused_glow_forward_1x1(_params(48, 24, 256, "cpu"), x.detach(),
+                                     CLAMP, 24)

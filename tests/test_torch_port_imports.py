@@ -1,0 +1,81 @@
+"""Import boundary of the PyTorch port: neither the package nor
+chip_smoke.py imports JAX or the JAX package, and chip_smoke.py refuses to
+run without a card."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "sin_inn_tpu_torch")
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "sin_inn_tpu")
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_source_imports_no_jax(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{os.path.relpath(path, REPO)}:{node.lineno} " \
+                        f"imports {bad}"
+
+
+def test_importing_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import sin_inn_tpu_torch as P\n"
+        "for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'sin_inn_tpu'))\n"
+        "print(len([n for n in sys.modules if n.startswith(P.__name__)]))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) > 15
+
+
+def _run_smoke(cwd, script):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""      # no card, even where there is one
+    return subprocess.run([sys.executable, script], capture_output=True,
+                          text=True, env=env, cwd=cwd, timeout=120)
+
+
+def test_chip_smoke_fails_without_card():
+    res = _run_smoke(REPO, os.path.join(REPO, "chip_smoke.py"))
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    res = _run_smoke(str(tmp_path), str(tmp_path / "chip_smoke.py"))
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
