@@ -13,11 +13,26 @@ nothing of JAX or of the JAX package. Phases:
    (max abs error <= 1e-4 + 1e-4 |plain|: fp32 sums over K=256 in another
    order, atanf against torch.atan) and one bf16-storage case (one bf16
    rounding step), the forward-inverse round trip, and median times;
+   Then at the training shapes (batch 8, HR 352x640): K1 and K2 timed, and
+   K3 and K4 (the backward kernels, each with its gradient reduction)
+   against their plain versions with fp32 matmuls (dx within
+   1e-4 + 1e-4 |plain|; each weight and bias gradient within 1e-3 of the
+   largest |plain| of it, since the sums over 10^5 rows run in another
+   order), one bf16-storage case, and median times;
 4. the path: a 102-frame synthetic 352x640 video, a seeded state saved and
    restored through the checkpoint store, ``sr test`` frames over both
    40-window batches and the eval step over the val split, on ``cuda`` in
    the ``float32`` compute mode. Launch counts are reset before and read
    after each, and must show that every 1x1 coupling ran in a kernel.
+5. train: a 204-frame synthetic 352x640 video (16 training windows),
+   ``run_sr_train`` at the flagship config (batch 8, 2 epochs = 4 steps,
+   val metrics and checkpoints every epoch), then a resume to 3 epochs;
+   launch counts of one train step (4 K1, 4 K2, 4 K3, 4 K4 and a reduction
+   per K3/K4) and of one step with TCR (5 iterations) and both MMD terms
+   (4, 44, 4, 44); the gradients of the kernel route against the cuDNN
+   route (``use_kernel="off"``) on one batch with the same noise (each leaf
+   within a normwise relative error of 2e-2, the TF32 rounding of the
+   convolutions; the loss within 1e-3); train frames/s over 10 steps.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each kernel's numbers; the last line is
@@ -38,7 +53,9 @@ import numpy as np
 import torch
 
 BATCH, HR_H, HR_W = 40, 352, 640
+TRAIN_BATCH = 8
 NUM_FRAMES = 102
+TRAIN_FRAMES = 204
 HIDDEN = 256
 CLAMP = 1.2
 # published H100 SXM peaks (NVIDIA data sheet, dense)
@@ -48,8 +65,17 @@ PEAK_BYTES = 3.35e12
 REPLACES = {
     "fused_glow_forward_1x1": "sin_inn_tpu/ops/pallas/coupling.py:82",
     "fused_glow_inverse_1x1": "sin_inn_tpu/ops/pallas/coupling.py:111",
+    "fused_glow_backward_1x1": "sin_inn_tpu/ops/pallas/coupling.py:256",
+    "fused_glow_inverse_backward_1x1": "sin_inn_tpu/ops/pallas/coupling.py:412",
 }
-SOURCE = "sin_inn_tpu_torch/csrc/coupling_1x1.cu"
+SOURCES = {
+    "fused_glow_forward_1x1": "sin_inn_tpu_torch/csrc/coupling_1x1.cu",
+    "fused_glow_inverse_1x1": "sin_inn_tpu_torch/csrc/coupling_1x1.cu",
+    "fused_glow_backward_1x1": "sin_inn_tpu_torch/csrc/coupling_1x1_bwd.cu",
+    "fused_glow_inverse_backward_1x1":
+        "sin_inn_tpu_torch/csrc/coupling_1x1_bwd.cu",
+}
+BACKWARD = ("fused_glow_backward_1x1", "fused_glow_inverse_backward_1x1")
 
 
 class SmokeFailure(Exception):
@@ -59,6 +85,18 @@ class SmokeFailure(Exception):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def check_counts(counts, what: str, **want) -> None:
+    """Every kernel's count is ``want``'s, or 0 where ``want`` names none."""
+    full = {k: want.get(k, 0) for k in counts}
+    check(counts == full and set(want) <= set(counts),
+          f"{what}: launches {counts}, want {full}")
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
 
 
 def median_ms(fn, reps: int) -> float:
@@ -85,6 +123,16 @@ def coupling_cost(m: int, c: int, hidden: int, elem_bytes: int):
     weights = (len2 * hidden + hidden + hidden * 2 * len1 + 2 * len1
                + len1 * hidden + hidden + hidden * 2 * len2 + 2 * len2)
     return flops, 2 * m * c * elem_bytes + 4 * weights
+
+
+def backward_cost(m: int, c: int, hidden: int, elem_bytes: int):
+    """FLOP and bytes of one K3 or K4 launch with its reduction: 18 H C
+    FLOP per pixel (recompute, dx chain and weight gradients, 6 H C each);
+    x and g read once, dx written once, each weight read once and each
+    weight gradient written once."""
+    flops, _ = coupling_cost(m, c, hidden, elem_bytes)
+    weights = (coupling_cost(1, c, hidden, 4)[1] - 2 * c * 4) // 4
+    return 3 * flops, 3 * m * c * elem_bytes + 2 * 4 * weights
 
 
 def phase_card():
@@ -203,6 +251,138 @@ def phase_kernels(dev):
     return rows, bf16_err
 
 
+def _time_reduction(K, dev, m: int, c: int, len1: int, inverse: bool):
+    """Median ms of the gradient reduction alone at one K3/K4 launch's
+    size (its grid and slot size as the wrapper would take them)."""
+    import ctypes
+
+    lib = K._bwd_lib()
+    blocks = ctypes.c_int(0)
+    err = lib.sininn_coupling_1x1_bwd_blocks(int(inverse), 0, m, c, len1,
+                                             HIDDEN, ctypes.byref(blocks))
+    check(err == 0, f"backward grid query failed ({err})")
+    slot = lib.sininn_coupling_1x1_bwd_slot_floats(c, len1, HIDDEN)
+    part = torch.zeros((blocks.value, slot), device=dev)
+    run = lambda: K.reduce_weight_grads(part)
+    return median_ms(run, 20), blocks.value, slot
+
+
+def _grads_close(dp, rp, dx, rx, step: float, what: str) -> float:
+    """Checks the backward tolerances; returns dx's max abs error."""
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+
+    for (s, c, k), a, b in zip(K.LEAVES, K.param_leaves(dp),
+                               K.param_leaves(rp)):
+        err = (a - b).abs().max().item()
+        lim = 1e-3 * b.abs().max().item()
+        check(a.shape == b.shape and err <= lim,
+              f"{what} grad {s}.{c}.{k}: max abs err {err:.3e} > {lim:.3e}")
+    dx, rx = dx.float(), rx.float()
+    e = (dx - rx).abs()
+    check(bool(torch.isfinite(e).all()), f"{what}: non-finite dx")
+    check(bool((e <= 1e-4 + step * rx.abs()).all()),
+          f"{what}: dx max abs err {e.max().item():.3e} exceeds "
+          f"1e-4 + {step:g}|plain|")
+    return e.max().item()
+
+
+def phase_train_kernels(dev):
+    """K1/K2 timed and K3/K4 checked and timed at the training shapes."""
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen_w = torch.Generator().manual_seed(5678)
+    gen_x = torch.Generator(device=dev).manual_seed(8765)
+    shapes = [(TRAIN_BATCH, HR_H // 4, HR_W // 4, 48),     # octave 1
+              (TRAIN_BATCH, HR_H // 8, HR_W // 8, 192)]    # octave 2
+    rows = {n: [] for n in REPLACES}
+    for shape in shapes:
+        c = shape[-1]
+        len1 = c // 2
+        m = math.prod(shape[:-1])
+        p = _coupling_params(gen_w, c, dev)
+        x = torch.randn(shape, generator=gen_x, device=dev)
+        g = torch.randn(shape, generator=gen_x, device=dev)
+        flops, nbytes = coupling_cost(m, c, HIDDEN, 4)
+        with torch.inference_mode():
+            for n, fn, plain in (
+                    ("fused_glow_forward_1x1", K.fused_glow_forward_1x1,
+                     K.fused_glow_forward_1x1_plain),
+                    ("fused_glow_inverse_1x1", K.fused_glow_inverse_1x1,
+                     K.fused_glow_inverse_1x1_plain)):
+                ref = plain(p, x, CLAMP, len1)
+                e = (fn(p, x, CLAMP, len1) - ref).abs()
+                check(bool((e <= 1e-4 + 1e-4 * ref.abs()).all()),
+                      f"{n} C={c} batch {TRAIN_BATCH}: max abs err "
+                      f"{e.max().item():.3e}")
+                rows[n].append({
+                    "shape": list(shape), "M": m, "C": c,
+                    "max_abs_err": e.max().item(),
+                    "ms": median_ms(lambda: fn(p, x, CLAMP, len1), 20),
+                    "plain_ms": median_ms(lambda: plain(p, x, CLAMP, len1),
+                                          10),
+                    "flop": flops, "bytes": nbytes,
+                    "fp32_bound_ms": flops / PEAK_FP32 * 1e3,
+                    "tf32_bound_ms": flops / PEAK_TF32 * 1e3,
+                    "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+                })
+                del ref, e
+        bflops, bbytes = backward_cost(m, c, HIDDEN, 4)
+        for n, fn, plain in (
+                ("fused_glow_backward_1x1", K.fused_glow_backward_1x1,
+                 K.fused_glow_backward_1x1_plain),
+                ("fused_glow_inverse_backward_1x1",
+                 K.fused_glow_inverse_backward_1x1,
+                 K.fused_glow_inverse_backward_1x1_plain)):
+            dp, dx = fn(p, x, g, CLAMP, len1)
+            rp, rx = plain(p, x, g, CLAMP, len1)
+            torch.cuda.synchronize()
+            err = _grads_close(dp, rp, dx, rx, 1e-4, f"{n} C={c}")
+            grad_err = max((a - b).abs().max().item() for a, b in
+                           zip(K.param_leaves(dp), K.param_leaves(rp)))
+            del dp, dx, rp, rx
+            red_ms, blocks, slot = _time_reduction(
+                K, dev, m, c, len1, n == BACKWARD[1])
+            rows[n].append({
+                "shape": list(shape), "M": m, "C": c,
+                "max_abs_err": err, "grad_max_abs_err": grad_err,
+                "ms": median_ms(lambda: fn(p, x, g, CLAMP, len1), 10),
+                "reduce_ms": red_ms, "blocks": blocks,
+                "partials_mb": blocks * slot * 4 / 1e6,
+                "plain_ms": median_ms(lambda: plain(p, x, g, CLAMP, len1),
+                                      5),
+                "flop": bflops, "bytes": bbytes,
+                "fp32_bound_ms": bflops / PEAK_FP32 * 1e3,
+                "tf32_bound_ms": bflops / PEAK_TF32 * 1e3,
+                "bytes_bound_ms": bbytes / PEAK_BYTES * 1e3,
+            })
+        del x, g
+    # one bf16-storage case: K3 at octave 1
+    c = 48
+    p = _coupling_params(gen_w, c, dev)
+    xb = torch.randn(shapes[0], generator=gen_x, device=dev).bfloat16()
+    gb = torch.randn(shapes[0], generator=gen_x, device=dev).bfloat16()
+    dp, dx = K.fused_glow_backward_1x1(p, xb, gb, CLAMP, c // 2)
+    rp, rx = K.fused_glow_backward_1x1_plain(p, xb, gb, CLAMP, c // 2)
+    check(dx.dtype == torch.bfloat16, f"bf16 K3 returned dx in {dx.dtype}")
+    # both round fp32 results to bf16: at most one rounding step apart
+    bf16_err = _grads_close(dp, rp, dx, rx, 2.0 ** -7, "bf16 K3 C=48")
+    print(f"[kernels] bf16-storage K3 C=48: dx max abs err {bf16_err:.3e}")
+    for n, rs in rows.items():
+        for r in rs:
+            extra = (f", reduction {r['reduce_ms']:.3f} ms over "
+                     f"{r['blocks']} slots ({r['partials_mb']:.1f} MB), "
+                     f"grads max abs err {r['grad_max_abs_err']:.3e}"
+                     if "reduce_ms" in r else "")
+            print(f"[kernels] batch {TRAIN_BATCH}: {n} C={r['C']} "
+                  f"M={r['M']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
+                  f"ms; bounds fp32 {r['fp32_bound_ms']:.3f} / tf32 "
+                  f"{r['tf32_bound_ms']:.3f} / bytes "
+                  f"{r['bytes_bound_ms']:.3f} ms) max abs err "
+                  f"{r['max_abs_err']:.3e}{extra}")
+    return rows, bf16_err
+
+
 def phase_path(dev, card: str):
     """SRF flagship `sr test` frames and eval on cuda, with launch counts."""
     import os.path as path
@@ -264,10 +444,9 @@ def phase_path(dev, card: str):
         check(frames.dtype == np.uint8 and frames.shape == (80, HR_H, HR_W, 3),
               f"test frames {frames.dtype} {frames.shape}, want uint8 "
               f"(80, {HR_H}, {HR_W}, 3)")
-        check(test_counts == {"fused_glow_forward_1x1": 0,
-                              "fused_glow_inverse_1x1": 4 * n_test},
-              f"sr test launches {test_counts}, want 4 inverse per batch "
-              f"over {n_test} batches")
+        check_counts(test_counts, f"sr test over {n_test} batches "
+                                  "(4 inverse per batch)",
+                     fused_glow_inverse_1x1=4 * n_test)
         fps = len(frames) / test_s
         print(f"[path] sr test: {len(frames)} frames in {n_test} batches, "
               f"{test_s:.3f} s, {fps:.2f} frames/s on {card}; launches "
@@ -284,17 +463,18 @@ def phase_path(dev, card: str):
         torch.cuda.synchronize()
         eval_counts = K.launch_counts()
         nb = len(val_batches)
-        check(eval_counts == {"fused_glow_forward_1x1": 4 * nb,
-                              "fused_glow_inverse_1x1": 4 * nb},
-              f"eval launches {eval_counts}, want 4 each per batch over "
-              f"{nb} batches")
+        check_counts(eval_counts, f"eval over {nb} batches (4 each per "
+                                  "batch)",
+                     fused_glow_forward_1x1=4 * nb,
+                     fused_glow_inverse_1x1=4 * nb)
         for i, m in enumerate(metrics):
             vals = {k: v.item() for k, v in m.items()}
             check(all(math.isfinite(v) for v in vals.values()),
                   f"eval batch {i}: non-finite metric {vals}")
             print(f"[path] eval batch {i} ({val_batches[i]['hr'].shape[0]} "
                   f"windows): {vals}")
-        counts = {k: test_counts[k] + eval_counts[k] for k in test_counts}
+        add_counts(counts, test_counts)
+        add_counts(counts, eval_counts)
 
         # invertibility at depth, float32 with TF32 convolutions
         with torch.inference_mode():
@@ -329,6 +509,186 @@ def phase_path(dev, card: str):
     return counts, fps
 
 
+def _leaf_grads(params):
+    from sin_inn_tpu_torch.models.inn import flat_params
+
+    return [t.grad.detach().clone() for t in flat_params(params)]
+
+
+def phase_train(dev, card: str, smi_line: str):
+    """SRF flagship training on cuda: run_sr_train, resume, launch counts,
+    gradient agreement with the cuDNN route, and train frames/s."""
+    import os.path as path
+
+    from sin_inn_tpu_torch.core.checkpoint import CheckpointStore
+    from sin_inn_tpu_torch.core.config import SRConfig
+    from sin_inn_tpu_torch.data.sr_video import make_datasets, to_device
+    from sin_inn_tpu_torch.data.synthetic import synthetic_sr_video
+    from sin_inn_tpu_torch.models.inn import build_inn_spec, params_to
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+    from sin_inn_tpu_torch.train import loop as LP
+    from sin_inn_tpu_torch.train import sr as SR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = {}
+    stats = {}
+    with tempfile.TemporaryDirectory() as work:
+        cfg = SRConfig(scene="chip_smoke_train", device="cuda",
+                       compute_dtype="float32", working_dir=work,
+                       batch_size=TRAIN_BATCH, epochs=2, print_iter=1,
+                       save_iter=1)
+        check(cfg.batch_size == TRAIN_BATCH and cfg.learning_rate == 1e-4
+              and cfg.adam_betas == (0.9, 0.99) and cfg.weight_decay == 1e-5
+              and cfg.total_dims == 192 and cfg.num_coupling == 4
+              and cfg.hidden_channels == HIDDEN,
+              "SRConfig defaults are not the flagship training config")
+        t0 = time.perf_counter()
+        video = synthetic_sr_video(cfg, num_frames=TRAIN_FRAMES, h=HR_H,
+                                   w=HR_W)
+        sup, unsup, _ = make_datasets(video, cfg)
+        check(len(sup) >= 2 * TRAIN_BATCH,
+              f"{len(sup)} training windows, want >= {2 * TRAIN_BATCH}")
+        print(f"[train] synthetic video: hr {video.hr.shape}, "
+              f"{len(sup)} training windows, in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # run_sr_train: 2 epochs of 2 full batches, then resume to 3
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = LP.run_sr_train(cfg, video=video)
+        torch.cuda.synchronize()
+        run_counts = K.launch_counts()
+        steps = out["state"].step
+        m = out["metrics"]
+        check(out["start_epoch"] == 0 and steps == 4,
+              f"run_sr_train took {steps} steps from epoch "
+              f"{out['start_epoch']}, want 4 from 0")
+        check(all(math.isfinite(v) for v in m.values()),
+              f"run_sr_train: non-finite metric {m}")
+        ckpts = CheckpointStore(path.join(out["exp_dir"],
+                                          "checkpoints")).latest_step()
+        check(ckpts == 2, f"latest checkpoint {ckpts}, want 2")
+        # 4 K1 + 4 K2 + 4 K3 + 4 K4 per step; 4 K1 + 4 K2 per eval batch
+        evals = 2
+        check_counts(run_counts, "run_sr_train (4 steps, 2 evals)",
+                     fused_glow_forward_1x1=4 * steps + 4 * evals,
+                     fused_glow_inverse_1x1=4 * steps + 4 * evals,
+                     fused_glow_backward_1x1=4 * steps,
+                     fused_glow_inverse_backward_1x1=4 * steps,
+                     reduce_weight_grads=8 * steps)
+        add_counts(counts, run_counts)
+        print(f"[train] run_sr_train: {steps} steps in "
+              f"{time.perf_counter() - t0:.1f} s; metrics {m}")
+
+        K.reset_launch_counts()
+        again = LP.run_sr_train(cfg.replace(epochs=3), video=video)
+        torch.cuda.synchronize()
+        add_counts(counts, K.launch_counts())
+        st = again["state"]
+        opt_steps = {int(v["step"]) for v in
+                     st.optimizer.state_dict()["state"].values()}
+        check(again["start_epoch"] == 2,
+              f"resume started at epoch {again['start_epoch']}, want 2")
+        check(st.step == 6 and opt_steps == {6},
+              f"after resume: step {st.step}, optimizer steps {opt_steps}, "
+              "want 6")
+        check(math.isfinite(again["metrics"]["loss"]),
+              f"resumed loss {again['metrics']['loss']}")
+        print(f"[train] resumed at epoch 2: step {st.step}, optimizer step "
+              f"{opt_steps}, loss {again['metrics']['loss']:.6g}")
+
+        spec = again["spec"]
+        batch = sup.device_cache(TRAIN_BATCH, dev)[0]
+        b, h, w, _ = batch["lr"].shape
+        step = SR.make_train_step(spec, cfg)
+        gen = torch.Generator(device=dev).manual_seed(11)
+
+        # one default step: launch counts
+        K.reset_launch_counts()
+        aux = step(st, batch, None, gen)
+        torch.cuda.synchronize()
+        one = K.launch_counts()
+        check_counts(one, "one train step", fused_glow_forward_1x1=4,
+                     fused_glow_inverse_1x1=4, fused_glow_backward_1x1=4,
+                     fused_glow_inverse_backward_1x1=4,
+                     reduce_weight_grads=8)
+        add_counts(counts, one)
+
+        # one step with TCR (5 iterations) and both MMD terms
+        tcr_cfg = cfg.replace(lambda_bwd_tcr=1.0, tcr_iters=5,
+                              lambda_fwd_mmd=1.0, lambda_bwd_mmd=1.0)
+        tcr_step = SR.make_train_step(spec, tcr_cfg)
+        unsup_batch = to_device(unsup.random_batch(TRAIN_BATCH), dev)
+        K.reset_launch_counts()
+        aux = tcr_step(st, batch, unsup_batch, gen)
+        torch.cuda.synchronize()
+        tcr = K.launch_counts()
+        check_counts(tcr, "one TCR + MMD train step",
+                     fused_glow_forward_1x1=4, fused_glow_inverse_1x1=44,
+                     fused_glow_backward_1x1=4,
+                     fused_glow_inverse_backward_1x1=44,
+                     reduce_weight_grads=48)
+        add_counts(counts, tcr)
+        check(counts["reduce_weight_grads"] ==
+              counts[BACKWARD[0]] + counts[BACKWARD[1]],
+              f"launches {counts}: one reduction per K3/K4 launch")
+        vals = {k: v.item() for k, v in aux.items()}
+        check(all(math.isfinite(v) for v in vals.values()) and
+              vals["tcr"] > 0, f"TCR + MMD step: loss terms {vals}")
+        print(f"[train] one TCR (5 iters) + MMD step: {vals}; launches {tcr}")
+
+        # gradients of the kernel route against the cuDNN route
+        draws = SR.draw_sr_noise(torch.Generator(device=dev).manual_seed(3),
+                                 cfg, b, h, w)
+        routes = {}
+        for route in ("auto", "off"):
+            rcfg = cfg.replace(use_kernel=route)
+            rspec, _ = build_inn_spec(rcfg)
+            check(any(l.use_kernel for l in rspec) == (route == "auto"),
+                  f"use_kernel={route} routes the wrong way")
+            params = [None if p is None else
+                      {s: {c: {k: t.detach().clone() for k, t in conv.items()}
+                           for c, conv in sub.items()}
+                       for s, sub in p.items()}
+                      for p in params_to(st.params, dev)]
+            rstate = SR.train_state(params, rcfg)
+            loss, _ = SR.sr_loss(rstate.params, rspec, rcfg, batch, None,
+                                 draws)
+            loss.backward()
+            routes[route] = (loss.item(), _leaf_grads(rstate.params))
+        (la, ga), (lo, go) = routes["auto"], routes["off"]
+        worst = max((a - o).norm().item() / max(o.norm().item(), 1e-30)
+                    for a, o in zip(ga, go))
+        loss_rel = abs(la - lo) / abs(lo)
+        print(f"[train] kernel route vs cuDNN route: worst leaf normwise "
+              f"relative error {worst:.3e} (limit 2e-2), loss {la:.7g} vs "
+              f"{lo:.7g} (relative {loss_rel:.3e}, limit 1e-3)")
+        check(worst <= 2e-2, f"gradient agreement: {worst:.3e} > 2e-2")
+        check(loss_rel <= 1e-3, f"loss agreement: {loss_rel:.3e} > 1e-3")
+        stats.update(grad_worst=worst, loss_rel=loss_rel)
+        del routes, ga, go
+
+        # throughput: 2 warm-up steps, then 10 timed
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(2):
+            step(st, batch, None, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            aux = step(st, batch, None, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(math.isfinite(aux["loss"].item()), "non-finite loss")
+        stats.update(frames_per_sec=10 * TRAIN_BATCH / dt,
+                     ms_per_step=dt * 100,
+                     peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        print(f"[train] {stats['frames_per_sec']:.2f} train frames/s, "
+              f"{stats['ms_per_step']:.2f} ms/step (batch {TRAIN_BATCH}, "
+              f"HR {HR_H}x{HR_W}, float32), peak device memory "
+              f"{stats['peak_gib']:.2f} GiB, on {card} ({smi_line})")
+    return counts, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -336,19 +696,25 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     try:
-        card, _ = phase_card()
+        card, smi_line = phase_card()
         phase_build()
         rows, bf16_err = phase_kernels(dev)
+        train_rows, bwd_bf16_err = phase_train_kernels(dev)
         counts, fps = phase_path(dev, card)
+        train_counts, train = phase_train(dev, card, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    add_counts(counts, train_counts)
     kernels = []
-    for n, rs in rows.items():
+    for n in REPLACES:
+        # K1/K2: the eval/infer shapes (batch 40), as before, with the
+        # training shapes beside them; K3/K4: the training shapes
+        rs = rows.get(n) or train_rows[n]
         bytes_ms = sum(r["bytes_bound_ms"] for r in rs)
         ops_ms = sum(r["fp32_bound_ms"] for r in rs)
-        kernels.append({
-            "name": n, "route": "cuda", "source": SOURCE,
+        entry = {
+            "name": n, "route": "cuda", "source": SOURCES[n],
             "replaces": REPLACES[n], "launches": counts[n],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs),
@@ -357,9 +723,17 @@ def main() -> int:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None,
             "shapes": rs,
-        })
-    print(f"[done] sr test {fps:.2f} frames/s; bf16 err {bf16_err:.3e}; "
-          f"total {time.perf_counter() - t_start:.1f} s")
+        }
+        if rows.get(n):
+            entry["train_shapes"] = train_rows[n]
+        else:
+            entry["reduce_launches"] = counts["reduce_weight_grads"]
+            entry["reduce_ms"] = sum(r["reduce_ms"] for r in rs)
+        kernels.append(entry)
+    print(f"[done] sr test {fps:.2f} frames/s; train "
+          f"{train['frames_per_sec']:.2f} frames/s; bf16 err {bf16_err:.3e}"
+          f" (K3 {bwd_bf16_err:.3e}); total "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

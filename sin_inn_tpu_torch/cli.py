@@ -1,8 +1,9 @@
 """Command-line interface of the PyTorch port.
 
-``python -m sin_inn_tpu_torch.cli sr test ...`` takes the reference's ``sr``
-flags plus ``--device`` (default ``cuda``; a CUDA request without a card
-fails). ``sr train`` and ``sr export`` are not ported yet and exit non-zero.
+``python -m sin_inn_tpu_torch.cli sr {train,test} ...`` takes the
+reference's ``sr`` flags plus ``--device`` (default ``cuda``; a CUDA request
+without a card fails) and ``--remat``. ``sr export`` is not ported yet and
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import List, Optional
 
 from sin_inn_tpu_torch.core.config import COMPUTE_DTYPES, SRConfig
 
-_NOT_PORTED = ("train", "export")
+_NOT_PORTED = ("export",)
 
 
 def _sr_parser(sub):
@@ -57,6 +58,8 @@ def _sr_parser(sub):
                     choices=list(COMPUTE_DTYPES))
     ap.add_argument("--use_kernel", default="auto", choices=["auto", "off"],
                     help="fused CUDA kernels for the 1x1 GLOW couplings")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each coupling in the backward")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default), cuda:N or cpu")
     ap.add_argument("--save_images", action="store_true",
@@ -80,7 +83,7 @@ def sr_config_from_args(a) -> SRConfig:
         working_dir=a.working_dir, resume_state=a.resume_state,
         val_batch_size=a.val_batch_size, hidden_channels=a.hidden_channels,
         dense_gc=a.dense_gc, compute_dtype=a.compute_dtype,
-        use_kernel=a.use_kernel, device=a.device,
+        use_kernel=a.use_kernel, device=a.device, remat=a.remat,
     )
 
 
@@ -96,7 +99,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     from sin_inn_tpu_torch.train import loop as L
 
-    print(L.run_sr_test(sr_config_from_args(a), save_images=a.save_images))
+    cfg = sr_config_from_args(a)
+    if a.operation == "train":
+        out = L.run_sr_train(cfg)
+        print(out["exp_dir"])
+        return 0
+    print(L.run_sr_test(cfg, save_images=a.save_images))
     return 0
 
 

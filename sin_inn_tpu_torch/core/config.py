@@ -10,6 +10,9 @@ with three differences:
   ``"off"`` keeps them on plain convolutions.
 * The multi-chip, profiling, auto-tuning and checkpoint-import fields are
   left out until their slices are ported.
+* ``donate_state`` has no counterpart: the Adam step updates the
+  parameters and its moments in place, so no second copy of the state is
+  ever made.
 """
 
 from __future__ import annotations
@@ -83,6 +86,8 @@ class SRConfig:
     use_kernel: str = "auto"
     # torch device string; entry points never fall back from 'cuda'
     device: str = "cuda"
+    # per-coupling activation recompute in the backward (torch checkpoint)
+    remat: bool = False
 
     def __post_init__(self):
         if self.architecture not in ("SRF", "IRN"):

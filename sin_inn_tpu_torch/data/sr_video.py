@@ -128,6 +128,12 @@ class SRDataset:
                                                        len(self)))), device)
                 for s in range(0, len(self), batch_size)]
 
+    def random_batch(self, batch_size: int) -> Dict[str, np.ndarray]:
+        """``batch_size`` samples drawn with replacement from the dataset's
+        own ``RandomState`` stream (the reference's unsupervised draw)."""
+        sel = self._rng.randint(0, len(self), size=batch_size)
+        return self.gather(sel)
+
     def batches(self, batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self))
         if self.shuffle:

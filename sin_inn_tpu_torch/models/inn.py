@@ -6,9 +6,11 @@ params list aligned with it; :func:`inn_apply` walks the spec forward
 
 Kernel routing keeps the reference's rule: a 1x1 GLOW coupling goes through
 the fused kernels (``ops/cuda/coupling.py``) unless a log-det is requested or
-the compute mode is ``float32_highest``. Whether that is the CUDA kernel or
-its plain version is decided by the tensor's device, nowhere else. The 3x3
-couplings run as cuDNN convolutions. IRN waits for its slice.
+the compute mode is ``float32_highest``. It goes through the autograd
+Functions there (K1/K2 forward, K3/K4 backward), under autograd or not.
+Whether that is a CUDA kernel or its plain version is decided by the
+tensor's device, nowhere else. The 3x3 couplings run as cuDNN convolutions.
+IRN waits for its slice.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from functools import partial
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from sin_inn_tpu_torch.core.config import SRConfig
 from sin_inn_tpu_torch.ops import coupling as C
@@ -112,8 +115,8 @@ def _apply_layer(layer: LayerSpec, p: Optional[Dict], x: torch.Tensor,
     if layer.use_kernel and layer.kernel == 1 and not with_log_det:
         # the kernels return y only, so a log-det request takes the
         # convolution path (same math)
-        fused = K.fused_glow_inverse_1x1 if rev else K.fused_glow_forward_1x1
-        return fused(p, x.contiguous(), layer.clamp, layer.split_len1), None
+        return K.fused_coupling(p, x.contiguous(), layer.clamp,
+                                layer.split_len1, inverse=rev), None
     subnet = partial(S.conv_subnet_apply, compute=S.compute_mode(layer.compute))
     if rev:
         if with_log_det:
@@ -126,22 +129,36 @@ def _apply_layer(layer: LayerSpec, p: Optional[Dict], x: torch.Tensor,
 
 
 def inn_apply(spec: Sequence[LayerSpec], params: Sequence[Optional[Dict]],
-              x: torch.Tensor, rev: bool = False, with_log_det: bool = False):
+              x: torch.Tensor, rev: bool = False, with_log_det: bool = False,
+              remat: bool = False):
     """Run the INN forward (HR -> LR||z) or inverse (LR||z -> HR).
 
     Returns ``x`` or, with ``with_log_det``, ``(x, log_det per sample)``.
+    ``remat=True`` wraps each coupling in ``torch.utils.checkpoint``: the
+    backward keeps only each coupling's input and recomputes the coupling.
     """
     log_det = torch.zeros((x.shape[0],), dtype=x.dtype, device=x.device)
     pairs = list(zip(spec, params))
     if rev:
         pairs = pairs[::-1]
     for layer, p in pairs:
-        x, ld = _apply_layer(layer, p, x, rev, with_log_det)
+        if remat and layer.kind == "glow":
+            x, ld = checkpoint(_apply_layer, layer, p, x, rev, with_log_det,
+                               use_reentrant=False)
+        else:
+            x, ld = _apply_layer(layer, p, x, rev, with_log_det)
         if with_log_det and ld is not None:
             log_det = log_det + ld
     if with_log_det:
         return x, log_det
     return x
+
+
+def flat_params(params: Sequence[Optional[Dict]]) -> List[torch.Tensor]:
+    """Every tensor of a params list, in a fixed order (the optimizer's)."""
+    return [p[s][c][k] for p in params if p is not None
+            for s in ("s1", "s2") for c in ("conv1", "conv2")
+            for k in ("w", "b")]
 
 
 def params_to(params: Sequence[Optional[Dict]], device) -> List[Optional[Dict]]:

@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
-SOURCES = {"coupling_1x1": "coupling_1x1.cu"}
+SOURCES = {"coupling_1x1": "coupling_1x1.cu",
+           "coupling_1x1_bwd": "coupling_1x1_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

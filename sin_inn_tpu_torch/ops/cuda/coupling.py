@@ -1,38 +1,67 @@
 """Fused GLOW coupling with 1x1-conv subnets: CUDA kernels and plain versions.
 
-``fused_glow_forward_1x1`` and ``fused_glow_inverse_1x1`` replace the TPU
-kernels ``_coupling_fwd_kernel`` and ``_coupling_inv_kernel`` of
-``sin_inn_tpu/ops/pallas/coupling.py`` (entry points of the same names). The
-kernels live in ``csrc/coupling_1x1.cu``; its header states what bounds them
-on an H100 (arithmetic: about 190 FLOP per byte of input and output at the
-flagship shapes) and how the design deals with weights that do not fit in a
-block's shared memory (one activation tile per block, weights streamed from
-L2).
+Four kernels replace the TPU kernels of ``sin_inn_tpu/ops/pallas/coupling.py``
+(entry points of the same names):
+
+* ``fused_glow_forward_1x1`` (K1, ``_coupling_fwd_kernel``) and
+  ``fused_glow_inverse_1x1`` (K2, ``_coupling_inv_kernel``), in
+  ``csrc/coupling_1x1.cu``;
+* ``fused_glow_backward_1x1`` (K3, ``_coupling_bwd_kernel``) and
+  ``fused_glow_inverse_backward_1x1`` (K4, ``_coupling_inv_bwd_kernel``),
+  the VJPs of K1 and K2, in ``csrc/coupling_1x1_bwd.cu``. Each block of K3
+  or K4 writes its share of the eight weight and bias gradients into its own
+  slot of a scratch buffer; a second kernel of that file
+  (``reduce_weight_grads``) sums the slots in a fixed order.
+
+The sources' headers state what bounds each kernel on an H100 (arithmetic)
+and how the designs deal with weights that do not fit in a block's shared
+memory and with the cross-block gradient sum.
 
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel or
-raises, a CPU tensor takes the plain version (four ``torch.matmul`` and the
-elementwise chain, in the same module). Nothing falls back from one to the
-other. These two kernels have no backward yet: under autograd with a tensor
-that requires grad, the CUDA path raises instead of returning a result with
-no gradient path.
+raises, a CPU tensor takes the plain version (``torch.matmul`` and the
+elementwise chain, in this module). Nothing falls back from one to the
+other. :class:`FusedCoupling1x1` and :class:`FusedCouplingInverse1x1` are
+the differentiable ops (counterparts of ``make_fused_coupling_full`` and
+``make_fused_coupling_full_inv``): K1 or K2 forward, K3 or K4 backward, with
+only the input and the weights saved.
 
-Each wrapper counts its launches in a plain integer attribute,
-``fused_glow_forward_1x1.launches`` and ``fused_glow_inverse_1x1.launches``.
+Each wrapper counts its launches in a plain integer attribute
+(``fused_glow_forward_1x1.launches`` and so on); :func:`launch_counts`
+reads them all.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from sin_inn_tpu_torch.ops.coupling import glow_log_e
 from sin_inn_tpu_torch.ops.cuda import _build
 
 # dynamic shared memory a block may use on Hopper
 _MAX_SMEM = 232_448
+
+# the leaves of one coupling's params, in the kernels' operand order
+LEAVES = (("s2", "conv1", "w"), ("s2", "conv1", "b"),
+          ("s2", "conv2", "w"), ("s2", "conv2", "b"),
+          ("s1", "conv1", "w"), ("s1", "conv1", "b"),
+          ("s1", "conv2", "w"), ("s1", "conv2", "b"))
+
+
+def param_leaves(params: Dict) -> List[torch.Tensor]:
+    """One coupling's eight OIHW tensors in the order of :data:`LEAVES`."""
+    return [params[s][c][k] for s, c, k in LEAVES]
+
+
+def params_from_leaves(leaves: Sequence[torch.Tensor]) -> Dict:
+    out: Dict = {}
+    for (s, c, k), t in zip(LEAVES, leaves):
+        out.setdefault(s, {}).setdefault(c, {})[k] = t
+    return out
 
 
 def _mats(params: Dict, c: int, len1: int) -> Tuple[List[torch.Tensor], int]:
@@ -57,6 +86,19 @@ def _mats(params: Dict, c: int, len1: int) -> Tuple[List[torch.Tensor], int]:
                     f"C={c}, len1={len1}, hidden={hidden}")
             mats += [w[:, :, 0, 0].t(), b]
     return mats, hidden
+
+
+def _grads_to_params(dw2a, db2a, dw2b, db2b, dw1a, db1a, dw1b, db1b) -> Dict:
+    """(cin, cout) weight gradients and bias gradients -> OIHW params."""
+    conv = lambda dw, db: {"w": dw.t().contiguous()[:, :, None, None],
+                           "b": db}
+    return {"s2": {"conv1": conv(dw2a, db2a), "conv2": conv(dw2b, db2b)},
+            "s1": {"conv1": conv(dw1a, db1a), "conv2": conv(dw1b, db1b)}}
+
+
+def _log_e_prime(s: torch.Tensor, clamp: float) -> torch.Tensor:
+    """d/ds of ``glow_log_e``: (2/pi) / (1 + (s/clamp)^2)."""
+    return (2.0 / torch.pi) / (1.0 + (s / clamp) ** 2)
 
 
 def _plain(params: Dict, x: torch.Tensor, clamp: float, len1: int,
@@ -101,6 +143,89 @@ def fused_glow_inverse_1x1_plain(params: Dict, y: torch.Tensor, clamp: float,
     return _plain(params, y, clamp, len1, inverse=True)
 
 
+def _plain_backward(params: Dict, x: torch.Tensor, g: torch.Tensor,
+                    clamp: float, len1: int, inverse: bool):
+    """The hand-derived reverse chains of coupling.py:269-331 (forward) and
+    :421-486 (inverse) in torch. Returns (dparams, dx)."""
+    c = x.shape[-1]
+    (w2a, b2a, w2b, b2b, w1a, b1a, w1b, b1b), _ = _mats(params, c, len1)
+    len2 = c - len1
+    v = x.reshape(-1, c).float()
+    gg = g.reshape(-1, c).float()
+    le = lambda s: glow_log_e(s, clamp)
+    lep = lambda s: _log_e_prime(s, clamp)
+
+    if not inverse:
+        x1, x2 = v[:, :len1], v[:, len1:]
+        gy1, gy2 = gg[:, :len1], gg[:, len1:]
+        # recompute the forward
+        h2 = torch.relu(x2 @ w2a + b2a)
+        r2 = h2 @ w2b + b2b
+        s2, t2 = r2[:, :len1], r2[:, len1:]
+        e2 = torch.exp(le(s2))
+        y1 = e2 * x1 + t2
+        h1 = torch.relu(y1 @ w1a + b1a)
+        s1 = (h1 @ w1b + b1b)[:, :len2]
+        e1 = torch.exp(le(s1))
+        # y2 = e1 x2 + t1
+        gx2 = gy2 * e1
+        gr1 = torch.cat([gy2 * x2 * e1 * lep(s1), gy2], dim=1)
+        gz1 = torch.where(h1 > 0, gr1 @ w1b.t(), 0.0)
+        gy1 = gy1 + gz1 @ w1a.t()
+        # y1 = e2 x1 + t2
+        gx1 = gy1 * e2
+        gr2 = torch.cat([gy1 * x1 * e2 * lep(s2), gy1], dim=1)
+        gz2 = torch.where(h2 > 0, gr2 @ w2b.t(), 0.0)
+        gx2 = gx2 + gz2 @ w2a.t()
+        dx = torch.cat([gx1, gx2], dim=1)
+        a2, a1 = x2, y1
+    else:
+        y1, y2 = v[:, :len1], v[:, len1:]
+        gx1, gx2 = gg[:, :len1], gg[:, len1:]
+        # recompute the inverse
+        h1 = torch.relu(y1 @ w1a + b1a)
+        r1 = h1 @ w1b + b1b
+        s1, t1 = r1[:, :len2], r1[:, len2:]
+        e1inv = torch.exp(-le(s1))
+        x2 = (y2 - t1) * e1inv
+        h2 = torch.relu(x2 @ w2a + b2a)
+        r2 = h2 @ w2b + b2b
+        s2, t2 = r2[:, :len1], r2[:, len1:]
+        e2inv = torch.exp(-le(s2))
+        x1 = (y1 - t2) * e2inv
+        # x1 = (y1 - t2) e2inv
+        gy1 = gx1 * e2inv
+        gr2 = torch.cat([-gx1 * x1 * lep(s2), -gx1 * e2inv], dim=1)
+        gz2 = torch.where(h2 > 0, gr2 @ w2b.t(), 0.0)
+        gx2 = gx2 + gz2 @ w2a.t()
+        # x2 = (y2 - t1) e1inv
+        gy2 = gx2 * e1inv
+        gr1 = torch.cat([-gx2 * x2 * lep(s1), -gx2 * e1inv], dim=1)
+        gz1 = torch.where(h1 > 0, gr1 @ w1b.t(), 0.0)
+        gy1 = gy1 + gz1 @ w1a.t()
+        dx = torch.cat([gy1, gy2], dim=1)
+        a2, a1 = x2, y1
+    dparams = _grads_to_params(
+        a2.t() @ gz2, gz2.sum(0), h2.t() @ gr2, gr2.sum(0),
+        a1.t() @ gz1, gz1.sum(0), h1.t() @ gr1, gr1.sum(0))
+    return dparams, dx.to(x.dtype).reshape(x.shape)
+
+
+def fused_glow_backward_1x1_plain(params: Dict, x: torch.Tensor,
+                                  g: torch.Tensor, clamp: float, len1: int):
+    """Plain version of K3: the VJP of the fused forward at x for the
+    cotangent g. Returns (dparams, dx), dparams shaped like params."""
+    return _plain_backward(params, x, g, clamp, len1, inverse=False)
+
+
+def fused_glow_inverse_backward_1x1_plain(params: Dict, y: torch.Tensor,
+                                          g: torch.Tensor, clamp: float,
+                                          len1: int):
+    """Plain version of K4: the VJP of the fused inverse at y for the
+    cotangent g. Returns (dparams, dy)."""
+    return _plain_backward(params, y, g, clamp, len1, inverse=True)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("coupling_1x1")
@@ -117,30 +242,61 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(params: Dict, x: torch.Tensor, clamp: float, len1: int,
-            inverse: bool) -> torch.Tensor:
-    """One kernel launch on the current stream. Returns the output; the
-    caller counts the launch."""
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.library("coupling_1x1_bwd")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in ("sininn_coupling_1x1_bwd_smem_bytes",
+               "sininn_coupling_1x1_bwd_slot_floats"):
+        getattr(lib, fn).argtypes = [i32, i32, i32]
+        getattr(lib, fn).restype = i64
+    lib.sininn_coupling_1x1_bwd_blocks.argtypes = [
+        i32, i32, i64, i32, i32, i32, ctypes.POINTER(i32)]
+    lib.sininn_coupling_1x1_bwd_blocks.restype = i32
+    lib.sininn_coupling_1x1_bwd.argtypes = (
+        [i32, i32, ptr, ptr, ptr, i64, i32, i32, i32] + [ptr] * 12
+        + [ctypes.c_float, ptr, i32, ptr])
+    lib.sininn_coupling_1x1_bwd.restype = i32
+    lib.sininn_reduce_partials.argtypes = [ptr, i32, i64, ptr, ptr]
+    lib.sininn_reduce_partials.restype = i32
+    lib.sininn_error_string.argtypes = [i32]
+    lib.sininn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_input(x: torch.Tensor, what: str) -> None:
     if x.dim() != 4:
-        raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
+        raise ValueError(f"expected an NHWC {what}, got shape "
+                         f"{tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"coupling kernel takes float32 or bfloat16 "
                         f"activations, got {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError("coupling kernel needs a contiguous NHWC input")
+        raise ValueError(f"coupling kernel needs a contiguous NHWC {what}")
+
+
+def _check_weights(tensors: Sequence[torch.Tensor], device) -> None:
+    for t in tensors:
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"coupling weights must be float32 on "
+                             f"{device}, got {t.dtype} on {t.device}")
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.sininn_error_string(err).decode())
+
+
+def _launch(params: Dict, x: torch.Tensor, clamp: float, len1: int,
+            inverse: bool) -> torch.Tensor:
+    """One K1 or K2 launch on the current stream. Returns the output; the
+    caller counts the launch."""
+    _check_input(x, "input")
     c = x.shape[-1]
     mats, hidden = _mats(params, c, len1)
-    if torch.is_grad_enabled() and (x.requires_grad or
-                                    any(t.requires_grad for t in mats)):
-        raise RuntimeError(
-            "fused 1x1 coupling kernels have no gradient yet: backward "
-            "kernels come in the training slice (run under "
-            "torch.inference_mode() or torch.no_grad())")
-    for t in mats:
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError(f"coupling weights must be float32 on "
-                             f"{x.device}, got {t.dtype} on {t.device}")
-    mats = [t.contiguous() for t in mats]
+    _check_weights(mats, x.device)
+    mats = [t.detach().contiguous() for t in mats]
     lib = _lib()
     smem = lib.sininn_coupling_1x1_smem_bytes(c, hidden)
     if smem > _MAX_SMEM:
@@ -154,19 +310,77 @@ def _launch(params: Dict, x: torch.Tensor, clamp: float, len1: int,
             int(inverse), int(x.dtype == torch.bfloat16), x.data_ptr(),
             out.data_ptr(), m, c, len1, hidden,
             *[t.data_ptr() for t in mats], float(clamp), stream)
-    if err != 0:
-        raise RuntimeError("coupling_1x1 kernel launch failed: "
-                           + lib.sininn_error_string(err).decode())
+    _raise_on(err, lib, "coupling_1x1")
     return out
+
+
+def _launch_backward(params: Dict, x: torch.Tensor, g: torch.Tensor,
+                     clamp: float, len1: int, inverse: bool):
+    """One K3 or K4 launch (counted here) and one reduction launch on the
+    current stream. Returns (dparams, dx)."""
+    _check_input(x, "input")
+    _check_input(g, "cotangent")
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} on "
+                         f"{g.device} does not match the input "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    c = x.shape[-1]
+    mats, hidden = _mats(params, c, len1)
+    _check_weights(mats, x.device)
+    mats = [t.detach().contiguous() for t in mats]
+    # (cout, cin) copies for the products with transposed weights: the
+    # OIHW weights as stored
+    mats_t = [params[s][conv]["w"].detach()[:, :, 0, 0].contiguous()
+              for s, conv in (("s2", "conv1"), ("s2", "conv2"),
+                              ("s1", "conv1"), ("s1", "conv2"))]
+    lib = _bwd_lib()
+    smem = lib.sininn_coupling_1x1_bwd_smem_bytes(c, len1, hidden)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"C={c}, hidden={hidden} needs {smem} bytes of "
+                         f"shared memory per block in the backward (max "
+                         f"{_MAX_SMEM})")
+    m = x.numel() // c
+    bf16 = int(x.dtype == torch.bfloat16)
+    slot = lib.sininn_coupling_1x1_bwd_slot_floats(c, len1, hidden)
+    dx = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        blocks = ctypes.c_int(0)
+        _raise_on(lib.sininn_coupling_1x1_bwd_blocks(
+            int(inverse), bf16, m, c, len1, hidden, ctypes.byref(blocks)),
+            lib, "coupling_1x1_bwd (grid)")
+        partials = torch.empty((blocks.value, slot), dtype=torch.float32,
+                               device=x.device)
+        err = lib.sininn_coupling_1x1_bwd(
+            int(inverse), bf16, x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            m, c, len1, hidden, *[t.data_ptr() for t in mats],
+            *[t.data_ptr() for t in mats_t], float(clamp),
+            partials.data_ptr(), blocks.value, stream)
+        _raise_on(err, lib, "coupling_1x1_bwd")
+        (fused_glow_inverse_backward_1x1 if inverse
+         else fused_glow_backward_1x1).launches += 1
+    grads = reduce_weight_grads(partials)
+    len2 = c - len1
+    sizes = [len2 * hidden, hidden, hidden * 2 * len1, 2 * len1,
+             len1 * hidden, hidden, hidden * 2 * len2, 2 * len2]
+    parts = list(torch.split(grads, sizes))
+    for i, shape in ((0, (len2, hidden)), (2, (hidden, 2 * len1)),
+                     (4, (len1, hidden)), (6, (hidden, 2 * len2))):
+        parts[i] = parts[i].view(shape)
+    return _grads_to_params(*parts), dx
+
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no coupling kernel for device {x.device}")
+    return x.device.type
 
 
 def fused_glow_forward_1x1(params: Dict, x: torch.Tensor, clamp: float,
                            len1: int) -> torch.Tensor:
     """Fused forward of a 1x1-subnet GLOW coupling. x: (N, H, W, C)."""
-    if x.device.type == "cpu":
+    if _device_of(x) == "cpu":
         return fused_glow_forward_1x1_plain(params, x, clamp, len1)
-    if x.device.type != "cuda":
-        raise ValueError(f"no coupling kernel for device {x.device}")
     if x.numel() == 0:
         return torch.empty_like(x)
     out = _launch(params, x, clamp, len1, inverse=False)
@@ -177,10 +391,8 @@ def fused_glow_forward_1x1(params: Dict, x: torch.Tensor, clamp: float,
 def fused_glow_inverse_1x1(params: Dict, y: torch.Tensor, clamp: float,
                            len1: int) -> torch.Tensor:
     """Fused inverse (exact inverse of the forward kernel). y: (N, H, W, C)."""
-    if y.device.type == "cpu":
+    if _device_of(y) == "cpu":
         return fused_glow_inverse_1x1_plain(params, y, clamp, len1)
-    if y.device.type != "cuda":
-        raise ValueError(f"no coupling kernel for device {y.device}")
     if y.numel() == 0:
         return torch.empty_like(y)
     out = _launch(params, y, clamp, len1, inverse=True)
@@ -188,9 +400,112 @@ def fused_glow_inverse_1x1(params: Dict, y: torch.Tensor, clamp: float,
     return out
 
 
-fused_glow_forward_1x1.launches = 0
-fused_glow_inverse_1x1.launches = 0
-KERNELS = (fused_glow_forward_1x1, fused_glow_inverse_1x1)
+def _zero_grads(params: Dict, x: torch.Tensor):
+    return (params_from_leaves([torch.zeros_like(t)
+                                for t in param_leaves(params)]),
+            torch.zeros_like(x))
+
+
+def fused_glow_backward_1x1(params: Dict, x: torch.Tensor, g: torch.Tensor,
+                            clamp: float, len1: int):
+    """VJP of the fused forward at x for the cotangent g (K3).
+    Returns (dparams, dx)."""
+    if _device_of(x) == "cpu":
+        return fused_glow_backward_1x1_plain(params, x, g, clamp, len1)
+    if x.numel() == 0:
+        return _zero_grads(params, x)
+    return _launch_backward(params, x, g, clamp, len1, inverse=False)
+
+
+def fused_glow_inverse_backward_1x1(params: Dict, y: torch.Tensor,
+                                    g: torch.Tensor, clamp: float, len1: int):
+    """VJP of the fused inverse at y for the cotangent g (K4).
+    Returns (dparams, dy)."""
+    if _device_of(y) == "cpu":
+        return fused_glow_inverse_backward_1x1_plain(params, y, g, clamp,
+                                                     len1)
+    if y.numel() == 0:
+        return _zero_grads(params, y)
+    return _launch_backward(params, y, g, clamp, len1, inverse=True)
+
+
+def reduce_weight_grads(partials: torch.Tensor) -> torch.Tensor:
+    """The sum over the first axis of K3's or K4's per-block gradient
+    partials (blocks, slot), taken in a fixed order by the reduction kernel
+    of ``csrc/coupling_1x1_bwd.cu``."""
+    if _device_of(partials) == "cpu":
+        return partials.sum(0)
+    if (partials.dim() != 2 or partials.dtype != torch.float32
+            or not partials.is_contiguous() or partials.numel() == 0):
+        raise ValueError(f"expected contiguous float32 (blocks, slot) "
+                         f"partials, got {tuple(partials.shape)} "
+                         f"{partials.dtype}")
+    blocks, slot = partials.shape
+    out = torch.empty(slot, dtype=torch.float32, device=partials.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(partials.device):
+        err = lib.sininn_reduce_partials(
+            partials.data_ptr(), blocks, slot, out.data_ptr(),
+            torch.cuda.current_stream(partials.device).cuda_stream)
+    _raise_on(err, lib, "reduce_partials")
+    reduce_weight_grads.launches += 1
+    return out
+
+
+class FusedCoupling1x1(torch.autograd.Function):
+    """K1 forward, K3 backward. ``apply(x, clamp, len1, *leaves)`` with the
+    eight OIHW leaves in :data:`LEAVES` order; gradients come back in the
+    leaves' own shapes."""
+
+    @staticmethod
+    def forward(ctx, x, clamp, len1, *leaves):
+        ctx.clamp, ctx.len1 = clamp, len1
+        ctx.save_for_backward(x, *leaves)
+        return fused_glow_forward_1x1(params_from_leaves(leaves), x, clamp,
+                                      len1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, *leaves = ctx.saved_tensors
+        dparams, dx = fused_glow_backward_1x1(
+            params_from_leaves(leaves), x, g.contiguous(), ctx.clamp,
+            ctx.len1)
+        return (dx, None, None, *param_leaves(dparams))
+
+
+class FusedCouplingInverse1x1(torch.autograd.Function):
+    """K2 forward, K4 backward; as :class:`FusedCoupling1x1`."""
+
+    @staticmethod
+    def forward(ctx, y, clamp, len1, *leaves):
+        ctx.clamp, ctx.len1 = clamp, len1
+        ctx.save_for_backward(y, *leaves)
+        return fused_glow_inverse_1x1(params_from_leaves(leaves), y, clamp,
+                                      len1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        y, *leaves = ctx.saved_tensors
+        dparams, dy = fused_glow_inverse_backward_1x1(
+            params_from_leaves(leaves), y, g.contiguous(), ctx.clamp,
+            ctx.len1)
+        return (dy, None, None, *param_leaves(dparams))
+
+
+def fused_coupling(params: Dict, x: torch.Tensor, clamp: float, len1: int,
+                   inverse: bool = False) -> torch.Tensor:
+    """The differentiable fused coupling (forward, or inverse)."""
+    fn = FusedCouplingInverse1x1 if inverse else FusedCoupling1x1
+    return fn.apply(x, clamp, len1, *param_leaves(params))
+
+
+KERNELS = (fused_glow_forward_1x1, fused_glow_inverse_1x1,
+           fused_glow_backward_1x1, fused_glow_inverse_backward_1x1,
+           reduce_weight_grads)
+for _k in KERNELS:
+    _k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:

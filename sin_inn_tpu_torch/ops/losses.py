@@ -1,17 +1,58 @@
-"""SR evaluation losses: reconstruction, latent NLL, PSNR.
+"""SR losses: reconstruction, MMD, latent NLL, PSNR.
 
-Counterpart of ``sin_inn_tpu/ops/losses.py``; ``mmd`` comes with the
-training slice.
+Counterpart of ``sin_inn_tpu/ops/losses.py``. The MMD gram products are
+plain ``torch.matmul`` (the reference left them to XLA).
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+# Inverse-multiquadratic kernel sets: the forward-pass MMD uses wide
+# kernels, the reverse pass narrow ones.
+MMD_KERNELS_FWD: Tuple[Tuple[float, float], ...] = ((0.2, 2), (1.5, 2), (3.0, 2))
+MMD_KERNELS_REV: Tuple[Tuple[float, float], ...] = ((0.2, 0.1), (0.2, 0.5), (0.2, 2))
 
 
 def reconstruction(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Mean squared error."""
     return torch.mean((x - y) ** 2)
+
+
+def mmd(x: torch.Tensor, y: torch.Tensor, rev: bool = False) -> torch.Tensor:
+    """Inverse-multiquadratic maximum mean discrepancy over flattened
+    samples. ``x``/``y`` are (N, ...) batches; trailing dims are flattened."""
+    kernels = MMD_KERNELS_REV if rev else MMD_KERNELS_FWD
+    n = x.shape[0]
+    xf = x.reshape(n, -1)
+    yf = y.reshape(n, -1)
+
+    xx = xf @ xf.t()
+    yy = yf @ yf.t()
+    xy = xf @ yf.t()
+
+    rx = torch.diagonal(xx)[None, :].expand_as(xx)
+    ry = torch.diagonal(yy)[None, :].expand_as(yy)
+
+    # max(d, 0), not clamp: the diagonal distances are exactly 0, where
+    # torch.maximum (like the reference's jnp.clip) passes half the
+    # gradient and torch.clamp all of it
+    zero = torch.zeros_like(xx)
+    dxx = torch.maximum(rx.t() + rx - 2.0 * xx, zero)
+    dyy = torch.maximum(ry.t() + ry - 2.0 * yy, zero)
+    dxy = torch.maximum(rx.t() + ry - 2.0 * xy, zero)
+
+    XX = torch.zeros_like(xx)
+    YY = torch.zeros_like(xx)
+    XY = torch.zeros_like(xx)
+    for ck, a in kernels:
+        XX = XX + ck ** a * ((ck + dxx) / a) ** -a
+        YY = YY + ck ** a * ((ck + dyy) / a) ** -a
+        XY = XY + ck ** a * ((ck + dxy) / a) ** -a
+
+    return torch.mean(XX + YY - 2.0 * XY)
 
 
 def latent_nll(z: torch.Tensor) -> torch.Tensor:

@@ -197,7 +197,7 @@ def test_sr_test_cli_end_to_end(tmp_path, video):
     assert os.path.isfile(out) and os.path.getsize(out) > 0
 
 
-@pytest.mark.parametrize("operation", ["train", "export"])
+@pytest.mark.parametrize("operation", ["export"])
 def test_cli_unported_operations_fail(operation, capsys):
     assert cli.main(["sr", operation, "--device", "cpu"]) != 0
     assert "not ported yet" in capsys.readouterr().err
@@ -211,3 +211,5 @@ def test_cuda_request_without_card_raises(monkeypatch, tmp_path, video):
         TSR.create_state(R.root_generator(0), cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LP.run_sr_test(cfg, video=video)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LP.run_sr_train(cfg, video=video)

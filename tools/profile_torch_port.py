@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's SRF serving path, on one card.
+"""Where the time goes in the PyTorch port's SRF paths, on one card.
 
-    python3 tools/profile_torch_port.py [--batches N] [--out DIR]
+    python3 tools/profile_torch_port.py [--train] [--batches N] [--out DIR]
 
 Builds the kernels, makes a seeded flagship SRF state (SRConfig defaults:
-scale 4, lr_window 10, 4 couplings, hidden 256) and random uint8 batches of
-40 windows at HR 352x640, then on ``cuda`` in the ``float32`` mode:
+scale 4, lr_window 10, 4 couplings, hidden 256) and random uint8 batches at
+HR 352x640, then on ``cuda`` in the ``float32`` mode:
 
-* times the infer step (``sr test``) and the eval step with CUDA events
-  (median of N after a warm-up);
-* traces one infer and one eval step with ``torch.profiler`` and prints the
-  device time by kernel and the device's busy share of the step's wall time.
+* serving (default): batches of 40 windows; times the infer step
+  (``sr test``) and the eval step with CUDA events (median of N after a
+  warm-up);
+* ``--train``: batches of 8 windows; times the train step (loss, backward,
+  Adam) the same way;
+* traces one step of each with ``torch.profiler`` and prints the device
+  time by kernel and the device's busy share of the step's wall time.
 
 Writes the profiler tables to DIR (default ``torch_port_profile``).
 """
@@ -81,6 +84,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", type=int, default=10)
     ap.add_argument("--out", default="torch_port_profile")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step at batch 8")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: needs a CUDA device", file=sys.stderr)
@@ -94,27 +99,41 @@ def main() -> int:
     _build.build_all()
 
     cfg = SRConfig(device="cuda", compute_dtype="float32")
-    spec, state = SR.create_state(R.root_generator(0), cfg)
+    if a.train:
+        spec, state = SR.create_train_state(R.root_generator(0), cfg)
+        b = cfg.batch_size
+    else:
+        spec, state = SR.create_state(R.root_generator(0), cfg)
+        b = cfg.val_batch_size
     gen = torch.Generator(device=dev).manual_seed(1)
-    b, s = cfg.val_batch_size, 2 * cfg.scale
+    s = 2 * cfg.scale
     hr = torch.randint(0, 256, (b, 352, 640, 3), generator=gen, device=dev,
                        dtype=torch.uint8)
     lr = torch.randint(0, 256, (b, 352 // s, 640 // s, cfg.lr_dims),
                        generator=gen, device=dev, dtype=torch.uint8)
-    infer = SR.make_infer_step(spec, cfg)
-    evals = SR.make_eval_step(spec, cfg)
     z_gen = torch.Generator(device=dev).manual_seed(2)
-    run_infer = lambda: infer(state.params, lr, z_gen)
-    run_eval = lambda: evals(state.params, {"hr": hr, "lr": lr}, z_gen)
+    if a.train:
+        train = SR.make_train_step(spec, cfg)
+        steps = (("train", lambda: train(state, {"hr": hr, "lr": lr}, None,
+                                         z_gen)),)
+    else:
+        infer = SR.make_infer_step(spec, cfg)
+        evals = SR.make_eval_step(spec, cfg)
+        steps = (("infer", lambda: infer(state.params, lr, z_gen)),
+                 ("eval", lambda: evals(state.params, {"hr": hr, "lr": lr},
+                                        z_gen)))
 
     K.reset_launch_counts()
-    for name, fn in (("infer", run_infer), ("eval", run_eval)):
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, fn in steps:
         med, lo, hi = _events_ms(fn, a.batches)
         print(f"[time] {name} step, batch {b}: median {med:.3f} ms "
               f"(min {lo:.3f}, max {hi:.3f}, {a.batches} runs) = "
               f"{1e3 * b / med:.1f} frames/s")
-    print(f"[time] launches over the timed runs: {K.launch_counts()}")
-    for name, fn in (("infer", run_infer), ("eval", run_eval)):
+    print(f"[time] launches over the timed runs: {K.launch_counts()}; peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+          " GiB")
+    for name, fn in steps:
         _profile(name, fn, a.out)
     return 0
 
