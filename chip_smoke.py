@@ -33,6 +33,27 @@ nothing of JAX or of the JAX package. Phases:
    route (``use_kernel="off"``) on one batch with the same noise (each leaf
    within a normwise relative error of 2e-2, the TF32 rounding of the
    convolutions; the loss within 1e-3); train frames/s over 10 steps.
+6. the windowed splat (K5) and gather (K6) against their plain versions at
+   the flow path's shapes (1 x 436 x 1024; K6 C=3, K5 C=5; dy=64, dx=128),
+   on a seeded smooth flow that leaves the window in part of the frame, so
+   the drop rule runs: K6 within 1e-5 + 1e-5 |plain| (it repeats the plain
+   arithmetic), K5 and its coverage channel within 1e-5 + 1e-5 |plain| (its
+   atomic sums run in another order); device time per call (torch.profiler:
+   every kernel and memset of the call) of each kernel, of its plain
+   version and, for K6, of ``grid_sample``, and each kernel's median time
+   between CUDA events (which includes the host's launch path);
+7. the flow path: a 6-frame synthetic 436x1024 video and a seeded
+   full-width ``RBF`` INR (E = 512, MLP 512-256-256-256-4) saved and
+   restored through the checkpoint store; ``flow_test_outputs`` over the 5
+   pairs (finite flows, Wang masks in {0, 1}, no K5/K6 launch: the
+   occlusion map is the exact scatter) and ``interpolate_frames`` at factor
+   2 (exactly 2 K5 + 2 K6 launches per mid-frame), each timed as frames/s;
+   alpha = 0 and 1 reproduce the endpoint frames within 1e-5; one mid-frame
+   and K5 on its splat input timed at the path's flow scale and at 16x it
+   (flows of Sintel magnitude, some beyond the window); the card against
+   the CPU on a small crop (flows within 1e-3 px, frames within 1e-3). The
+   phase never sets ``allow_tf32`` and checks that it stays off, and the
+   RBF encoding of the full pose grid is bitwise the same with it on.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each kernel's numbers; the last line is
@@ -67,6 +88,8 @@ REPLACES = {
     "fused_glow_inverse_1x1": "sin_inn_tpu/ops/pallas/coupling.py:111",
     "fused_glow_backward_1x1": "sin_inn_tpu/ops/pallas/coupling.py:256",
     "fused_glow_inverse_backward_1x1": "sin_inn_tpu/ops/pallas/coupling.py:412",
+    "splat_region": "sin_inn_tpu/ops/pallas/splat.py:57",
+    "gather_region": "sin_inn_tpu/ops/pallas/gather.py:79",
 }
 SOURCES = {
     "fused_glow_forward_1x1": "sin_inn_tpu_torch/csrc/coupling_1x1.cu",
@@ -74,8 +97,15 @@ SOURCES = {
     "fused_glow_backward_1x1": "sin_inn_tpu_torch/csrc/coupling_1x1_bwd.cu",
     "fused_glow_inverse_backward_1x1":
         "sin_inn_tpu_torch/csrc/coupling_1x1_bwd.cu",
+    "splat_region": "sin_inn_tpu_torch/csrc/splat_region.cu",
+    "gather_region": "sin_inn_tpu_torch/csrc/gather_region.cu",
 }
+COUPLING = ("fused_glow_forward_1x1", "fused_glow_inverse_1x1",
+            "fused_glow_backward_1x1", "fused_glow_inverse_backward_1x1")
 BACKWARD = ("fused_glow_backward_1x1", "fused_glow_inverse_backward_1x1")
+FLOW_H, FLOW_W = 436, 1024     # Sintel
+FLOW_FRAMES = 6
+DY, DX = 64, 128               # resolve_splat_bounds at 436x1024
 
 
 class SmokeFailure(Exception):
@@ -112,6 +142,25 @@ def median_ms(fn, reps: int) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: every kernel and memset it launches,
+    traced by torch.profiler over ``reps`` calls. A small kernel's event
+    time is mostly the host's launch path; this is the card's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(total_us > 0, "the profiler saw no device time")
+    return total_us / reps / 1e3
 
 
 def coupling_cost(m: int, c: int, hidden: int, elem_bytes: int):
@@ -182,7 +231,7 @@ def phase_kernels(dev):
     gen_x = torch.Generator(device=dev).manual_seed(4321)
     shapes = [(BATCH, HR_H // 4, HR_W // 4, 48),     # octave 1
               (BATCH, HR_H // 8, HR_W // 8, 192)]    # octave 2
-    rows = {n: [] for n in REPLACES}
+    rows = {n: [] for n in COUPLING[:2]}
     with torch.inference_mode():
         for shape in shapes:
             c = shape[-1]
@@ -295,7 +344,7 @@ def phase_train_kernels(dev):
     gen_x = torch.Generator(device=dev).manual_seed(8765)
     shapes = [(TRAIN_BATCH, HR_H // 4, HR_W // 4, 48),     # octave 1
               (TRAIN_BATCH, HR_H // 8, HR_W // 8, 192)]    # octave 2
-    rows = {n: [] for n in REPLACES}
+    rows = {n: [] for n in COUPLING}
     for shape in shapes:
         c = shape[-1]
         len1 = c // 2
@@ -689,6 +738,340 @@ def phase_train(dev, card: str, smi_line: str):
     return counts, stats
 
 
+def _window_flow(gen, dev):
+    """A seeded smooth flow (1, 436, 1024, 2) that leaves the dy=64 /
+    dx=128 window in part of the frame, plus a little noise."""
+    ys = torch.linspace(0.0, math.pi, FLOW_H, device=dev)[None, :, None]
+    xs = torch.linspace(0.0, 2 * math.pi, FLOW_W, device=dev)[None, None, :]
+    noise = torch.randn((1, FLOW_H, FLOW_W, 2), generator=gen, device=dev)
+    fx = 170.0 * torch.sin(xs + 0.5 * ys) + noise[..., 0]
+    fy = 85.0 * torch.cos(xs - ys) + noise[..., 1]
+    return torch.stack([fx, fy], -1).contiguous()
+
+
+def _close(got, ref, what: str) -> float:
+    e = (got - ref).abs()
+    check(bool(torch.isfinite(e).all()), f"{what}: non-finite")
+    check(bool((e <= 1e-5 + 1e-5 * ref.abs()).all()),
+          f"{what}: max abs err {e.max().item():.3e} exceeds "
+          f"1e-5 + 1e-5|plain|")
+    return e.max().item()
+
+
+def phase_flow_kernels(dev):
+    """K5/K6 against their plain versions at the flow path's shapes, with
+    flows beyond the window; times, bounds and the library yardstick."""
+    import torch.nn.functional as F
+
+    from sin_inn_tpu_torch.ops.cuda import gather as K6
+    from sin_inn_tpu_torch.ops.cuda import splat as K5
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    fl = _window_flow(gen, dev)
+    out_y = (fl[..., 1].abs() > DY - 1).float().mean().item()
+    out_x = (fl[..., 0].abs() > DX - 1).float().mean().item()
+    check(out_y > 0.05 and out_x > 0.05,
+          f"flow leaves the window at too few pixels ({out_y:.3f}, "
+          f"{out_x:.3f})")
+    img = torch.rand((1, FLOW_H, FLOW_W, 3), generator=gen, device=dev)
+    metric = -20.0 * torch.rand((1, FLOW_H, FLOW_W, 1), generator=gen,
+                                device=dev)
+    e = metric.exp()
+    cat = torch.cat([img * e, e, torch.ones_like(e)], -1).contiguous()
+    coord = K6.resample_coord(FLOW_H, FLOW_W)
+    px = FLOW_H * FLOW_W
+    rows = {}
+    with torch.inference_mode():
+        got = K6.gather_region(img, fl, DY, DX, coord)
+        ref = K6.gather_region_plain(img, fl, DY, DX, coord)
+        torch.cuda.synchronize()
+        err6 = _close(got, ref, "gather_region (K6)")
+        # the library yardstick: grid_sample on resample2d's normalised
+        # grid (NCHW input); the same function for flows in the window
+        ys, xs = torch.meshgrid(
+            torch.arange(FLOW_H, device=dev, dtype=torch.float32),
+            torch.arange(FLOW_W, device=dev, dtype=torch.float32),
+            indexing="ij")
+        grid = torch.stack([(xs + fl[0, ..., 0]) / (FLOW_W - 1) * 2 - 1,
+                            (ys + fl[0, ..., 1]) / (FLOW_H - 1) * 2 - 1],
+                           -1)[None]
+        nchw = img.permute(0, 3, 1, 2).contiguous()
+        lib = lambda: F.grid_sample(nchw, grid, mode="bilinear",
+                                    padding_mode="zeros",
+                                    align_corners=False)
+        nbytes = px * (3 + 2 + 3) * 4
+        flops = px * (16 + 9 * 3)
+        kern = lambda: K6.gather_region(img, fl, DY, DX, coord)
+        rows["gather_region"] = {
+            "shape": [1, FLOW_H, FLOW_W, 3], "max_abs_err": err6,
+            "ms": device_ms(kern, 50),
+            "plain_ms": device_ms(lambda: K6.gather_region_plain(
+                img, fl, DY, DX, coord), 10),
+            "library_ms": device_ms(lib, 50),
+            "event_ms": median_ms(kern, 50),
+            "bytes": nbytes, "flop": flops,
+            "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "ops_bound_ms": flops / PEAK_FP32 * 1e3}
+
+        got = K5.splat_region(cat, fl, DY, DX)
+        ref = K5.splat_region_plain(cat, fl, DY, DX)
+        torch.cuda.synchronize()
+        err5 = _close(got, ref, "splat_region (K5)")
+        cov_err = _close(got[..., 4:], ref[..., 4:], "K5 coverage channel")
+        exact = (ref[..., 4:] - K5.splat_region_plain(
+            cat[..., 4:].contiguous(), fl, 4 * DY, 4 * DX)).abs().max()
+        check(exact.item() > 0.1, "the window dropped no tap")
+        nbytes = px * (5 + 2 + 5) * 4
+        flops = px * (16 + 12 * 5)
+        kern = lambda: K5.splat_region(cat, fl, DY, DX)
+        rows["splat_region"] = {
+            "shape": [1, FLOW_H, FLOW_W, 5], "max_abs_err": err5,
+            "coverage_max_abs_err": cov_err,
+            "ms": device_ms(kern, 50),
+            "plain_ms": device_ms(lambda: K5.splat_region_plain(
+                cat, fl, DY, DX), 10),
+            "library_ms": None,
+            "event_ms": median_ms(kern, 50),
+            "bytes": nbytes, "flop": flops,
+            "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "ops_bound_ms": flops / PEAK_FP32 * 1e3}
+    for n, r in rows.items():
+        lib_s = ("" if r["library_ms"] is None
+                 else f", grid_sample {r['library_ms']:.4f} ms")
+        print(f"[flow kernels] {n} {r['shape']}: {r['ms']:.4f} ms on the "
+              f"device, {r['event_ms']:.4f} ms between events (plain "
+              f"{r['plain_ms']:.3f} ms{lib_s}; bound bytes "
+              f"{r['bytes_bound_ms']:.4f} / fp32 {r['ops_bound_ms']:.4f} ms)"
+              f" max abs err {r['max_abs_err']:.3e}")
+    print(f"[flow kernels] flow beyond the window at {out_y:.1%} (y) and "
+          f"{out_x:.1%} (x) of the pixels")
+    return rows
+
+
+def _all_counts():
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+    from sin_inn_tpu_torch.ops.cuda import gather as K6
+    from sin_inn_tpu_torch.ops.cuda import splat as K5
+
+    counts = {}
+    for mod in (K, K5, K6):
+        counts.update(mod.launch_counts())
+    return counts
+
+
+def _reset_all_counts():
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+    from sin_inn_tpu_torch.ops.cuda import gather as K6
+    from sin_inn_tpu_torch.ops.cuda import splat as K5
+
+    for mod in (K, K5, K6):
+        mod.reset_launch_counts()
+
+
+def phase_flow(dev, card: str, smi_line: str):
+    """Flow serving at Sintel size: checkpoint round trip, the RBF encoding
+    against the TF32 flag, flow test and interpolation with launch counts
+    and frames/s, endpoint exactness, a mid-frame on flows of Sintel
+    magnitude, and the card against the CPU on a small crop."""
+    from sin_inn_tpu_torch.core import rng as R
+    from sin_inn_tpu_torch.core.checkpoint import CheckpointStore
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.data.flow_media import FlowMedia
+    from sin_inn_tpu_torch.data.synthetic import moving_texture_video
+    from sin_inn_tpu_torch.models.inr import (build_inr, flat_leaves,
+                                              get_encoding, tree_to)
+    from sin_inn_tpu_torch.train import flow as FT
+    from sin_inn_tpu_torch.train import loop as LP
+
+    from sin_inn_tpu_torch.ops.cuda import gather as K6
+    from sin_inn_tpu_torch.ops.cuda import splat as K5
+
+    # the flow path itself never touches the TF32 flag: it is off here as
+    # PyTorch leaves it (and as phases 3-5 set it), and the RBF encoding is
+    # shown below not to depend on it
+    tf32 = torch.backends.cuda.matmul
+    check(not tf32.allow_tf32, "TF32 matmuls on at the start of the flow "
+                                "phase")
+    stats = {}
+    with tempfile.TemporaryDirectory() as work:
+        cfg = FlowConfig(device="cuda", checkpoints_dir=work + "/ck",
+                         results_dir=work + "/results")
+        check(cfg.net == "RBF" and cfg.num_frequencies == 256
+              and cfg.hidden_dim == 256 and cfg.num_layers == 3
+              and cfg.size == 436 and cfg.test_batch == 1
+              and cfg.occl == "wang",
+              "FlowConfig defaults are not the Sintel RBF config")
+        t0 = time.perf_counter()
+        media = FlowMedia(moving_texture_video(FLOW_FRAMES, FLOW_H, FLOW_W,
+                                               seed=1))
+        check(media.flow_scale == FLOW_W / 5.0, "flow_scale is not W/5")
+        scene = "chip_smoke"
+        spec, params, consts = build_inr(
+            R.named_fold(R.root_generator(cfg.random_seed), "init"),
+            cfg.net, cfg, dev)
+        check(spec.encoding_dim == 512 and [tuple(l["w"].shape) for l in
+                                            params["mlp"]] ==
+              [(512, 256), (256, 256), (256, 256), (256, 4)],
+              "the RBF net is not E=512, MLP 512-256-256-256-4")
+        CheckpointStore(LP.flow_ckpt_dir(cfg, scene)).save(
+            7, LP.flow_state_dict(params, consts, 7))
+        other = R.named_fold(R.root_generator(cfg.random_seed + 1), "init")
+        spec, rp, rc, _, step = LP._flow_create_and_restore(
+            cfg, other, scene, require="checkpoint missing")
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            flat_leaves({"p": params, "c": consts}),
+            flat_leaves({"p": rp, "c": rc})))
+        check(step == 7 and same, f"restore: step {step}, same {same}")
+        params, consts = rp, rc
+        print(f"[flow] synthetic video {media.video.shape}, RBF INR saved "
+              f"and restored, in {time.perf_counter() - t0:.1f} s")
+
+        # the RBF distance stays full fp32 whatever a user's process sets
+        # the TF32 flag to: the encoding of the whole Sintel pose grid is
+        # bitwise the same with TF32 matmuls allowed
+        pts = FT.pose_grid(torch.tensor([0.2], device=dev), FLOW_H,
+                           FLOW_W).reshape(-1, 3)
+        with torch.inference_mode():
+            enc_off = get_encoding(spec, params, consts, pts)
+            try:
+                tf32.allow_tf32 = True
+                enc_on = get_encoding(spec, params, consts, pts)
+            finally:
+                tf32.allow_tf32 = False
+        check(torch.equal(enc_off, enc_on),
+              "the RBF encoding changes with allow_tf32: max abs diff "
+              f"{(enc_off - enc_on).abs().max().item():.3e}")
+        del pts, enc_off, enc_on
+        print("[flow] RBF encoding of the 436x1024 grid: bitwise the same "
+              "with allow_tf32 on and off")
+
+        # flow test: one warm-up pass, then the counted and timed pass
+        check(not tf32.allow_tf32, "TF32 matmuls on")
+        LP.flow_test_outputs(cfg, media, spec, params, consts)
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = LP.flow_test_outputs(cfg, media, spec, params, consts)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_counts = _all_counts()
+        pairs = FLOW_FRAMES - 1
+        check_counts(test_counts, "flow test (the exact occlusion scatter)")
+        f12, masks = out["flow12"], out["masks"]
+        check(f12.shape == (pairs, FLOW_H, FLOW_W, 2)
+              and bool(np.isfinite(f12).all()),
+              f"flow test flows {f12.shape}, finite "
+              f"{bool(np.isfinite(f12).all())}")
+        check(masks.shape == (pairs, FLOW_H, FLOW_W, 1)
+              and set(np.unique(masks)) <= {0.0, 1.0},
+              f"occlusion masks {masks.shape} {np.unique(masks)[:5]}")
+        stats["test_fps"] = pairs / test_s
+        mag = np.sqrt((f12 ** 2).sum(-1))
+        print(f"[flow] flow test: {pairs} pairs in {test_s:.3f} s, "
+              f"|flow| mean {mag.mean():.2f} px, max {mag.max():.2f} px, "
+              f"visible {masks.mean():.3f}; launches {test_counts}")
+
+        # interpolation at factor 2: warm-up, then counted and timed
+        check(not tf32.allow_tf32, "TF32 matmuls on")
+        LP.interpolate_frames(cfg, media, spec, params, consts, 2)
+        _reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = LP.interpolate_frames(cfg, media, spec, params, consts, 2)
+        torch.cuda.synchronize()
+        interp_s = time.perf_counter() - t0
+        interp_counts = _all_counts()
+        check_counts(interp_counts, f"interpolation ({pairs} mid-frames, 2 "
+                                    "K5 + 2 K6 each)",
+                     splat_region=2 * pairs, gather_region=2 * pairs)
+        u8 = (np.clip(media.video, 0, 1) * 255).astype(np.uint8)
+        check(frames.shape == (2 * pairs + 1, FLOW_H, FLOW_W, 3)
+              and frames.dtype == np.uint8
+              and np.array_equal(frames[::2], u8),
+              f"interpolated frames {frames.shape} {frames.dtype}")
+        stats["interp_fps"] = pairs / interp_s
+        stats["counts"] = interp_counts
+        print(f"[flow] interpolation x2: {pairs} mid-frames ({len(frames)} "
+              f"frames out) in {interp_s:.3f} s; launches {interp_counts}")
+
+        # alpha = 0 and 1 reproduce the endpoints at full size on the card
+        pair = torch.from_numpy(media.video[2:4]).to(dev)
+        ends = []
+        for alpha, want in ((0.0, pair[0]), (1.0, pair[1])):
+            got = FT.frame_interp(spec, cfg, params, consts,
+                                  float(media.times[2]), pair, alpha,
+                                  media.flow_scale)
+            ends.append((got - want).abs().max().item())
+        check(max(ends) <= 1e-5, f"endpoint frames: max abs err {ends}")
+        print(f"[flow] alpha 0 / 1 reproduce the endpoints: max abs err "
+              f"{ends[0]:.3e} / {ends[1]:.3e}")
+
+        # the seeded net's flows are a few px; the same net at 16x the
+        # flow scale gives flows of Sintel magnitude (tens of px, some
+        # beyond the window): one mid-frame timed, and K5 on its splat
+        # input, beside the same at the path's scale
+        t2 = float(media.times[2])
+        for tag, sc in (("path", media.flow_scale),
+                        ("x16", 16.0 * media.flow_scale)):
+            with torch.inference_mode():
+                f01, _ = FT.flow_infer(spec, params, consts,
+                                       torch.tensor([t2], device=dev), sc,
+                                       FLOW_H, FLOW_W)
+                mid = FT.frame_interp(spec, cfg, params, consts, t2, pair,
+                                      0.5, sc)
+                check(bool(torch.isfinite(mid).all()),
+                      f"mid-frame at flow scale {tag}: non-finite")
+                frame0 = pair[0:1]
+                m0 = (frame0 - K6.resample2d_region(pair[1:2], f01, DY, DX)
+                      ).abs().mean(-1, keepdim=True)
+                e = torch.exp(-20.0 * m0)
+                cat = torch.cat([frame0 * e, e, torch.ones_like(e)],
+                                -1).contiguous()
+                half = (0.5 * f01).contiguous()
+                mag = f01.norm(dim=-1)
+                beyond = ((f01[..., 1].abs() > DY - 1)
+                          | (f01[..., 0].abs() > DX - 1)).float().mean()
+                stats[f"scale_{tag}"] = {
+                    "flow_mean_px": mag.mean().item(),
+                    "flow_max_px": mag.max().item(),
+                    "beyond_window": beyond.item(),
+                    "mid_frame_ms": median_ms(lambda: FT.frame_interp(
+                        spec, cfg, params, consts, t2, pair, 0.5, sc), 10),
+                    "k5_device_ms": device_ms(lambda: K5.splat_region(
+                        cat, half, DY, DX), 20)}
+            r = stats[f"scale_{tag}"]
+            print(f"[flow] flow scale {tag} ({sc:.1f}): |flow| mean "
+                  f"{r['flow_mean_px']:.2f} px, max {r['flow_max_px']:.2f} "
+                  f"px, beyond the window at {r['beyond_window']:.2%}; "
+                  f"mid-frame {r['mid_frame_ms']:.3f} ms between events, "
+                  f"K5 {r['k5_device_ms']:.4f} ms on the device")
+
+        # the card against the CPU on a small crop (kernel route pinned)
+        small = cfg.replace(splat_max_dy=16, splat_max_dx=16)
+        crop = np.ascontiguousarray(media.video[2:4, :40, :64])
+        t2 = torch.tensor([float(media.times[2])])
+        res = []
+        for d in (dev, torch.device("cpu")):
+            p_, c_ = tree_to(params, d), tree_to(consts, d)
+            fl, _ = FT.flow_infer(spec, p_, c_, t2.to(d), 12.8, 40, 64)
+            mid = FT.frame_interp(spec, small, p_, c_, float(t2),
+                                  torch.from_numpy(crop).to(d), 0.5, 12.8)
+            res.append((fl.cpu(), mid.cpu()))
+        (fg, mg), (fc, mc) = res
+        ferr = (fg - fc).abs().max().item()
+        merr = (mg - mc).abs().max().item()
+        check(ferr <= 1e-3 and merr <= 1e-3,
+              f"card vs CPU on a 40x64 crop: flows {ferr:.3e} px, frame "
+              f"{merr:.3e} (limits 1e-3)")
+        print(f"[flow] card vs CPU (40x64 crop): flows max abs err "
+              f"{ferr:.3e} px, mid-frame {merr:.3e}")
+        check(not tf32.allow_tf32, "TF32 matmuls on")
+        stats["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"[flow] peak device memory {stats['peak_gib']:.2f} GiB, on {card} "
+          f"({smi_line})")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -702,12 +1085,14 @@ def main() -> int:
         train_rows, bwd_bf16_err = phase_train_kernels(dev)
         counts, fps = phase_path(dev, card)
         train_counts, train = phase_train(dev, card, smi_line)
+        flow_rows = phase_flow_kernels(dev)
+        flow = phase_flow(dev, card, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     add_counts(counts, train_counts)
     kernels = []
-    for n in REPLACES:
+    for n in COUPLING:
         # K1/K2: the eval/infer shapes (batch 40), as before, with the
         # training shapes beside them; K3/K4: the training shapes
         rs = rows.get(n) or train_rows[n]
@@ -730,6 +1115,20 @@ def main() -> int:
             entry["reduce_launches"] = counts["reduce_weight_grads"]
             entry["reduce_ms"] = sum(r["reduce_ms"] for r in rs)
         kernels.append(entry)
+    for n, r in flow_rows.items():
+        kernels.append({
+            "name": n, "route": "cuda", "source": SOURCES[n],
+            "replaces": REPLACES[n], "launches": flow["counts"][n],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": max(r["bytes_bound_ms"], r["ops_bound_ms"]),
+            "bound_by": ("bytes" if r["bytes_bound_ms"] >= r["ops_bound_ms"]
+                         else "operations"),
+            "library_ms": r["library_ms"], "shapes": [r]})
+    print(f"[flow] flow test {flow['test_fps']:.2f} frames/s (pairs), "
+          f"on {card} ({smi_line})")
+    print(f"[flow] interpolation {flow['interp_fps']:.2f} mid-frames/s, "
+          f"on {card} ({smi_line})")
     print(f"[done] sr test {fps:.2f} frames/s; train "
           f"{train['frames_per_sec']:.2f} frames/s; bf16 err {bf16_err:.3e}"
           f" (K3 {bwd_bf16_err:.3e}); total "

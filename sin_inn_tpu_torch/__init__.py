@@ -8,5 +8,9 @@ Ported so far: the SRF ``sr train`` and ``sr test`` entry points and the
 validation step, with the fused 1x1 GLOW coupling forward and inverse and
 their backward passes as hand-written CUDA kernels
 (``ops/cuda/coupling.py``, ``csrc/coupling_1x1.cu``,
-``csrc/coupling_1x1_bwd.cu``).
+``csrc/coupling_1x1_bwd.cu``); and flow serving, ``flow test`` and ``flow
+interpolate`` with the non-progressive INRs, with the windowed splat and
+gather as hand-written CUDA kernels (``ops/cuda/splat.py``,
+``ops/cuda/gather.py``, ``csrc/splat_region.cu``,
+``csrc/gather_region.cu``).
 """

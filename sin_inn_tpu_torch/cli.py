@@ -2,8 +2,11 @@
 
 ``python -m sin_inn_tpu_torch.cli sr {train,test} ...`` takes the
 reference's ``sr`` flags plus ``--device`` (default ``cuda``; a CUDA request
-without a card fails) and ``--remat``. ``sr export`` is not ported yet and
-exits non-zero.
+without a card fails) and ``--remat``. ``python -m sin_inn_tpu_torch.cli
+flow {test,interpolate} ...`` takes the reference's data, net, occlusion
+and window-bound flags, and ``--device``. ``sr
+export`` and ``flow {train,export,summarize,sintel}`` are not ported yet and
+exit with code 2.
 """
 
 from __future__ import annotations
@@ -12,9 +15,10 @@ import argparse
 import sys
 from typing import List, Optional
 
-from sin_inn_tpu_torch.core.config import COMPUTE_DTYPES, SRConfig
+from sin_inn_tpu_torch.core.config import COMPUTE_DTYPES, FlowConfig, SRConfig
 
-_NOT_PORTED = ("export",)
+_NOT_PORTED = {"sr": ("export",),
+               "flow": ("train", "export", "summarize", "sintel")}
 
 
 def _sr_parser(sub):
@@ -87,18 +91,81 @@ def sr_config_from_args(a) -> SRConfig:
     )
 
 
+def _splat_bound(s: str):
+    """'auto' | 'off' | int for the splat window flags."""
+    if s in ("auto", "off"):
+        return s
+    return int(s)
+
+
+def _flow_parser(sub):
+    ap = sub.add_parser("flow", help="INR optical flow / video interpolation")
+    ap.add_argument("operation",
+                    choices=["train", "test", "summarize", "sintel",
+                             "export", "interpolate"])
+    ap.add_argument("--interp-factor", type=int, default=2, metavar="N",
+                    help="flow interpolate: temporal upsampling factor "
+                         "(N-1 synthesized frames per adjacent pair)")
+    ap.add_argument("--input-video",
+                    default="../datasets/sintel/training/final/alley_1")
+    ap.add_argument("--name", default="temp")
+    ap.add_argument("--end", type=int)
+    ap.add_argument("--step", type=int)
+    ap.add_argument("--size", default=436, type=int)
+    ap.add_argument("--test-size", default=436, type=int)
+    ap.add_argument("--test-batch", default=1, type=int)
+    ap.add_argument("--net", default="RBF")
+    ap.add_argument("--occl", default="wang", choices=["brox", "wang", "none"])
+    ap.add_argument("--occl-thresh", default=0.7, type=float)
+    ap.add_argument("--num-frequencies", type=int, default=256)
+    ap.add_argument("--hidden-dim", type=int, default=256)
+    ap.add_argument("--num-layers", type=int, default=3)
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=list(COMPUTE_DTYPES))
+    ap.add_argument("--splat-max-dy", type=_splat_bound, default="auto",
+                    help="splat/warp window row bound |dy| <= N px: 'auto' "
+                         "(size-scaled), 'off' (exact scatter), or an int")
+    ap.add_argument("--splat-max-dx", type=_splat_bound, default="auto",
+                    help="window column bound: 'auto', 'off', or an int")
+    ap.add_argument("--flow-dir", default=None,
+                    help="precomputed GT flow dir (.flo/.npy)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default), cuda:N or cpu")
+
+
+def flow_config_from_args(a) -> FlowConfig:
+    return FlowConfig(
+        input_video=a.input_video, name=a.name, end=a.end, step=a.step,
+        size=a.size, test_size=a.test_size, test_batch=a.test_batch,
+        net=a.net, occl=None if a.occl == "none" else a.occl,
+        occl_thresh=a.occl_thresh, num_frequencies=a.num_frequencies,
+        hidden_dim=a.hidden_dim, num_layers=a.num_layers,
+        compute_dtype=a.compute_dtype, splat_max_dy=a.splat_max_dy,
+        splat_max_dx=a.splat_max_dx, flow_dir=a.flow_dir, device=a.device,
+    )
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(prog="sin-inn-tpu-torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _sr_parser(sub)
+    _flow_parser(sub)
     a = parser.parse_args(argv)
 
-    if a.operation in _NOT_PORTED:
-        print(f"sr {a.operation}: not ported yet to sin_inn_tpu_torch "
-              "(use python -m sin_inn_tpu.cli)", file=sys.stderr)
+    if a.operation in _NOT_PORTED[a.command]:
+        print(f"{a.command} {a.operation}: not ported yet to "
+              "sin_inn_tpu_torch (use python -m sin_inn_tpu.cli)",
+              file=sys.stderr)
         return 2
     from sin_inn_tpu_torch.train import loop as L
 
+    if a.command == "flow":
+        cfg = flow_config_from_args(a)
+        if a.operation == "test":
+            print(L.run_flow_test(cfg))
+        else:
+            print(L.run_flow_interpolate(cfg, factor=a.interp_factor))
+        return 0
     cfg = sr_config_from_args(a)
     if a.operation == "train":
         out = L.run_sr_train(cfg)

@@ -1,7 +1,7 @@
-"""Typed SR config with derived-field validation.
+"""Typed SR and flow configs with derived-field validation.
 
-A copy of the reference package's ``SRConfig`` (``sin_inn_tpu/core/config.py``)
-with three differences:
+``SRConfig`` is a copy of the reference package's ``SRConfig``
+(``sin_inn_tpu/core/config.py``) with these differences:
 
 * ``device`` picks where entry points run: ``"cuda"`` (the default) or
   ``"cpu"``. A CUDA request without a card raises; nothing falls back.
@@ -13,13 +13,20 @@ with three differences:
 * ``donate_state`` has no counterpart: the Adam step updates the
   parameters and its moments in place, so no second copy of the state is
   ever made.
+
+``FlowConfig`` is the reference's ``FlowConfig`` narrowed to the fields the
+serving entry points (``flow test``, ``flow interpolate``) read, with the
+same ``device`` field. With both window bounds set, the splat and the metric
+warps run the windowed kernels (K5, K6) on CUDA tensors and their plain
+versions on CPU tensors. The training, controller, local-window and
+pseudo-GT producer fields come with the slices that read them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 COMPUTE_DTYPES = ("float32", "bfloat16", "float32_highest")
 
@@ -142,4 +149,116 @@ class SRConfig:
         return f"{self.scene}_{self.architecture}_{self.suffix}"
 
     def replace(self, **kw) -> "SRConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class FlowConfig:
+    """Config for serving a fitted INR: optical flow and interpolation.
+
+    The reference's ``FlowConfig`` (``sin_inn_tpu/core/config.py``)
+    narrowed to the fields ``flow test`` and ``flow interpolate`` read, with
+    the same defaults."""
+
+    WINDOW_BOUND_KEYS: ClassVar[Tuple[str, str]] = ("splat_max_dy",
+                                                    "splat_max_dx")
+
+    # Data
+    input_video: str = "../datasets/sintel/training/final/alley_1"
+    name: str = "temp"
+    end: Optional[int] = None
+    step: Optional[int] = None
+    size: int = 436
+    test_size: int = 436
+    test_batch: int = 1
+    # precomputed GT flow directory (.flo/.npy per frame pair)
+    flow_dir: Optional[str] = None
+
+    # Network
+    net: str = "RBF"
+    domain_dim: int = 3
+    num_frequencies: int = 256
+    std: float = 25.0
+    num_layers: int = 3
+    hidden_dim: int = 256
+    output_channels: int = 4
+    num_frequencies_pe: int = 4
+    std_rbf: float = 12.0
+
+    # Occlusion masks of ``flow test``
+    occl: Optional[str] = "wang"  # 'brox' | 'wang' | None
+    occl_thresh: float = 0.7
+    random_seed: int = 0
+    # Window bounds of the splat and the metric warps, in pixels: taps of
+    # flows beyond |flow_y| <= splat_max_dy - 1, |flow_x| <= splat_max_dx - 1
+    # are dropped. 'auto' = size-scaled (resolve_splat_bounds), None/'off' =
+    # the exact scatter and the exact warp, an int pins the bound. Both
+    # bounds set route the splat and the warps to the windowed kernels
+    # (K5, K6).
+    splat_max_dy: "Optional[int] | str" = "auto"
+    splat_max_dx: "Optional[int] | str" = "auto"
+
+    # Runtime
+    results_dir: str = "results"
+    checkpoints_dir: str = "checkpoints"
+    compute_dtype: str = "float32"
+    # torch device string; entry points never fall back from 'cuda'
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.occl not in ("brox", "wang", None):
+            raise ValueError(f"occl must be 'brox'|'wang'|None, got {self.occl}")
+        for name in self.WINDOW_BOUND_KEYS:
+            v = getattr(self, name)
+            if isinstance(v, str) and v not in ("auto", "off"):
+                raise ValueError(f"{name} must be an int, 'auto', 'off' or "
+                                 f"None, got {v!r}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                             f"got {self.compute_dtype!r}")
+        if (self._bound_off(self.splat_max_dy)
+                and isinstance(self.splat_max_dx, int)
+                and self.splat_max_dx > 0):
+            raise ValueError(
+                "splat_max_dx requires splat_max_dy (the windowed metric "
+                "warps engage only with both bounds set)")
+
+    @staticmethod
+    def _bound_off(v) -> bool:
+        return v is None or v == "off" or v == 0
+
+    @property
+    def bounds_resolved(self) -> bool:
+        """No window bound is left on 'auto' or 'off'."""
+        return not any(isinstance(getattr(self, k), str)
+                       for k in self.WINDOW_BOUND_KEYS)
+
+    def resolve_splat_bounds(self, h: int, w: int) -> "FlowConfig":
+        """Materialize the window bounds for a known frame size: ints, or
+        None for the exact routes.
+
+        'auto' picks ceil(dim/8) rounded up to a multiple of 16 (Sintel
+        436x1024 -> dy=64, dx=128) and takes the exact scatter for frames
+        under 128 px, unless splat_max_dx was pinned to an int. Idempotent
+        for resolved bounds. (The reference also resolves its local-window
+        bounds here; the port has no local windows yet.)"""
+        def auto(dim):
+            eighth = -(-dim // 8)                       # ceil(dim / 8)
+            return max(16, (eighth + 15) // 16 * 16)    # to multiple of 16
+
+        dy, dx = self.splat_max_dy, self.splat_max_dx
+        dx_pinned = isinstance(dx, int) and not self._bound_off(dx)
+        if dy == "auto":
+            dy = None if (min(h, w) < 128 and not dx_pinned) else auto(h)
+        elif self._bound_off(dy):
+            dy = None
+        if dx == "auto":
+            dx = None if dy is None else auto(w)
+        elif self._bound_off(dx):
+            dx = None
+        if dy is None:
+            dx = None
+        return self.replace(splat_max_dy=dy, splat_max_dx=dx)
+
+    def replace(self, **kw) -> "FlowConfig":
         return dataclasses.replace(self, **kw)

@@ -1,13 +1,14 @@
 """Parameters from the JAX package's layout into the port's.
 
 The JAX params list (aligned with the same spec) holds conv weights as HWIO
-numpy arrays; the port keeps ``torch.nn.Conv2d``'s OIHW. This is how tests,
+numpy arrays; the port keeps ``torch.nn.Conv2d``'s OIHW. The INR's dense
+layers keep the JAX layout, (fan_in, fan_out), unchanged. This is how tests,
 and any state trained with the JAX package, reach the port.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,3 +50,22 @@ def params_from_jax(spec: Sequence[LayerSpec], params_np: Sequence,
             continue
         out.append(glow_params_from_jax(p, device, dtype))
     return out
+
+
+def _tree_from_np(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_from_np(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_from_np(v, device, dtype) for v in tree]
+    return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
+
+
+def inr_params_from_jax(params_np: Dict, consts_np: Dict, device="cpu",
+                        dtype=torch.float32) -> Tuple[Dict, Dict]:
+    """An INR's JAX params and consts (numpy leaves) -> the port's.
+
+    ``params["mlp"][i]["w"]`` stays (fan_in, fan_out) and ``b`` (fan_out,);
+    ``consts["enc"]`` keeps its names (RBF: ``centres`` (E, d), ``sigma``
+    (E,))."""
+    return (_tree_from_np(params_np, device, dtype),
+            _tree_from_np(consts_np, device, dtype))

@@ -26,7 +26,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
 SOURCES = {"coupling_1x1": "coupling_1x1.cu",
-           "coupling_1x1_bwd": "coupling_1x1_bwd.cu"}
+           "coupling_1x1_bwd": "coupling_1x1_bwd.cu",
+           "gather_region": "gather_region.cu",
+           "splat_region": "splat_region.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,12 +1,15 @@
-"""Bilinear sampling and the affine warp of TCR, in plain PyTorch (NHWC).
+"""Bilinear sampling, the flow warps and the affine warp of TCR, in plain
+PyTorch (NHWC).
 
-Counterpart of the TCR half of ``sin_inn_tpu/ops/warp.py``
-(``sample_bilinear``, ``rotation_matrix_2d``, ``warp_affine``), which the
-reference computed as plain XLA outside any kernel. ``sample_bilinear``
-masks each of the four taps on its own, as the reference does: a tap
-outside the image contributes zero ('zeros') or reads the clamped edge
-('border'). The flow warps (``grid_sample``, ``resample2d``, ``flow_warp``)
-wait for the flow slice.
+Counterpart of ``sin_inn_tpu/ops/warp.py`` (``sample_bilinear``,
+``grid_sample``, ``resample2d``, ``flow_warp``, ``rotation_matrix_2d``,
+``warp_affine``), which the reference computed as plain XLA outside any
+kernel. ``sample_bilinear`` masks each of the four taps on its own, as the
+reference does: a tap outside the image contributes zero ('zeros') or reads
+the clamped edge ('border'). ``resample2d`` and ``flow_warp`` are the exact,
+unwindowed warps; the windowed one is the gather kernel
+(``ops/cuda/gather.py``). The windowed XLA form ``resample2d_windowed`` is
+not ported.
 """
 
 from __future__ import annotations
@@ -51,6 +54,51 @@ def sample_bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
             + tap(x0 + 1, y0, wx * (1 - wy))
             + tap(x0, y0 + 1, (1 - wx) * wy)
             + tap(x0 + 1, y0 + 1, wx * wy))
+
+
+def grid_sample(img: torch.Tensor, grid: torch.Tensor,
+                align_corners: bool = False,
+                padding: str = "zeros") -> torch.Tensor:
+    """torch.nn.functional.grid_sample's function (bilinear), NHWC, as the
+    reference writes it. grid: (N, Ho, Wo, 2) normalised (x, y) in
+    [-1, 1]."""
+    n, h, w, c = img.shape
+    gx, gy = grid[..., 0], grid[..., 1]
+    if align_corners:
+        x = (gx + 1.0) * 0.5 * (w - 1)
+        y = (gy + 1.0) * 0.5 * (h - 1)
+    else:
+        x = ((gx + 1.0) * w - 1.0) * 0.5
+        y = ((gy + 1.0) * h - 1.0) * 0.5
+    return sample_bilinear(img, x, y, padding=padding)
+
+
+def _pixel_grid(h: int, w: int, like: torch.Tensor):
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=like.dtype, device=like.device),
+        torch.arange(w, dtype=like.dtype, device=like.device), indexing="ij")
+    return ys[None], xs[None]
+
+
+def resample2d(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Backward warp by flow, out(p) = img(p + flow(p)), as the reference's
+    ``Resample2d``: coordinates normalised by (size - 1) but sampled with
+    align_corners=False and zeros padding. flow: (N, H, W, 2) (dx, dy)."""
+    n, h, w, _ = flow.shape
+    ys, xs = _pixel_grid(h, w, img)
+    grid = torch.stack([(xs + flow[..., 0]) / (w - 1) * 2.0 - 1.0,
+                        (ys + flow[..., 1]) / (h - 1) * 2.0 - 1.0], dim=-1)
+    return grid_sample(img, grid, align_corners=False, padding="zeros")
+
+
+def flow_warp(img: torch.Tensor, flow: torch.Tensor,
+              padding: str = "border") -> torch.Tensor:
+    """Backward warp with align_corners=True and border padding (the
+    occlusion estimator's warp)."""
+    n, h, w, _ = flow.shape
+    ys, xs = _pixel_grid(h, w, img)
+    return sample_bilinear(img, xs + flow[..., 0], ys + flow[..., 1],
+                           padding=padding)
 
 
 def rotation_matrix_2d(center: torch.Tensor, angle_deg: torch.Tensor,

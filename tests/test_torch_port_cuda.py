@@ -8,7 +8,9 @@ fixture, never at import). Run on a machine with the card and nvcc:
 Tolerance for fp32 storage: 1e-4 + 1e-4 |plain| (sums over the hidden width
 in another order, atanf against torch.atan); bf16 storage: one bf16
 rounding step. Weight and bias gradients of the backward kernels: 1e-3 of
-the largest |plain| of each (sums over all rows in another order).
+the largest |plain| of each (sums over all rows in another order). The
+windowed splat (K5) and gather (K6): 1e-5 + 1e-5 |plain| (K5 sums with
+atomics in a run-dependent order; K6 repeats the plain arithmetic).
 """
 
 import pytest
@@ -17,6 +19,8 @@ import torch
 from sin_inn_tpu_torch.core import rng as R
 from sin_inn_tpu_torch.ops import subnet as S
 from sin_inn_tpu_torch.ops.cuda import coupling as K
+from sin_inn_tpu_torch.ops.cuda import gather as K6
+from sin_inn_tpu_torch.ops.cuda import splat as K5
 
 pytestmark = pytest.mark.cuda
 
@@ -162,3 +166,70 @@ def test_kernel_refuses_what_it_cannot_take(dev):
         with pytest.raises(ValueError):
             K.fused_glow_backward_1x1(p, x, x[..., :12].contiguous(),
                                       CLAMP, 24)
+
+
+def _flow(gen, n, h, w, amp, dev):
+    """A smooth flow of amplitude ``amp`` px plus a little noise."""
+    ys = torch.linspace(0, 3.14, h, device=dev)[None, :, None]
+    xs = torch.linspace(0, 6.28, w, device=dev)[None, None, :]
+    fx = amp * torch.sin(xs + ys) + torch.randn((n, h, w), generator=gen,
+                                                device=dev)
+    fy = amp * torch.cos(xs - ys) + torch.randn((n, h, w), generator=gen,
+                                                device=dev)
+    return torch.stack([fx, fy], -1).contiguous()
+
+
+@pytest.mark.parametrize("shape,c,bounds,amp", [
+    ((2, 40, 50), 3, (8, 8), 5.0),        # in the window
+    ((1, 200, 300), 3, (8, 8), 20.0),     # beyond it: the drop rule
+    ((1, 436, 1024), 3, (64, 128), 90.0),  # the flow path's shape
+    ((1, 130, 260), 5, (13, 70), 30.0),   # unpadded bounds
+    ((300, 240, 8), 3, (8, 8), 3.0),      # more image rows than grid rows
+])
+def test_windowed_kernels_match_plain(dev, shape, c, bounds, amp):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n, h, w = shape
+    a = torch.rand((n, h, w, c), generator=gen, device=dev)
+    fl = _flow(gen, n, h, w, amp, dev)
+    K5.reset_launch_counts()
+    K6.reset_launch_counts()
+    for coord in (K6.resample_coord(h, w), ((1.0, 0.0), (1.0, 0.0))):
+        got = K6.gather_region(a, fl, *bounds, coord)
+        ref = K6.gather_region_plain(a, fl, *bounds, coord)
+        torch.cuda.synchronize()
+        assert ((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
+    v = torch.rand((n, h, w, 5), generator=gen, device=dev)
+    got = K5.splat_region(v, fl, *bounds)
+    ref = K5.splat_region_plain(v, fl, *bounds)
+    torch.cuda.synchronize()
+    assert ((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
+    assert K6.launch_counts() == {"gather_region": 2}
+    assert K5.launch_counts() == {"splat_region": 1}
+
+
+def test_softsplat_region_kernel_matches_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    img = torch.rand((1, 436, 1024, 3), generator=gen, device=dev)
+    fl = _flow(gen, 1, 436, 1024, 40.0, dev)
+    metric = -torch.rand((1, 436, 1024, 1), generator=gen, device=dev)
+    soft, cov = K5.softsplat_region_with_coverage(img, fl, metric, 64, 128)
+    cat = torch.cat([img * metric.exp(), metric.exp(),
+                     torch.ones_like(metric)], -1)
+    ref = K5.splat_region_plain(cat, fl, 64, 128)
+    assert ((cov - ref[..., -1:]).abs() <= 1e-5 + 1e-5 * ref[..., -1:].abs()
+            ).all()
+    den = ref[..., 3:4]
+    want = torch.where(den != 0, ref[..., :3] / torch.where(den == 0, 1.0,
+                                                            den), 0.0)
+    assert (soft - want).abs().max().item() <= 1e-4
+
+
+def test_windowed_kernels_refuse_what_they_cannot_take(dev):
+    a = torch.rand((1, 8, 8, 3), device=dev)
+    fl = torch.zeros((1, 8, 8, 2), device=dev)
+    with pytest.raises(ValueError):
+        K6.resample2d_region(a.transpose(1, 2), fl, 8, 8)
+    with pytest.raises(ValueError):
+        K5.splat_region(a, fl.cpu(), 8, 8)
+    with pytest.raises(TypeError):
+        K5.splat_region(a.half(), fl, 8, 8)

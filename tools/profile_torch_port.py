@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's SRF paths, on one card.
 
-    python3 tools/profile_torch_port.py [--train] [--batches N] [--out DIR]
+    python3 tools/profile_torch_port.py [--train | --flow] [--batches N]
+                                        [--out DIR]
 
 Builds the kernels, makes a seeded flagship SRF state (SRConfig defaults:
 scale 4, lr_window 10, 4 couplings, hidden 256) and random uint8 batches at
@@ -12,6 +13,10 @@ HR 352x640, then on ``cuda`` in the ``float32`` mode:
   warm-up);
 * ``--train``: batches of 8 windows; times the train step (loss, backward,
   Adam) the same way;
+* ``--flow``: instead of the SRF paths, the flow serving path at Sintel
+  size (436x1024) with a seeded full-width ``RBF`` INR (FlowConfig
+  defaults): one ``flow test`` pair (the INR query and the Wang occlusion
+  map) and one interpolated mid-frame (``frame_interp`` at alpha 0.5);
 * traces one step of each with ``torch.profiler`` and prints the device
   time by kernel and the device's busy share of the step's wall time.
 
@@ -80,12 +85,57 @@ def _profile(name, fn, out_dir):
               f"x{e.count:<4d} {e.key[:90]}")
 
 
+def _flow(a, dev) -> int:
+    import numpy as np
+
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.data.synthetic import moving_texture_video
+    from sin_inn_tpu_torch.models.inr import build_inr
+    from sin_inn_tpu_torch.ops.cuda import gather as K6
+    from sin_inn_tpu_torch.ops.cuda import splat as K5
+    from sin_inn_tpu_torch.ops.occlusion import occlusion_wang
+    from sin_inn_tpu_torch.train import flow as FT
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = FlowConfig(device="cuda")
+    h, w = cfg.size, 1024
+    spec, params, consts = build_inr(R.root_generator(0), cfg.net, cfg, dev)
+    pair = torch.from_numpy(np.ascontiguousarray(
+        moving_texture_video(2, h, w))).to(dev)
+    times = torch.tensor([-1.0], device=dev)
+    scale = w / 5.0
+
+    def test_pair():
+        f12, f21 = FT.flow_infer(spec, params, consts, times, scale, h, w)
+        return occlusion_wang(f12, f21, cfg.occl_thresh)
+
+    steps = (("flow_test_pair", test_pair),
+             ("interp_mid_frame", lambda: FT.frame_interp(
+                 spec, cfg, params, consts, -1.0, pair, 0.5, scale)))
+    K5.reset_launch_counts()
+    K6.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, fn in steps:
+        med, lo, hi = _events_ms(fn, a.batches)
+        print(f"[time] {name}, 1 x {h}x{w}: median {med:.3f} ms (min "
+              f"{lo:.3f}, max {hi:.3f}, {a.batches} runs) = "
+              f"{1e3 / med:.1f} per second")
+    print(f"[time] launches over the timed runs: {K5.launch_counts()} "
+          f"{K6.launch_counts()}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    for name, fn in steps:
+        _profile(name, fn, a.out)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", type=int, default=10)
     ap.add_argument("--out", default="torch_port_profile")
     ap.add_argument("--train", action="store_true",
                     help="profile the train step at batch 8")
+    ap.add_argument("--flow", action="store_true",
+                    help="profile flow test and interpolation at 436x1024")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: needs a CUDA device", file=sys.stderr)
@@ -98,6 +148,8 @@ def main() -> int:
     print(f"[card] {smi}; torch {torch.__version__}")
     _build.build_all()
 
+    if a.flow:
+        return _flow(a, dev)
     cfg = SRConfig(device="cuda", compute_dtype="float32")
     if a.train:
         spec, state = SR.create_train_state(R.root_generator(0), cfg)
