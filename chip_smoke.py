@@ -54,6 +54,33 @@ nothing of JAX or of the JAX package. Phases:
    the CPU on a small crop (flows within 1e-3 px, frames within 1e-3). The
    phase never sets ``allow_tf32`` and checks that it stays off, and the
    RBF encoding of the full pose grid is bitwise the same with it on.
+8. the training kernels of the flow path against their plain versions: the
+   gather kernel's gradient mode (K6 grads) at 1 x 436 x 1024 with C = 3 and
+   resample coordinates (the warp's backward) and C = 5 and raw coordinates
+   (the splat's backward), on phase 6's flow and on zero flow (where every
+   tap distance is 0 or 1 and both derivatives must be exactly 0 in raw
+   coordinates): out, dfx, dfy within 1e-5 + 1e-5 |plain|; the fused INR
+   backward (K7 backward, constant mask) at N = 446,464 for the ``RBF`` and
+   ``FFN`` nets at default widths: every weight and bias gradient within
+   1e-3 of the largest |plain| of its leaf in fp32 (sums over 446,464 rows
+   in another order), the bf16 operand mode within 1e-3 of the largest
+   |plain| of the bf16 plain version and within a normwise 2e-2 of the
+   fp32 plain result (two bf16 roundings per product, and the relu gates
+   they flip), two launches bitwise equal; times of each, the scratch
+   size; and a net whose widths the kernel cannot take (hidden 512) is
+   refused on the card with a ValueError, not handed to autograd;
+9. ``flow train``: the 6-frame 436x1024 video through ``run_flow_train`` at
+   the ``FlowConfig`` defaults (RBF, batch 1, Wang occlusion, bounds dy 64,
+   dx 128) for 2 epochs = 10 steps, then a resume to 3 epochs from the
+   checkpoint with the optimizer state; finite losses, the metrics file,
+   the sidecar; launch counts of one step exactly K5 2, K6 2, K6 grads 4, K7
+   backward 1 (and one reduction), K1-K4 0; the parameter gradients of one
+   step against ``use_kernel="off"`` (autograd through the plain INR)
+   within a normwise 1e-3; train pairs/s and step ms over 10 steps after 2
+   warm-up steps and the peak memory, for both routes, and the memory each
+   holds between its forward and its backward (the kernel route keeps no
+   (N, 512) tensor); ``flow test`` on the trained checkpoint with no kernel
+   launch at all.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each kernel's numbers; the last line is
@@ -62,6 +89,7 @@ with each kernel's numbers; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -90,6 +118,8 @@ REPLACES = {
     "fused_glow_inverse_backward_1x1": "sin_inn_tpu/ops/pallas/coupling.py:412",
     "splat_region": "sin_inn_tpu/ops/pallas/splat.py:57",
     "gather_region": "sin_inn_tpu/ops/pallas/gather.py:79",
+    "gather_region_grads": "sin_inn_tpu/ops/pallas/gather.py:148",
+    "fused_inr_backward": "sin_inn_tpu/ops/pallas/inr.py:181",
 }
 SOURCES = {
     "fused_glow_forward_1x1": "sin_inn_tpu_torch/csrc/coupling_1x1.cu",
@@ -99,6 +129,8 @@ SOURCES = {
         "sin_inn_tpu_torch/csrc/coupling_1x1_bwd.cu",
     "splat_region": "sin_inn_tpu_torch/csrc/splat_region.cu",
     "gather_region": "sin_inn_tpu_torch/csrc/gather_region.cu",
+    "gather_region_grads": "sin_inn_tpu_torch/csrc/gather_region.cu",
+    "fused_inr_backward": "sin_inn_tpu_torch/csrc/inr_bwd.cu",
 }
 COUPLING = ("fused_glow_forward_1x1", "fused_glow_inverse_1x1",
             "fused_glow_backward_1x1", "fused_glow_inverse_backward_1x1")
@@ -106,6 +138,7 @@ BACKWARD = ("fused_glow_backward_1x1", "fused_glow_inverse_backward_1x1")
 FLOW_H, FLOW_W = 436, 1024     # Sintel
 FLOW_FRAMES = 6
 DY, DX = 64, 128               # resolve_splat_bounds at 436x1024
+FLOW_TRAIN_EPOCHS = 2
 
 
 class SmokeFailure(Exception):
@@ -848,23 +881,24 @@ def phase_flow_kernels(dev):
     return rows
 
 
-def _all_counts():
+def _kernel_modules():
     from sin_inn_tpu_torch.ops.cuda import coupling as K
     from sin_inn_tpu_torch.ops.cuda import gather as K6
+    from sin_inn_tpu_torch.ops.cuda import inr as K7
     from sin_inn_tpu_torch.ops.cuda import splat as K5
 
+    return K, K5, K6, K7
+
+
+def _all_counts():
     counts = {}
-    for mod in (K, K5, K6):
+    for mod in _kernel_modules():
         counts.update(mod.launch_counts())
     return counts
 
 
 def _reset_all_counts():
-    from sin_inn_tpu_torch.ops.cuda import coupling as K
-    from sin_inn_tpu_torch.ops.cuda import gather as K6
-    from sin_inn_tpu_torch.ops.cuda import splat as K5
-
-    for mod in (K, K5, K6):
+    for mod in _kernel_modules():
         mod.reset_launch_counts()
 
 
@@ -1072,6 +1106,363 @@ def phase_flow(dev, card: str, smi_line: str):
     return stats
 
 
+def inr_backward_cost(n: int, widths):
+    """FLOP and bytes of one K7 backward launch with its reduction, for an
+    MLP of ``widths`` = [E, H, ..., H, O] over n points (d = 3): the
+    recompute of the hidden layers, every weight gradient, and the g chain
+    through all layers but the first, 2 FLOP per multiply-add; x and g read
+    once, each weight and bias read once and its gradient written once."""
+    mats = [a * b for a, b in zip(widths[:-1], widths[1:])]
+    flops = 2 * n * (sum(mats[:-1]) + sum(mats) + sum(mats[1:]))
+    params = sum(mats) + sum(widths[1:])
+    return flops, 4 * (n * (3 + widths[-1]) + 2 * params)
+
+
+def phase_flow_train_kernels(dev):
+    """K6 grads and K7 backward against their plain versions at the flow
+    train step's shapes; times, bounds, determinism."""
+    from sin_inn_tpu_torch.core import rng as R
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.models.inr import build_inr
+    from sin_inn_tpu_torch.ops.cuda import gather as K6
+    from sin_inn_tpu_torch.ops.cuda import inr as K7
+    from sin_inn_tpu_torch.train import flow as FT
+
+    fl = _window_flow(torch.Generator(device=dev).manual_seed(6), dev)
+    zero = torch.zeros_like(fl)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    px = FLOW_H * FLOW_W
+    grads_rows = []
+    for c, coord, tag in ((3, K6.resample_coord(FLOW_H, FLOW_W), "resample"),
+                          (5, K6.RAW, "raw")):
+        a = torch.rand((1, FLOW_H, FLOW_W, c), generator=gen, device=dev)
+        q = torch.randn((1, FLOW_H, FLOW_W, c), generator=gen, device=dev)
+        err = 0.0
+        for fname, f in (("window flow", fl), ("zero flow", zero)):
+            got = K6.gather_region_grads(a, f, q, DY, DX, coord)
+            ref = K6.gather_region_grads_plain(a, f, q, DY, DX, coord)
+            torch.cuda.synchronize()
+            for name, g_, r_ in zip(("out", "dfx", "dfy"), got, ref):
+                err = max(err, _close(g_, r_, f"gather_region_grads C={c} "
+                                              f"{tag}, {fname}, {name}"))
+            if fname == "zero flow" and tag == "raw":
+                # every tap distance is 0 or 1: dhat is 0 at both
+                check(not bool(got[1].any()) and not bool(got[2].any()),
+                      "K6 grads: zero flow in raw coordinates gives a "
+                      "non-zero derivative")
+                check(torch.equal(got[0], a), "K6 grads: zero flow in raw "
+                                              "coordinates is not the identity")
+        check(bool(K6.gather_region_grads(a, fl, q, DY, DX, coord)[1].any()),
+              "K6 grads: no flow derivative on the window flow")
+        nbytes = px * (3 * c + 2 + 2) * 4
+        flops = px * (24 + 24 * c)
+        kern = lambda: K6.gather_region_grads(a, fl, q, DY, DX, coord)
+        grads_rows.append({
+            "shape": [1, FLOW_H, FLOW_W, c], "coord": tag,
+            "max_abs_err": err, "ms": device_ms(kern, 50),
+            "plain_ms": device_ms(lambda: K6.gather_region_grads_plain(
+                a, fl, q, DY, DX, coord), 10),
+            "library_ms": None, "event_ms": median_ms(kern, 50),
+            "bytes": nbytes, "flop": flops,
+            "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "ops_bound_ms": flops / PEAK_FP32 * 1e3})
+        r = grads_rows[-1]
+        print(f"[flow train kernels] gather_region_grads {r['shape']} {tag}: "
+              f"{r['ms']:.4f} ms on the device, {r['event_ms']:.4f} ms "
+              f"between events (plain {r['plain_ms']:.3f} ms; bound bytes "
+              f"{r['bytes_bound_ms']:.4f} / fp32 {r['ops_bound_ms']:.4f} ms) "
+              f"max abs err {r['max_abs_err']:.3e}")
+
+    inr_rows = []
+    n = px
+    pts = FT.pose_grid(torch.tensor([0.2], device=dev), FLOW_H,
+                       FLOW_W).reshape(-1, 3).contiguous()
+    # a smooth cotangent with a mean, as a loss gives (an iid zero-mean one
+    # makes every gradient a sum that cancels, which measures rounding noise)
+    mix = torch.randn((3, 4), generator=gen, device=dev)
+    g = (1e-3 * (0.5 + torch.sin(2.0 * math.pi * (pts @ mix)))).contiguous()
+    for net, kind in (("RBF", "rbf"), ("FFN", "ff")):
+        cfg = FlowConfig(net=net, device="cuda")
+        spec, params, consts = build_inr(
+            R.named_fold(R.root_generator(8), "init"), net, cfg, dev)
+        layers = [(l["w"], l["b"]) for l in params["mlp"]]
+        widths = [layers[0][0].shape[0]] + [w.shape[1] for w, _ in layers]
+        check(widths == [512, 256, 256, 256, 4], f"{net} widths {widths}")
+        mask = torch.ones(widths[0], device=dev)
+        enc = consts["enc"]
+        with torch.inference_mode():
+            got = K7.fused_inr_backward(kind, enc, layers, pts, mask, g)
+            again = K7.fused_inr_backward(kind, enc, layers, pts, mask, g)
+            ref = K7.fused_inr_backward_plain(kind, enc, layers, pts, mask, g)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a_, b_) for pa, pb in zip(got, again)
+                       for a_, b_ in zip(pa, pb))
+            check(same, f"K7 backward ({net}): two launches differ")
+            err = 0.0
+            for l, (pg, pr) in enumerate(zip(got, ref)):
+                for name, a_, r_ in zip(("dW", "db"), pg, pr):
+                    e = (a_ - r_).abs().max().item()
+                    lim = 1e-3 * r_.abs().max().item()
+                    check(math.isfinite(e) and e <= lim,
+                          f"K7 backward ({net}) {name}_{l}: max abs err "
+                          f"{e:.3e} exceeds 1e-3 max|plain| = {lim:.3e}")
+                    err = max(err, e)
+            got16 = K7.fused_inr_backward(kind, enc, layers, pts, mask, g,
+                                          bf16=True)
+            ref16 = K7.fused_inr_backward_plain(kind, enc, layers, pts, mask,
+                                                g, bf16=True)
+            # against fp32: two bf16 roundings per product and the relu
+            # gates they flip
+            rel16, lim16 = 0.0, 2e-2
+            for l, (pg, pr, pb) in enumerate(zip(got16, ref, ref16)):
+                for name, a_, r_, b_ in zip(("dW", "db"), pg, pr, pb):
+                    rel = ((a_ - r_).norm() / r_.norm()).item()
+                    check(math.isfinite(rel) and rel <= lim16,
+                          f"K7 backward bf16 ({net}) {name}_{l}: normwise "
+                          f"error {rel:.3e} against the fp32 plain result "
+                          f"exceeds {lim16}")
+                    rel16 = max(rel16, rel)
+                    e = (a_ - b_).abs().max().item()
+                    lim = 1e-3 * b_.abs().max().item()
+                    check(e <= lim, f"K7 backward bf16 ({net}) {name}_{l}: "
+                          f"max abs err {e:.3e} against the bf16 plain "
+                          f"version exceeds {lim:.3e}")
+            flops, nbytes = inr_backward_cost(n, widths)
+            row = {
+                "shape": [n, 3], "net": net, "widths": widths,
+                "max_abs_err": err, "bf16_normwise_err": rel16,
+                "ms": median_ms(lambda: K7.fused_inr_backward(
+                    kind, enc, layers, pts, mask, g), 3),
+                "bf16_ms": median_ms(lambda: K7.fused_inr_backward(
+                    kind, enc, layers, pts, mask, g, bf16=True), 3),
+                "plain_ms": median_ms(lambda: K7.fused_inr_backward_plain(
+                    kind, enc, layers, pts, mask, g), 3),
+                "library_ms": None, "bytes": nbytes, "flop": flops,
+                "scratch_bytes": K7.scratch_bytes(n, layers, pts, kind),
+                "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+                "ops_bound_ms": flops / PEAK_FP32 * 1e3}
+        inr_rows.append(row)
+        print(f"[flow train kernels] fused_inr_backward {net} N={n}: "
+              f"{row['ms']:.3f} ms with its reduction (bf16 operands "
+              f"{row['bf16_ms']:.3f} ms; plain {row['plain_ms']:.3f} ms; "
+              f"bound fp32 {row['ops_bound_ms']:.3f} / bytes "
+              f"{row['bytes_bound_ms']:.4f} ms; {flops / 1e9:.1f} GFLOP, "
+              f"{flops / row['ms'] / 1e9:.2f} TFLOP/s), scratch "
+              f"{row['scratch_bytes'] / 2 ** 20:.1f} MiB, max abs err "
+              f"{err:.3e}, bf16 normwise {rel16:.3e}, two launches bitwise "
+              f"equal")
+
+    # widths the kernel cannot take (a 32-row tile of 512 + 3 x 512 + 4
+    # floats exceeds a block's shared memory): the model refuses on the card
+    from sin_inn_tpu_torch.models.inr import inr_apply
+    wide = FlowConfig(hidden_dim=512, device="cuda")
+    spec, params, consts = build_inr(
+        R.named_fold(R.root_generator(8), "init"), "RBF", wide, dev)
+    for l in params["mlp"]:
+        l["w"].requires_grad_(), l["b"].requires_grad_()
+    before = K7.launch_counts()
+    try:
+        inr_apply(spec, params, consts, pts[:64])
+    except ValueError as e:
+        check("use-kernel off" in str(e), f"K7 refusal does not name the "
+                                          f"way out: {e}")
+    else:
+        raise SmokeFailure("K7: a net with hidden 512 was not refused on "
+                           "the card")
+    check(K7.launch_counts() == before, "K7: the refused net launched")
+    off = dataclasses.replace(spec, use_kernel="off")
+    inr_apply(off, params, consts, pts[:64]).sum().backward()
+    check(all(l["w"].grad is not None for l in params["mlp"]),
+          "use_kernel='off' gave no gradient for the wide net")
+    print("[flow train kernels] hidden 512 refused with use_kernel='auto', "
+          "trained through autograd with use_kernel='off'")
+    return {"gather_region_grads": grads_rows, "fused_inr_backward": inr_rows}
+
+
+def _leaf_norm_err(got, ref) -> float:
+    return max(((a - b).norm() / b.norm()).item() for a, b in zip(got, ref))
+
+
+def phase_flow_train(dev, card: str, smi_line: str):
+    """``flow train`` at Sintel size through ``run_flow_train``: counts,
+    resume, the kernel route's gradients against autograd's, rates and peak
+    memory of both routes, then ``flow test`` on the trained checkpoint."""
+    import os
+
+    from sin_inn_tpu_torch.core import rng as R
+    from sin_inn_tpu_torch.core.checkpoint import CheckpointStore
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.data.flow_media import FlowMedia
+    from sin_inn_tpu_torch.data.synthetic import moving_texture_video
+    from sin_inn_tpu_torch.models.inr import flat_leaves
+    from sin_inn_tpu_torch.train import flow as FT
+    from sin_inn_tpu_torch.train import loop as LP
+
+    stats = {}
+    pairs = FLOW_FRAMES - 1
+    with tempfile.TemporaryDirectory() as work:
+        cfg = FlowConfig(device="cuda", checkpoints_dir=work + "/ck",
+                         results_dir=work + "/results", name="smoke",
+                         epochs=FLOW_TRAIN_EPOCHS)
+        check(cfg.net == "RBF" and cfg.batch == 1 and cfg.occl == "wang"
+              and cfg.use_kernel == "auto" and cfg.lr == 1e-4
+              and cfg.compute_dtype == "float32",
+              "FlowConfig defaults are not the Sintel RBF training config")
+        media = FlowMedia(moving_texture_video(FLOW_FRAMES, FLOW_H, FLOW_W,
+                                               seed=1))
+        scene = "chip_smoke"
+        steps = FLOW_TRAIN_EPOCHS * pairs
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        out = LP.run_flow_train(cfg, media=media, scene=scene)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _all_counts()
+        check_counts(counts, f"flow train, {steps} steps",
+                     splat_region=2 * steps, gather_region=2 * steps,
+                     gather_region_grads=4 * steps,
+                     fused_inr_backward=steps, reduce_weight_grads=steps)
+        eff = out["cfg"]
+        check((eff.splat_max_dy, eff.splat_max_dx) == (DY, DX),
+              f"bounds resolved to {eff.splat_max_dy}, {eff.splat_max_dx}")
+        check(out["state"].step == steps and out["start_epoch"] == 0,
+              f"flow train: step {out['state'].step}")
+        check(all(math.isfinite(v) for v in out["metrics"].values()),
+              f"flow train metrics {out['metrics']}")
+        ck = LP.flow_ckpt_dir(cfg, scene)
+        with open(os.path.join(ck, "window_bounds.json")) as f:
+            side = json.load(f)
+        check(side["splat_max_dy"] == DY and side["splat_max_dx"] == DX
+              and side["splat_local_dy"] is None
+              and (side["fh"], side["fw"]) == (FLOW_H, FLOW_W),
+              f"sidecar {side}")
+        check(os.path.getsize(os.path.join(
+            ck, f"{scene}_{cfg.name}.metrics.jsonl")) > 0, "no metrics file")
+        saved, at = CheckpointStore(ck).restore(map_location=dev)
+        check(at == FLOW_TRAIN_EPOCHS and set(saved) == {"params", "consts",
+                                                         "opt", "step"}
+              and saved["step"] == steps, f"checkpoint {at} {set(saved)}")
+        print(f"[flow train] {steps} steps over {pairs} pairs in {run_s:.2f} "
+              f"s with set-up; loss {out['metrics']['loss']:.5f}, psnr "
+              f"{out['metrics']['psnr']:.2f} dB, max |flow| "
+              f"{out['metrics']['flow_max_x']:.2f} / "
+              f"{out['metrics']['flow_max_y']:.2f} px; launches {counts}")
+
+        # resume: one more epoch from the checkpoint, optimizer state kept
+        out2 = LP.run_flow_train(cfg.replace(epochs=FLOW_TRAIN_EPOCHS + 1),
+                                 media=media, scene=scene)
+        st = out2["state"]
+        opt_steps = {s["step"] for s in st.optimizer.state.values()}
+        check(out2["start_epoch"] == FLOW_TRAIN_EPOCHS
+              and st.step == steps + pairs and opt_steps == {steps + pairs},
+              f"resume: from epoch {out2['start_epoch']}, step {st.step}, "
+              f"optimizer steps {opt_steps}")
+        print(f"[flow train] resumed at epoch {out2['start_epoch']} to step "
+              f"{st.step} with the optimizer state")
+
+        # one step's launches, and its gradients against autograd's
+        spec, consts = out2["spec"], out2["consts"]
+        spec_off = dataclasses.replace(spec, use_kernel="off")
+        batch = LP._to_device_batch(media.sample(np.arange(2, 3)), dev)
+        leaves = [t for _, t in flat_leaves(st.params)]
+
+        def grads_of(sp):
+            """(loss, gradients, GiB the graph holds for the backward)."""
+            for t in leaves:
+                t.grad = None
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            loss, _ = FT.flow_loss(sp, eff, st.params, consts, batch)
+            held = (torch.cuda.memory_allocated(dev) - base) / 2 ** 30
+            loss.backward()
+            torch.cuda.synchronize()
+            return loss.item(), [t.grad.clone() for t in leaves], held
+
+        _reset_all_counts()
+        loss_k, g_k, held_k = grads_of(spec)
+        step_counts = _all_counts()
+        check_counts(step_counts, "one flow train step", splat_region=2,
+                     gather_region=2, gather_region_grads=4,
+                     fused_inr_backward=1, reduce_weight_grads=1)
+        _reset_all_counts()
+        loss_a, g_a, held_a = grads_of(spec_off)
+        off_counts = _all_counts()
+        check_counts(off_counts, "one step with use_kernel='off'",
+                     splat_region=2, gather_region=2, gather_region_grads=4)
+        gerr = _leaf_norm_err(g_k, g_a)
+        check(gerr <= 1e-3 and abs(loss_k - loss_a) <= 1e-5 * abs(loss_a),
+              f"kernel route against autograd: gradients normwise {gerr:.3e} "
+              f"(limit 1e-3), loss {loss_k} / {loss_a}")
+        # the fused route keeps no (N, 512) encoding and no (N, 256)
+        # activation between its forward and its backward
+        stash = FLOW_H * FLOW_W * 512 * 4 / 2 ** 30
+        check(held_a - held_k >= stash,
+              f"held for the backward: kernel route {held_k:.2f} GiB, "
+              f"autograd route {held_a:.2f} GiB: the difference is under "
+              f"one (N, 512) fp32 tensor ({stash:.2f} GiB)")
+        stats["grad_err"] = gerr
+        stats["step_counts"] = step_counts
+        stats["held_gib"] = {"kernel": held_k, "off": held_a}
+        print(f"[flow train] one step: launches {step_counts}; gradients "
+              f"against use_kernel='off' normwise {gerr:.3e}, loss "
+              f"{loss_k:.6f} / {loss_a:.6f}; held between forward and "
+              f"backward {held_k:.2f} GiB (kernel route) / {held_a:.2f} GiB "
+              f"(use_kernel='off')")
+        for t in leaves:
+            t.grad = None
+
+        # rates and peak memory of both routes, each on a fresh state
+        cached = [LP._to_device_batch(b, dev) for b in media.batches(1)]
+        for tag, sp in (("kernel", spec), ("off", spec_off)):
+            gen = R.named_fold(R.root_generator(cfg.random_seed), "init")
+            _, state, cs = FT.create_flow_state(gen, cfg)
+            step = FT.make_flow_train_step(sp, eff)
+            for i in range(2):
+                step(state, cs, cached[i])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            events = []
+            t0 = time.perf_counter()
+            for i in range(10):
+                a, b = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                a.record()
+                m = step(state, cs, cached[i % pairs])
+                b.record()
+                events.append((a, b))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(bool(torch.isfinite(m["loss"])), f"{tag} route: loss")
+            stats[tag] = {
+                "pairs_per_sec": 10 / wall,
+                "step_ms": statistics.median(a.elapsed_time(b)
+                                             for a, b in events),
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+            r = stats[tag]
+            print(f"[flow train] use_kernel={'auto' if tag == 'kernel' else tag}"
+                  f": {r['pairs_per_sec']:.2f} pairs/s, {r['step_ms']:.2f} "
+                  f"ms/step (batch 1, {FLOW_H}x{FLOW_W}, RBF, float32), peak "
+                  f"device memory {r['peak_gib']:.2f} GiB, on {card} "
+                  f"({smi_line})")
+            del state, step
+
+        # flow test serves the trained checkpoint: no kernel at all
+        init = R.named_fold(R.root_generator(cfg.random_seed + 1), "init")
+        spec_r, rp, rc, _, at = LP._flow_create_and_restore(
+            cfg, init, scene, require="checkpoint missing")
+        check(at == FLOW_TRAIN_EPOCHS + 1, f"restored checkpoint {at}")
+        _reset_all_counts()
+        served = LP.flow_test_outputs(cfg, media, spec_r, rp, rc)
+        check_counts(_all_counts(), "flow test on the trained checkpoint")
+        check(served["flow12"].shape == (pairs, FLOW_H, FLOW_W, 2)
+              and bool(np.isfinite(served["flow12"]).all()),
+              "flow test on the trained checkpoint: flows")
+        print(f"[flow train] flow test on the trained checkpoint: "
+              f"{pairs} pairs, |flow| max "
+              f"{np.abs(served['flow12']).max():.2f} px, no kernel launch")
+    return counts, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1087,10 +1478,14 @@ def main() -> int:
         train_counts, train = phase_train(dev, card, smi_line)
         flow_rows = phase_flow_kernels(dev)
         flow = phase_flow(dev, card, smi_line)
+        ft_rows = phase_flow_train_kernels(dev)
+        ft_counts, ft = phase_flow_train(dev, card, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     add_counts(counts, train_counts)
+    flow_counts = dict(flow["counts"])
+    add_counts(flow_counts, ft_counts)
     kernels = []
     for n in COUPLING:
         # K1/K2: the eval/infer shapes (batch 40), as before, with the
@@ -1115,20 +1510,33 @@ def main() -> int:
             entry["reduce_launches"] = counts["reduce_weight_grads"]
             entry["reduce_ms"] = sum(r["reduce_ms"] for r in rs)
         kernels.append(entry)
-    for n, r in flow_rows.items():
+    # K5, K6: launches of the interpolation and the flow train runs; K6
+    # grads (both payload widths summed) and K7 backward (the RBF net, the
+    # path's): launches of the flow train run
+    flow_shapes = {n: [r] for n, r in flow_rows.items()}
+    flow_shapes["gather_region_grads"] = ft_rows["gather_region_grads"]
+    flow_shapes["fused_inr_backward"] = ft_rows["fused_inr_backward"][:1]
+    for n, rs in flow_shapes.items():
+        bytes_ms = sum(r["bytes_bound_ms"] for r in rs)
+        ops_ms = sum(r["ops_bound_ms"] for r in rs)
+        lib = [r["library_ms"] for r in rs]
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCES[n],
-            "replaces": REPLACES[n], "launches": flow["counts"][n],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
-            "bound_ms": max(r["bytes_bound_ms"], r["ops_bound_ms"]),
-            "bound_by": ("bytes" if r["bytes_bound_ms"] >= r["ops_bound_ms"]
-                         else "operations"),
-            "library_ms": r["library_ms"], "shapes": [r]})
+            "replaces": REPLACES[n], "launches": flow_counts[n],
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": sum(r["ms"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None if None in lib else sum(lib), "shapes": rs})
+    kernels[-1]["other_nets"] = ft_rows["fused_inr_backward"][1:]
     print(f"[flow] flow test {flow['test_fps']:.2f} frames/s (pairs), "
           f"on {card} ({smi_line})")
     print(f"[flow] interpolation {flow['interp_fps']:.2f} mid-frames/s, "
           f"on {card} ({smi_line})")
+    print(f"[flow train] {ft['kernel']['pairs_per_sec']:.2f} pairs/s "
+          f"(use_kernel='off': {ft['off']['pairs_per_sec']:.2f}), on {card} "
+          f"({smi_line})")
     print(f"[done] sr test {fps:.2f} frames/s; train "
           f"{train['frames_per_sec']:.2f} frames/s; bf16 err {bf16_err:.3e}"
           f" (K3 {bwd_bf16_err:.3e}); total "

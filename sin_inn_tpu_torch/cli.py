@@ -3,10 +3,11 @@
 ``python -m sin_inn_tpu_torch.cli sr {train,test} ...`` takes the
 reference's ``sr`` flags plus ``--device`` (default ``cuda``; a CUDA request
 without a card fails) and ``--remat``. ``python -m sin_inn_tpu_torch.cli
-flow {test,interpolate} ...`` takes the reference's data, net, occlusion
-and window-bound flags, and ``--device``. ``sr
-export`` and ``flow {train,export,summarize,sintel}`` are not ported yet and
-exit with code 2.
+flow {train,test,interpolate} ...`` takes the reference's data, net,
+training, occlusion and window-bound flags, ``--use-kernel`` and
+``--device``; ``flow train`` runs the test pass on the trained net when it
+is done, as the reference does. ``sr export`` and ``flow
+{export,summarize,sintel}`` are not ported yet and exit with code 2.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import List, Optional
 from sin_inn_tpu_torch.core.config import COMPUTE_DTYPES, FlowConfig, SRConfig
 
 _NOT_PORTED = {"sr": ("export",),
-               "flow": ("train", "export", "summarize", "sintel")}
+               "flow": ("export", "summarize", "sintel")}
 
 
 def _sr_parser(sub):
@@ -112,9 +113,20 @@ def _flow_parser(sub):
     ap.add_argument("--end", type=int)
     ap.add_argument("--step", type=int)
     ap.add_argument("--size", default=436, type=int)
+    ap.add_argument("--batch", default=1, type=int)
     ap.add_argument("--test-size", default=436, type=int)
     ap.add_argument("--test-batch", default=1, type=int)
     ap.add_argument("--net", default="RBF")
+    ap.add_argument("--epochs", default=1000, type=int)
+    ap.add_argument("--val-iter", type=int)
+    ap.add_argument("--lr", default=1e-4, type=float)
+    ap.add_argument("--loss-l1", default=1, type=float)
+    ap.add_argument("--loss-census", default=0.1, type=float)
+    ap.add_argument("--loss-ssim", default=0, type=float)
+    ap.add_argument("--census-width", default=3, type=int)
+    ap.add_argument("--loss-smooth1", default=0.1, type=float)
+    ap.add_argument("--edge-constant", default=150, type=float)
+    ap.add_argument("--edge-func", default="gauss", choices=["exp", "gauss"])
     ap.add_argument("--occl", default="wang", choices=["brox", "wang", "none"])
     ap.add_argument("--occl-thresh", default=0.7, type=float)
     ap.add_argument("--num-frequencies", type=int, default=256)
@@ -129,6 +141,9 @@ def _flow_parser(sub):
                     help="window column bound: 'auto', 'off', or an int")
     ap.add_argument("--flow-dir", default=None,
                     help="precomputed GT flow dir (.flo/.npy)")
+    ap.add_argument("--use-kernel", default="auto", choices=["auto", "off"],
+                    help="flow train: the fused CUDA backward of the INR "
+                         "('off': ordinary autograd through the plain INR)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default), cuda:N or cpu")
 
@@ -136,8 +151,14 @@ def _flow_parser(sub):
 def flow_config_from_args(a) -> FlowConfig:
     return FlowConfig(
         input_video=a.input_video, name=a.name, end=a.end, step=a.step,
-        size=a.size, test_size=a.test_size, test_batch=a.test_batch,
-        net=a.net, occl=None if a.occl == "none" else a.occl,
+        size=a.size, batch=a.batch, test_size=a.test_size,
+        test_batch=a.test_batch, net=a.net, epochs=a.epochs,
+        val_iter=a.val_iter, lr=a.lr, loss_l1=a.loss_l1,
+        loss_census=a.loss_census, loss_ssim=a.loss_ssim,
+        census_width=a.census_width, loss_smooth1=a.loss_smooth1,
+        edge_constant=a.edge_constant, edge_func=a.edge_func,
+        use_kernel=a.use_kernel,
+        occl=None if a.occl == "none" else a.occl,
         occl_thresh=a.occl_thresh, num_frequencies=a.num_frequencies,
         hidden_dim=a.hidden_dim, num_layers=a.num_layers,
         compute_dtype=a.compute_dtype, splat_max_dy=a.splat_max_dy,
@@ -161,7 +182,18 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if a.command == "flow":
         cfg = flow_config_from_args(a)
-        if a.operation == "test":
+        if a.operation == "train":
+            out = L.run_flow_train(cfg)
+            eff = out["cfg"]
+            if eff.test_size != eff.size:
+                # the bounds were resolved at the train frame size: another
+                # test size starts again from the values given
+                eff = eff.replace(splat_max_dy=cfg.splat_max_dy,
+                                  splat_max_dx=cfg.splat_max_dx)
+            print(L.run_flow_test(eff, scene=out["scene"], spec=out["spec"],
+                                  params=out["state"].params,
+                                  consts=out["consts"]))
+        elif a.operation == "test":
             print(L.run_flow_test(cfg))
         else:
             print(L.run_flow_interpolate(cfg, factor=a.interp_factor))

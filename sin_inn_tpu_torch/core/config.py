@@ -14,12 +14,13 @@
   parameters and its moments in place, so no second copy of the state is
   ever made.
 
-``FlowConfig`` is the reference's ``FlowConfig`` narrowed to the fields the
-serving entry points (``flow test``, ``flow interpolate``) read, with the
-same ``device`` field. With both window bounds set, the splat and the metric
-warps run the windowed kernels (K5, K6) on CUDA tensors and their plain
-versions on CPU tensors. The training, controller, local-window and
-pseudo-GT producer fields come with the slices that read them.
+``FlowConfig`` is the reference's ``FlowConfig`` narrowed to the fields
+that ``flow train``, ``flow test`` and ``flow interpolate`` read, with the
+same ``device`` field and ``use_kernel`` in place of ``use_pallas``. With
+both window bounds set, the splat and the metric warps run the windowed
+kernels (K5, K6) on CUDA tensors and their plain versions on CPU tensors.
+The controller, local-window, window-refit, pseudo-GT producer, checkpoint
+import, profiling and multi-chip fields come with the code that reads them.
 """
 
 from __future__ import annotations
@@ -154,11 +155,11 @@ class SRConfig:
 
 @dataclass(frozen=True)
 class FlowConfig:
-    """Config for serving a fitted INR: optical flow and interpolation.
+    """Config for fitting an INR to a video's optical flow and serving it.
 
     The reference's ``FlowConfig`` (``sin_inn_tpu/core/config.py``)
-    narrowed to the fields ``flow test`` and ``flow interpolate`` read, with
-    the same defaults."""
+    narrowed to the fields ``flow train``, ``flow test`` and ``flow
+    interpolate`` read, with the same defaults."""
 
     WINDOW_BOUND_KEYS: ClassVar[Tuple[str, str]] = ("splat_max_dy",
                                                     "splat_max_dx")
@@ -169,6 +170,7 @@ class FlowConfig:
     end: Optional[int] = None
     step: Optional[int] = None
     size: int = 436
+    batch: int = 1
     test_size: int = 436
     test_batch: int = 1
     # precomputed GT flow directory (.flo/.npy per frame pair)
@@ -185,7 +187,18 @@ class FlowConfig:
     num_frequencies_pe: int = 4
     std_rbf: float = 12.0
 
-    # Occlusion masks of ``flow test``
+    # Train
+    epochs: int = 1000
+    val_iter: Optional[int] = None
+    lr: float = 1e-4
+    loss_l1: float = 1.0
+    loss_census: float = 0.1
+    loss_ssim: float = 0.0
+    census_width: int = 3
+    loss_smooth1: float = 0.1
+    edge_constant: float = 150.0
+    edge_func: str = "gauss"     # 'exp' | 'gauss'
+    # Occlusion masks of the training loss and of ``flow test``
     occl: Optional[str] = "wang"  # 'brox' | 'wang' | None
     occl_thresh: float = 0.7
     random_seed: int = 0
@@ -202,10 +215,24 @@ class FlowConfig:
     results_dir: str = "results"
     checkpoints_dir: str = "checkpoints"
     compute_dtype: str = "float32"
+    # the fused INR backward kernel in training: 'auto' | 'off' ('off' takes
+    # ordinary autograd through the plain INR; the warps and splats stay on
+    # K5/K6 either way). On the card 'auto' raises for widths the kernel
+    # cannot take; it never gives way to 'off' by itself. The two routes
+    # agree to rounding in float32 only: in bfloat16 the fused forward rounds
+    # the products' operands and accumulates in fp32, the plain one casts the
+    # activations
+    use_kernel: str = "auto"
     # torch device string; entry points never fall back from 'cuda'
     device: str = "cuda"
 
     def __post_init__(self):
+        if self.edge_func not in ("exp", "gauss"):
+            raise ValueError(f"edge_func must be 'exp' or 'gauss', got "
+                             f"{self.edge_func}")
+        if self.use_kernel not in ("auto", "off"):
+            raise ValueError(f"use_kernel must be 'auto' or 'off', got "
+                             f"{self.use_kernel!r}")
         if self.occl not in ("brox", "wang", None):
             raise ValueError(f"occl must be 'brox'|'wang'|None, got {self.occl}")
         for name in self.WINDOW_BOUND_KEYS:
@@ -259,6 +286,12 @@ class FlowConfig:
         if dy is None:
             dx = None
         return self.replace(splat_max_dy=dy, splat_max_dx=dx)
+
+    @property
+    def effective_val_iter(self) -> int:
+        """The validation cadence in epochs; off (never reached) unless
+        ``val_iter`` is set, as in the reference."""
+        return self.val_iter if self.val_iter else self.epochs + 1
 
     def replace(self, **kw) -> "FlowConfig":
         return dataclasses.replace(self, **kw)

@@ -9,11 +9,15 @@ layer is ``x @ w + b``.
 
 The JAX package routes eligible nets through a fused encode-mask-MLP kernel
 (``ops/pallas/inr.py``). For a constant mask, the case of every
-non-progressive net, that dispatch returns ``_xla_forward``, which computes
-the same function as the plain branch here, so the port has only the plain
-route. The kernel proper runs for the progressive controllers' per-point
-masks and in the training backward; it comes with the training slice, as
-do the progressive nets, which raise here.
+non-progressive net, its forward is plain XLA (``_xla_forward``) and only
+its backward is a kernel. So here: under ``torch.no_grad()`` :func:`inr_apply`
+is the plain encode -> mask -> MLP, and with gradients enabled an eligible
+net (:func:`fused_inr_supported`, ``INRSpec.use_kernel == "auto"``) goes
+through ``ops/cuda/inr.py`` ``FusedINR``, whose backward is the fused kernel
+(the plain version on CPU tensors). ``use_kernel == "off"`` keeps ordinary
+autograd through the plain route. The progressive nets, with the
+controllers, the forward kernel and the per-point mask modes they need, are
+not ported yet and raise here.
 """
 
 from __future__ import annotations
@@ -122,6 +126,9 @@ class INRSpec:
     num_layers: int
     output_channels: int
     compute_dtype: str = "float32"
+    # 'auto': the fused INR backward kernel where it applies; 'off': ordinary
+    # autograd through the plain route
+    use_kernel: str = "auto"
 
 
 # name -> (kind, encoding, progressive), as the reference's registry
@@ -187,7 +194,8 @@ def build_inr(gen: torch.Generator, name: str, cfg: FlowConfig,
 
     if kind in ("mlp", "siren"):
         spec = INRSpec(name, kind, None, d, d, False, cfg.hidden_dim,
-                       cfg.num_layers, cfg.output_channels, cfg.compute_dtype)
+                       cfg.num_layers, cfg.output_channels, cfg.compute_dtype,
+                       cfg.use_kernel)
         mlp = (mlp_init(gen, [d] + widths) if kind == "mlp" else
                siren_init(gen, d, cfg.hidden_dim, cfg.num_layers,
                           cfg.output_channels))
@@ -198,7 +206,7 @@ def build_inr(gen: torch.Generator, name: str, cfg: FlowConfig,
     enc_ch = _enc_out_channels(encoding, cfg)
     spec = INRSpec(name, "encoded", encoding, d, enc_ch, False,
                    cfg.hidden_dim, cfg.num_layers, cfg.output_channels,
-                   cfg.compute_dtype)
+                   cfg.compute_dtype, cfg.use_kernel)
     mlp = mlp_init(gen, [enc_ch] + widths)
     return (spec, tree_to({"mlp": mlp, "enc": enc_params}, device),
             tree_to({"enc": enc_consts}, device))
@@ -217,15 +225,63 @@ def get_encoding(spec: INRSpec, params, consts,
     return enc
 
 
-def inr_apply(spec: INRSpec, params, consts,
-              x: torch.Tensor) -> torch.Tensor:
-    """encode -> MLP. x: (n, d) points; returns (n, out). The progressive
-    masks come with the controllers (slice B2)."""
+_FUSED_ENCODINGS = {"rbf": "rbf", "gaussian_ff": "ff", "uniform_ff": "ff"}
+
+
+def fused_inr_supported(spec: INRSpec, params, consts, x: torch.Tensor,
+                        mask: Optional[torch.Tensor]) -> bool:
+    """Whether ``ops/cuda/inr.py`` ``FusedINR`` computes this net: an
+    encoded, non-progressive net on the RBF or the Fourier features with no
+    trainable encoding parameters, not in ``float32_highest`` (the strict
+    mode never takes a kernel), 2-D points and no mask or a constant (E,)
+    one. These are questions of structure only. What the CUDA kernel needs
+    of the widths (``ops/cuda/inr.py`` ``kernel_supports``: multiples of 4, a
+    32-row tile within a block's shared memory) is not asked here: on the
+    card a net of this structure that the kernel cannot take is refused with
+    a ValueError, never handed to plain autograd. The CPU's plain version
+    takes any width."""
+    if spec.kind != "encoded" or spec.encoding not in _FUSED_ENCODINGS:
+        return False
+    if spec.is_progressive or params.get("enc"):
+        return False
+    if spec.compute_dtype in ("highest", "float32_highest"):
+        return False
+    if x.dim() != 2 or (mask is not None and mask.dim() != 1):
+        return False
+    if spec.num_layers < 1:
+        return False
+    return x.device.type in ("cpu", "cuda")
+
+
+def inr_apply(spec: INRSpec, params, consts, x: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """encode -> mask -> MLP. x: (n, d) points; ``mask``: None or a constant
+    (E,) channel mask (no gradient reaches it); returns (n, out). With
+    gradients enabled an eligible net takes the fused route, whose backward
+    is the K7 kernel; under ``no_grad`` and with ``use_kernel == "off"``
+    every net takes the plain route. On the card the fused route raises a
+    ValueError for widths its kernel cannot take (``use_kernel="off"`` is the
+    way to train such a net). The two routes agree to rounding in float32
+    only: in ``bfloat16`` the fused forward rounds the products' operands and
+    accumulates in fp32, the plain one casts the activations, so ``auto``
+    and ``off`` differ in the forward too. The progressive nets' per-point
+    masks come with the controllers."""
+    if (spec.use_kernel == "auto" and torch.is_grad_enabled()
+            and fused_inr_supported(spec, params, consts, x, mask)):
+        from sin_inn_tpu_torch.ops.cuda.inr import fused_inr
+
+        layers = [(l["w"], l["b"]) for l in params["mlp"]]
+        out = fused_inr(_FUSED_ENCODINGS[spec.encoding], consts["enc"],
+                        layers, x.float(), mask,
+                        bf16=spec.compute_dtype == "bfloat16")
+        return out.to(x.dtype)
     code = get_encoding(spec, params, consts, x)
     out_dtype = code.dtype
     cast = _cast(spec.compute_dtype)
     if cast is not None:
         code = code.to(cast)
+    if mask is not None:
+        code = code * mask.detach().to(code.dtype)
     if spec.kind == "siren":
         out = siren_apply(params["mlp"], code,
                           compute_dtype=spec.compute_dtype)

@@ -28,6 +28,7 @@ BUILD_DIR = _PKG / "build"
 SOURCES = {"coupling_1x1": "coupling_1x1.cu",
            "coupling_1x1_bwd": "coupling_1x1_bwd.cu",
            "gather_region": "gather_region.cu",
+           "inr_bwd": "inr_bwd.cu",
            "splat_region": "splat_region.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,10 +1,11 @@
-"""Windowed bilinear gather (K6): CUDA kernel and plain version.
+"""Windowed bilinear gather (K6): CUDA kernels and plain versions.
 
 ``gather_region`` replaces the TPU kernel ``_gather_kernel`` of
 ``sin_inn_tpu/ops/pallas/gather.py`` in forward mode (``_gather_region_call``
-with ``grads=False``), and ``resample2d_region`` is the ``resample2d`` warp
-on it, as there. The kernel is ``csrc/gather_region.cu``; its header states
-what bounds it on an H100 and how the design deals with that.
+with ``grads=False``), ``gather_region_grads`` replaces its gradient mode
+(``grads=True``), and ``resample2d_region`` is the ``resample2d`` warp on
+them, as there. The kernels are in ``csrc/gather_region.cu``; its header
+states what bounds them on an H100 and how the design deals with that.
 
 The function, exactly as the TPU kernel computes it: output pixel (y, x)
 samples the point p = ((x + fx) sx + shx, (y + fy) sy + shy) (one fused
@@ -16,11 +17,21 @@ if it lies in the image and in the window the TPU kernel read: rows
 the bounds padded as ``_pad_geometry`` pads them. For flows within the
 bounds this is ``resample2d``; beyond them the far taps are dropped.
 
+The gradient mode also returns, for a payload q of the image's shape,
+dfx = sum_c q_c sum_taps hat(py - r) dhat(px - k) a_c and dfy with the roles
+of the axes exchanged: d<q, out>/d(px, py), where dhat(d) = -sign(d) on
+|d| < 1 and 0 at d = 0 and beyond. A dropped tap adds to neither.
+
+``gather_region`` and ``resample2d_region`` are differentiable
+(:class:`GatherRegion`): the flow gradient is one launch of the gradient
+mode with the cotangent as the payload, the image gradient (computed only
+when the image requires one) is the windowed splat (K5) of the cotangent
+along p - (x, y).
+
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel
-or raises, a CPU tensor takes :func:`gather_region_plain`. The TPU kernel's
-flow-gradient mode (the resample2d backward and the splat backward) comes
-with the training slice, and so does autograd through either route.
-``gather_region.launches`` counts kernel launches.
+or raises, a CPU tensor takes the plain version, in the forward and in the
+backward alike. ``gather_region.launches`` and
+``gather_region_grads.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from sin_inn_tpu_torch.ops.cuda import _build
 
@@ -37,6 +49,7 @@ _B = 128     # output-tile rows and columns
 _RC = 8      # output rows per chunk of the TPU kernel
 
 Coord = Tuple[Tuple[float, float], Tuple[float, float]]
+RAW: Coord = ((1.0, 0.0), (1.0, 0.0))    # p = (x, y) + flow: the splat's taps
 
 
 def pad_geometry(max_dy: int, max_dx: int) -> Tuple[int, int]:
@@ -62,10 +75,18 @@ def _hat(d: torch.Tensor) -> torch.Tensor:
     return torch.clamp(1.0 - torch.abs(d), min=0.0)
 
 
-def gather_region_plain(a: torch.Tensor, flow: torch.Tensor, max_dy: int,
-                        max_dx: int, coord: Coord) -> torch.Tensor:
-    """Plain PyTorch version of K6's forward mode. a: (N, H, W, C) fp32,
-    flow: (N, H, W, 2) (dx, dy). Returns (N, H, W, C)."""
+def _dhat(d: torch.Tensor) -> torch.Tensor:
+    """-sign(d) on |d| < 1, 0 at d = 0 and beyond (``_dhat`` of the TPU
+    kernel)."""
+    return torch.where(torch.abs(d) < 1.0, -torch.sign(d), 0.0)
+
+
+def _plain_taps(a: torch.Tensor, flow: torch.Tensor, max_dy: int,
+                max_dx: int, coord: Coord):
+    """The four taps of every output pixel under the window rule:
+    ``rows``/``cols`` are two (weight, derivative weight, index) triples
+    each (a dropped tap has weights 0 and index 0), ``tap(ri, ki)`` reads
+    a[b, ri, ki, :]."""
     n, h, w, c = a.shape
     dy, dx = pad_geometry(max_dy, max_dx)
     (sx, shx), (sy, shy) = coord
@@ -86,10 +107,12 @@ def gather_region_plain(a: torch.Tensor, flow: torch.Tensor, max_dy: int,
     for r in (r0, r0 + 1.0):
         ok = (r >= r_lo) & (r < r_hi)
         rows.append((torch.where(ok, _hat(py - r), 0.0),
+                     torch.where(ok, _dhat(py - r), 0.0),
                      torch.where(ok, r, 0.0).long()))
     for k in (k0, k0 + 1.0):
         ok = (k >= k_lo) & (k < k_hi)
         cols.append((torch.where(ok, _hat(px - k), 0.0),
+                     torch.where(ok, _dhat(px - k), 0.0),
                      torch.where(ok, k, 0.0).long()))
     flat = a.reshape(n, h * w, c)
 
@@ -97,13 +120,43 @@ def gather_region_plain(a: torch.Tensor, flow: torch.Tensor, max_dy: int,
         idx = (ri * w + ki).reshape(n, -1, 1).expand(-1, -1, c)
         return torch.gather(flat, 1, idx).reshape(n, h, w, c)
 
+    return rows, cols, tap
+
+
+def gather_region_plain(a: torch.Tensor, flow: torch.Tensor, max_dy: int,
+                        max_dx: int, coord: Coord) -> torch.Tensor:
+    """Plain PyTorch version of K6's forward mode. a: (N, H, W, C) fp32,
+    flow: (N, H, W, 2) (dx, dy). Returns (N, H, W, C)."""
+    rows, cols, tap = _plain_taps(a, flow, max_dy, max_dx, coord)
+    (wx0, _, k0i), (wx1, _, k1i) = cols
     out = None
-    for wy, ri in rows:
-        (wx0, k0i), (wx1, k1i) = cols
+    for wy, _, ri in rows:
         v = tap(ri, k0i) * wx0[..., None] + tap(ri, k1i) * wx1[..., None]
         term = wy[..., None] * v
         out = term if out is None else out + term
     return out
+
+
+def gather_region_grads_plain(a: torch.Tensor, flow: torch.Tensor,
+                              payload: torch.Tensor, max_dy: int, max_dx: int,
+                              coord: Coord):
+    """Plain PyTorch version of K6's gradient mode, tap by tap (no
+    autograd). a, payload: (N, H, W, C) fp32, flow: (N, H, W, 2). Returns
+    (out (N, H, W, C), dfx (N, H, W), dfy (N, H, W)): the gather and
+    d<payload, out>/d(px, py)."""
+    rows, cols, tap = _plain_taps(a, flow, max_dy, max_dx, coord)
+    (wx0, gx0, k0i), (wx1, gx1, k1i) = cols
+    out = s1 = s2 = None
+    for wy, gy, ri in rows:
+        t0, t1 = tap(ri, k0i), tap(ri, k1i)
+        v = t0 * wx0[..., None] + t1 * wx1[..., None]
+        d = t0 * gx0[..., None] + t1 * gx1[..., None]
+        terms = (wy[..., None] * v, wy[..., None] * d, gy[..., None] * v)
+        if out is None:
+            out, s1, s2 = terms
+        else:
+            out, s1, s2 = out + terms[0], s1 + terms[1], s2 + terms[2]
+    return out, (payload * s1).sum(-1), (payload * s2).sum(-1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,12 +166,15 @@ def _lib() -> ctypes.CDLL:
     lib.sininn_gather_region.argtypes = (
         [ptr, ptr, ptr] + [i32] * 6 + [f32] * 4 + [ptr])
     lib.sininn_gather_region.restype = i32
+    lib.sininn_gather_region_grads.argtypes = (
+        [ptr] * 5 + [i32] * 6 + [f32] * 4 + [ptr])
+    lib.sininn_gather_region_grads.restype = i32
     lib.sininn_error_string.argtypes = [i32]
     lib.sininn_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(a: torch.Tensor, flow: torch.Tensor) -> None:
+def _check(a: torch.Tensor, flow: torch.Tensor, payload=None) -> None:
     if a.dim() != 4 or flow.shape != a.shape[:3] + (2,):
         raise ValueError(f"expected an NHWC image and an (N, H, W, 2) flow, "
                          f"got {tuple(a.shape)} and {tuple(flow.shape)}")
@@ -127,35 +183,48 @@ def _check(a: torch.Tensor, flow: torch.Tensor) -> None:
     if a.dtype != torch.float32 or flow.dtype != torch.float32:
         raise TypeError(f"gather kernel takes float32, got {a.dtype} and "
                         f"{flow.dtype}")
-    if torch.is_grad_enabled() and (a.requires_grad or flow.requires_grad):
-        raise RuntimeError(
-            "the windowed gather has no gradient yet: its backward comes in "
-            "the training slice (run under torch.no_grad())")
+    if payload is not None and (payload.shape != a.shape
+                                or payload.device != a.device
+                                or payload.dtype != torch.float32):
+        raise ValueError(f"payload {tuple(payload.shape)} {payload.dtype} on "
+                         f"{payload.device} does not match the image "
+                         f"{tuple(a.shape)} float32 on {a.device}")
 
 
 def _launch(a: torch.Tensor, flow: torch.Tensor, max_dy: int, max_dx: int,
-            coord: Coord) -> torch.Tensor:
-    if not (a.is_contiguous() and flow.is_contiguous()):
+            coord: Coord, payload=None):
+    """One launch of the forward mode (payload None: returns out) or of the
+    gradient mode (returns (out, dp), dp (N, H, W, 2) = (dfx, dfy))."""
+    tensors = (a, flow) if payload is None else (a, flow, payload)
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("gather kernel needs contiguous NHWC tensors")
     n, h, w, c = a.shape
     dy, dx = pad_geometry(max_dy, max_dx)
     (sx, shx), (sy, shy) = coord
     out = torch.empty_like(a)
     lib = _lib()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
-        err = lib.sininn_gather_region(
-            a.data_ptr(), flow.data_ptr(), out.data_ptr(), n, h, w, c, dy, dx,
-            sx, shx, sy, shy, torch.cuda.current_stream(a.device).cuda_stream)
+        if payload is None:
+            err = lib.sininn_gather_region(
+                a.data_ptr(), flow.data_ptr(), out.data_ptr(), n, h, w, c,
+                dy, dx, sx, shx, sy, shy, stream)
+        else:
+            dp = torch.empty_like(flow)
+            err = lib.sininn_gather_region_grads(
+                a.data_ptr(), flow.data_ptr(), payload.data_ptr(),
+                out.data_ptr(), dp.data_ptr(), n, h, w, c, dy, dx, sx, shx,
+                sy, shy, stream)
     if err != 0:
         raise RuntimeError("gather_region kernel launch failed: "
                            + lib.sininn_error_string(err).decode())
-    return out
+    return out if payload is None else (out, dp)
 
 
-def gather_region(a: torch.Tensor, flow: torch.Tensor, max_dy: int,
-                  max_dx: int, coord: Coord) -> torch.Tensor:
-    """K6 forward: the windowed bilinear gather of ``a`` (N, H, W, C) at
-    p = (x + flow) s + sh, ``coord = ((sx, shx), (sy, shy))``."""
+def _gather_forward(a: torch.Tensor, flow: torch.Tensor, max_dy: int,
+                    max_dx: int, coord: Coord) -> torch.Tensor:
+    """K6 forward on detached tensors: the kernel on the card (counted), the
+    plain version on the CPU."""
     _check(a, flow)
     if a.device.type == "cpu":
         return gather_region_plain(a, flow, max_dy, max_dx, coord)
@@ -166,15 +235,87 @@ def gather_region(a: torch.Tensor, flow: torch.Tensor, max_dy: int,
     return out
 
 
+def gather_region_grads(a: torch.Tensor, flow: torch.Tensor,
+                        payload: torch.Tensor, max_dy: int, max_dx: int,
+                        coord: Coord):
+    """K6 gradient mode: (out, dfx, dfy) with out (N, H, W, C) the windowed
+    gather of ``a`` and dfx, dfy (N, H, W) = d<payload, out>/d(px, py) (the
+    caller applies the coordinate scales). dfx and dfy are the two channels
+    of one (N, H, W, 2) tensor. Not differentiable itself."""
+    _check(a, flow, payload)
+    if a.device.type == "cpu":
+        return gather_region_grads_plain(a, flow, payload, max_dy, max_dx,
+                                         coord)
+    if a.numel() == 0:
+        return (torch.empty_like(a), flow.new_zeros(flow.shape[:3]),
+                flow.new_zeros(flow.shape[:3]))
+    out, dp = _launch(a, flow, max_dy, max_dx, coord, payload)
+    gather_region_grads.launches += 1
+    return out, dp[..., 0], dp[..., 1]
+
+
+class GatherRegion(torch.autograd.Function):
+    """K6 forward; backward = one K6 gradient-mode launch for the flow, and
+    the K5 splat of the cotangent for the image when it requires a
+    gradient. ``apply(a, flow, max_dy, max_dx, coord)``."""
+
+    @staticmethod
+    def forward(ctx, a, flow, max_dy, max_dx, coord):
+        ctx.geometry = (max_dy, max_dx, coord)
+        ctx.save_for_backward(a, flow)
+        return _gather_forward(a, flow, max_dy, max_dx, coord)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        from sin_inn_tpu_torch.ops.cuda.splat import splat_forward
+
+        a, flow = ctx.saved_tensors
+        max_dy, max_dx, coord = ctx.geometry
+        (sx, shx), (sy, shy) = coord
+        g = g.contiguous()
+        d_flow = None
+        if ctx.needs_input_grad[1]:
+            _, dfx, dfy = gather_region_grads(a, flow, g, max_dy, max_dx,
+                                              coord)
+            d_flow = torch.stack([dfx * sx, dfy * sy], dim=-1)
+        d_a = None
+        if ctx.needs_input_grad[0]:
+            # the adjoint of the gather in the image: the cotangent splatted
+            # along the effective displacement p - (x, y)
+            h, w = a.shape[1:3]
+            ys = torch.arange(h, dtype=torch.float32,
+                              device=a.device)[None, :, None]
+            xs = torch.arange(w, dtype=torch.float32,
+                              device=a.device)[None, None, :]
+            px = (xs + flow[..., 0]) * sx + shx
+            py = (ys + flow[..., 1]) * sy + shy
+            eff = torch.stack([px - xs, py - ys], dim=-1)
+            d_a = splat_forward(g, eff, max_dy, max_dx)
+        return d_a, d_flow, None, None, None
+
+
+def gather_region(a: torch.Tensor, flow: torch.Tensor, max_dy: int,
+                  max_dx: int, coord: Coord) -> torch.Tensor:
+    """K6: the windowed bilinear gather of ``a`` (N, H, W, C) at
+    p = (x + flow) s + sh, ``coord = ((sx, shx), (sy, shy))``.
+    Differentiable in ``a`` and ``flow``."""
+    _check(a, flow)
+    return GatherRegion.apply(a, flow, max_dy, max_dx, coord)
+
+
 def resample2d_region(img: torch.Tensor, flow: torch.Tensor, max_dy: int,
                       max_dx: int) -> torch.Tensor:
-    """``ops.warp.resample2d`` on K6: exact for flows within the bounds."""
+    """``ops.warp.resample2d`` on K6: exact for flows within the bounds.
+    Its flow gradient is one K6 gradient-mode launch; its image gradient
+    (one K5 splat) is computed only when the image requires one."""
     h, w = img.shape[1:3]
     return gather_region(img, flow, max_dy, max_dx, resample_coord(h, w))
 
 
-KERNELS = (gather_region,)
-gather_region.launches = 0
+KERNELS = (gather_region, gather_region_grads)
+for _k in KERNELS:
+    _k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:

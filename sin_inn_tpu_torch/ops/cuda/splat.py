@@ -18,11 +18,18 @@ the tap: rows [128 i - dy, 128 i - dy + SH), columns [128 j - dx,
 The kernel sums with atomics, so its result is not bitwise reproducible from
 run to run; the plain version and the JAX path are deterministic.
 
+``splat_region`` is differentiable (:class:`SplatRegion`): its backward is
+one launch of the gather kernel's gradient mode (``ops/cuda/gather.py``
+``gather_region_grads``) with the cotangent as the image, the values as the
+payload and raw coordinates: the gather is the values' gradient, (dfx, dfy)
+the flow's. Note the anchoring, kept as the TPU package has it: the forward
+keeps a tap by the window of the tile that holds the TAP, the backward by
+the window around the SOURCE pixel. The two agree for flows within the
+bounds and may differ for taps beyond them.
+
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel
-or raises, a CPU tensor takes :func:`splat_region_plain`. The backward (the
-gather kernel's grads mode) comes with the training slice; until then a
-splat of tensors that require a gradient raises. ``splat_region.launches``
-counts kernel launches.
+or raises, a CPU tensor takes the plain versions, in the forward and in the
+backward alike. ``splat_region.launches`` counts K5 launches.
 """
 
 from __future__ import annotations
@@ -32,8 +39,10 @@ import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from sin_inn_tpu_torch.ops.cuda import _build
+from sin_inn_tpu_torch.ops.cuda.gather import RAW, gather_region_grads
 from sin_inn_tpu_torch.ops.splat import softmax_coverage_via, splat_scatter
 
 _B = 128     # output-tile rows and columns
@@ -65,7 +74,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(values: torch.Tensor, flow: torch.Tensor) -> None:
+def _check(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
+           max_dx: int) -> None:
     if values.dim() != 4 or flow.shape != values.shape[:3] + (2,):
         raise ValueError(f"expected NHWC values and an (N, H, W, 2) flow, "
                          f"got {tuple(values.shape)} and {tuple(flow.shape)}")
@@ -75,11 +85,9 @@ def _check(values: torch.Tensor, flow: torch.Tensor) -> None:
     if values.dtype != torch.float32 or flow.dtype != torch.float32:
         raise TypeError(f"splat kernel takes float32, got {values.dtype} and "
                         f"{flow.dtype}")
-    if torch.is_grad_enabled() and (values.requires_grad
-                                    or flow.requires_grad):
-        raise RuntimeError(
-            "the windowed splat has no gradient yet: its backward comes in "
-            "the training slice (run under torch.no_grad())")
+    if max_dy < 0 or max_dx < 0:
+        raise ValueError(f"window bounds must be >= 0, got {max_dy}, "
+                         f"{max_dx}")
 
 
 def _launch(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
@@ -101,14 +109,11 @@ def _launch(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
     return out
 
 
-def splat_region(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
-                 max_dx: int) -> torch.Tensor:
-    """K5: the windowed bilinear splat of ``values`` (N, H, W, C) along
-    ``flow`` (N, H, W, 2)."""
-    _check(values, flow)
-    if max_dy < 0 or max_dx < 0:
-        raise ValueError(f"window bounds must be >= 0, got {max_dy}, "
-                         f"{max_dx}")
+def splat_forward(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
+                  max_dx: int) -> torch.Tensor:
+    """K5 on detached tensors: the kernel on the card (counted), the plain
+    version on the CPU."""
+    _check(values, flow, max_dy, max_dx)
     if values.device.type == "cpu":
         return splat_region_plain(values, flow, max_dy, max_dx)
     if values.numel() == 0:
@@ -116,6 +121,33 @@ def splat_region(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
     out = _launch(values, flow, max_dy, max_dx)
     splat_region.launches += 1
     return out
+
+
+class SplatRegion(torch.autograd.Function):
+    """K5 forward; backward = one K6 gradient-mode launch (the cotangent
+    gathered along the same flow). ``apply(values, flow, max_dy, max_dx)``."""
+
+    @staticmethod
+    def forward(ctx, values, flow, max_dy, max_dx):
+        ctx.bounds = (max_dy, max_dx)
+        ctx.save_for_backward(values, flow)
+        return splat_forward(values, flow, max_dy, max_dx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        values, flow = ctx.saved_tensors
+        d_values, dfx, dfy = gather_region_grads(
+            g.contiguous(), flow, values, *ctx.bounds, RAW)
+        return d_values, torch.stack([dfx, dfy], dim=-1), None, None
+
+
+def splat_region(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
+                 max_dx: int) -> torch.Tensor:
+    """K5: the windowed bilinear splat of ``values`` (N, H, W, C) along
+    ``flow`` (N, H, W, 2). Differentiable in both."""
+    _check(values, flow, max_dy, max_dx)
+    return SplatRegion.apply(values, flow, max_dy, max_dx)
 
 
 def softsplat_region_with_coverage(inp: torch.Tensor, flow: torch.Tensor,

@@ -17,7 +17,11 @@ import torch
 
 
 def _hat(d: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(1.0 - torch.abs(d), min=0.0)
+    """max(1 - |d|, 0). |d| is written as a select so that its derivative at
+    d = 0 is +1, as JAX's ``abs`` has it (``torch.abs`` gives 0 there): a
+    target on a pixel centre then has the same flow gradient, the right
+    derivative, in both packages."""
+    return torch.clamp(1.0 - torch.where(d >= 0, d, -d), min=0.0)
 
 
 def splat_scatter(values: torch.Tensor, flow: torch.Tensor,

@@ -1,22 +1,25 @@
-"""Entry points: SR (``sr train``, ``sr test``) and flow serving
-(``flow test``, ``flow interpolate``).
+"""Entry points: SR (``sr train``, ``sr test``) and flow (``flow train``,
+``flow test``, ``flow interpolate``).
 
 Counterpart of ``sin_inn_tpu/train/loop.py`` on one device: for SR,
 ``sr_dirs``, ``_sr_create_and_restore``, ``run_sr_train`` and
 ``run_sr_test``; for flow, ``flow_ckpt_dir``, ``_flow_create_and_restore``,
-the window-bound sidecar (``_load_window_bounds``, which also holds the
-reference's ``_inference_bounds`` rule),
-``run_flow_test`` and ``run_flow_interpolate``. The frame loops are
-factored out as in-memory cores (:func:`sr_test_frames`,
-:func:`flow_test_outputs`, :func:`interpolate_frames`) that return numpy
-arrays and uint8 frames without touching imageio or ffmpeg. The mesh,
-tuner, profiler and ``--import-torch`` branches, ``sr export`` and the rest
-of the flow entry points (train, export, summarize, sintel) wait for their
-slices.
+the window-bound sidecar (``_save_window_bounds``, and
+``_load_window_bounds``, which also holds the reference's
+``_inference_bounds`` rule), ``run_flow_train``, ``run_flow_test`` and
+``run_flow_interpolate``. The frame loops are factored out as in-memory
+cores (:func:`sr_test_frames`, :func:`flow_test_outputs`,
+:func:`interpolate_frames`) that return numpy arrays and uint8 frames
+without touching imageio or ffmpeg. ``run_flow_train`` trains on the static
+global windows: the GT-flow probe of the window bounds, their mid-training
+refit and the pseudo-GT producers are not ported, nor are the mesh, tuner,
+profiler and ``--import-torch`` branches, ``sr export`` and ``flow
+{export,summarize,sintel}``.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import os.path as path
 import time
@@ -227,19 +230,23 @@ def run_sr_test(cfg: SRConfig, video: Optional[SRVideo] = None,
 
 
 # ===========================================================================
-# Flow pipeline (serving)
+# Flow pipeline
 # ===========================================================================
 
 def flow_ckpt_dir(cfg: FlowConfig, scene: str) -> str:
     return path.join(cfg.checkpoints_dir, scene, cfg.name)
 
 
-def flow_state_dict(params, consts, step: int) -> Dict:
-    """The flow checkpoint: ``{"params", "consts", "step"}``. The encoding
+def flow_state_dict(params, consts, step: int, opt=None) -> Dict:
+    """The flow checkpoint: ``{"params", "consts", "step"}``, and ``"opt"``
+    (the optimizer's state dict) when training saves it. The encoding
     consts ride with the params, so a restore never pairs trained weights
-    with freshly drawn RBF centres. The training slice adds the optimizer
-    and the controller state."""
-    return {"params": params, "consts": consts, "step": int(step)}
+    with freshly drawn RBF centres. The controller state joins with the
+    progressive nets."""
+    out = {"params": params, "consts": consts, "step": int(step)}
+    if opt is not None:
+        out["opt"] = opt
+    return out
 
 
 def _check_tree(fresh, restored, what: str) -> None:
@@ -255,12 +262,10 @@ def _check_tree(fresh, restored, what: str) -> None:
                              f"{tuple(a.shape)}")
 
 
-def _flow_create_and_restore(cfg: FlowConfig, init_gen, scene: str,
-                             require: str = ""):
-    """The config's INR, then the latest checkpoint of ``flow_ckpt_dir``
-    restored over it (its params and consts, shape-checked against the
-    fresh net). ``require`` (an error message) makes a missing checkpoint
-    fatal. Returns (spec, params, consts, store, step)."""
+def _flow_restore(cfg: FlowConfig, init_gen, scene: str):
+    """The config's INR and the latest checkpoint of ``flow_ckpt_dir``,
+    shape-checked against it. Returns (spec, params, consts, store,
+    restored or None, step)."""
     device = resolve_device(cfg.device)
     store = CheckpointStore(flow_ckpt_dir(cfg, scene))
     spec, params, consts = build_inr(init_gen, cfg.net, cfg, device)
@@ -268,13 +273,53 @@ def _flow_create_and_restore(cfg: FlowConfig, init_gen, scene: str,
     if restored is not None:
         _check_tree(params, restored["params"], "params")
         _check_tree(consts, restored["consts"], "consts")
+    return spec, params, consts, store, restored, step
+
+
+def _flow_create_and_restore(cfg: FlowConfig, init_gen, scene: str,
+                             require: str = ""):
+    """The config's INR, then the latest checkpoint of ``flow_ckpt_dir``
+    restored over it (its params and consts; a training checkpoint's
+    optimizer state is left aside). ``require`` (an error message) makes a
+    missing checkpoint fatal. Returns (spec, params, consts, store, step)."""
+    spec, params, consts, store, restored, step = _flow_restore(
+        cfg, init_gen, scene)
+    if restored is not None:
         return spec, restored["params"], restored["consts"], store, int(step)
     if require:
         raise FileNotFoundError(require)
     return spec, params, consts, store, 0
 
 
+def _flow_train_create_and_restore(cfg: FlowConfig, init_gen, scene: str):
+    """create_flow_state + latest-scan restore: the checkpoint's params and
+    consts, with its optimizer state when it has one (a serving checkpoint
+    starts a fresh optimizer). Returns (spec, FlowTrainState, consts, store,
+    start_epoch)."""
+    spec, params, consts, store, restored, step = _flow_restore(
+        cfg, init_gen, scene)
+    if restored is None:
+        return spec, FT.train_state(params, cfg), consts, store, 0
+    state = FT.train_state(restored["params"], cfg, restored.get("opt"),
+                           int(restored["step"]))
+    return spec, state, restored["consts"], store, int(step)
+
+
 _LOCAL_BOUND_KEYS = ("splat_local_dy", "splat_local_dx")
+
+
+def _save_window_bounds(directory: str, cfg: FlowConfig, fh: int,
+                        fw: int) -> None:
+    """Write the run's effective window bounds beside its checkpoints
+    (``window_bounds.json``), so that a resume and a later ``flow test`` or
+    ``flow interpolate`` at the same frame size use the windows the net was
+    trained on. The local bounds are written as null: this run trained on
+    the global windows."""
+    import json
+    with open(path.join(directory, "window_bounds.json"), "w") as f:
+        json.dump({"fh": fh, "fw": fw,
+                   **{k: getattr(cfg, k) for k in FlowConfig.WINDOW_BOUND_KEYS},
+                   **{k: None for k in _LOCAL_BOUND_KEYS}, "hist": {}}, f)
 
 
 def _load_window_bounds(cfg: FlowConfig, directory: str, fh: int,
@@ -306,6 +351,117 @@ def _load_window_bounds(cfg: FlowConfig, directory: str, fh: int,
     upd = {k: data[k] for k in FlowConfig.WINDOW_BOUND_KEYS
            if k in data and getattr(cfg, k) == "auto"}
     return (cfg.replace(**upd) if upd else cfg), True
+
+
+def _to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict:
+    """A media batch on ``device``; ``scale`` stays a Python float."""
+    return {k: (float(v) if k == "scale" else torch.from_numpy(v).to(device))
+            for k, v in batch.items()}
+
+
+def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
+                   use_wandb: bool = False, val_media=None,
+                   keep_writer: bool = False) -> Dict:
+    """``flow train`` on one device: fit the config's INR to the video's
+    flow with the photometric loss and LAMB.
+
+    The frame-pair batches are placed on the device once and replayed every
+    epoch in a seeded permutation. At the ``val_iter`` cadence (off by
+    default) and at the last epoch the step's metrics and pairs/s are
+    logged, with the validation EPE when the val media has GT flow (summed
+    on the device, one scalar read). A checkpoint (``{"params", "consts",
+    "opt", "step"}``) and the window-bound sidecar are written every
+    ``epochs // 100`` epochs, at the last epoch and on SIGTERM/SIGINT; a
+    rerun resumes from the latest one. When the flow outgrows the windows
+    (whose far taps are dropped) the loop warns once."""
+    device = resolve_device(cfg.device)
+    if media is None:
+        media, val_media, scene = flow_media.get_video(
+            cfg.input_video, cfg.size, cfg.test_size, cfg.end, cfg.step,
+            flow_dir=cfg.flow_dir)
+    fh, fw = media.video.shape[1:3]
+    ckpt_dir = flow_ckpt_dir(cfg, scene)
+    # a resumed run keeps the bounds it trained on (bounds pinned now win);
+    # a fresh run in a reused directory resolves its own
+    if CheckpointStore(ckpt_dir).latest_step() is not None:
+        cfg, _ = _load_window_bounds(cfg, ckpt_dir, fh, fw)
+    cfg = cfg.resolve_splat_bounds(fh, fw)
+    root = R.root_generator(cfg.random_seed)
+    spec, state, consts, store, start_epoch = _flow_train_create_and_restore(
+        cfg, R.named_fold(root, "init"), scene)
+    step = FT.make_flow_train_step(spec, cfg)
+
+    writer = MetricsWriter(store.directory, run_name=f"{scene}_{cfg.name}",
+                           use_wandb=use_wandb, wandb_project="optical_flow",
+                           hyperparams=cfg.__dict__)
+    do_val = (val_media is not None and val_media.gt_available
+              and cfg.effective_val_iter <= cfg.epochs)
+    if do_val:
+        vh, vw = val_media.video.shape[1:3]
+
+    rng = np.random.RandomState(cfg.random_seed)
+    save_every = max(cfg.epochs // 100, 1)
+    last: Dict = {}
+    m: Dict = {}
+    t0 = time.time()
+    pairs_done = 0
+    cached = [_to_device_batch(b, device) for b in media.batches(cfg.batch)]
+    stop = GracefulStop().install()
+    window_warned = False
+    try:
+        for epoch in range(start_epoch, cfg.epochs):
+            for bi in rng.permutation(len(cached)):
+                batch = cached[bi]
+                m = step(state, consts, batch)
+                pairs_done += int(batch["frame1"].shape[0])
+            if ((epoch + 1) % cfg.effective_val_iter == 0
+                    or epoch == cfg.epochs - 1):
+                last = {k: float(v) for k, v in m.items()}
+                last["frames_per_sec"] = pairs_done / max(time.time() - t0,
+                                                          1e-9)
+                if do_val:
+                    epe_sum, n = torch.zeros((), device=device), 0
+                    for vb in val_media.batches(cfg.test_batch):
+                        vb = _to_device_batch(vb, device)
+                        f12, _ = FT.flow_infer(spec, state.params, consts,
+                                               vb["times"], vb["scale"],
+                                               vh, vw)
+                        nb = int(vb["times"].shape[0])
+                        epe_sum = epe_sum + FT.epe(f12, vb["gt_flow"]) * nb
+                        n += nb
+                    last["val_epe"] = float(epe_sum) / max(n, 1)
+                writer.log(epoch, last)
+            saved = (epoch + 1) % save_every == 0 or epoch == cfg.epochs - 1
+            if saved or stop:
+                store.save(epoch + 1, flow_state_dict(
+                    state.params, consts, state.step,
+                    state.optimizer.state_dict()))
+                _save_window_bounds(store.directory, cfg, fh, fw)
+            if (saved and cfg.splat_max_dy and "flow_max_y" in m
+                    and not window_warned):
+                fy, fx = float(m["flow_max_y"]), float(m["flow_max_x"])
+                dy, dx = cfg.splat_max_dy, cfg.splat_max_dx
+                if fy > dy - 1 or (dx is not None and fx > dx - 1):
+                    window_warned = True
+                    logging.getLogger(__name__).warning(
+                        "flow magnitude (|fy| %.1f, |fx| %.1f px) exceeds "
+                        "the splat window bounds (dy=%s, dx=%s) at epoch %d: "
+                        "taps beyond the window are being dropped. Raise "
+                        "--splat-max-dy/--splat-max-dx or pass 'off' for "
+                        "the exact scatter.", fy, fx, dy, dx, epoch + 1)
+            if stop:
+                break
+    finally:
+        stop.restore()
+        if not keep_writer:
+            writer.close()
+    out = {"state": state, "spec": spec, "consts": consts, "metrics": last,
+           "scene": scene, "start_epoch": start_epoch,
+           # the effective config: the resolved window bounds
+           "cfg": cfg}
+    if keep_writer:
+        out["writer"] = writer
+    return out
 
 
 def flow_test_outputs(cfg: FlowConfig, media: flow_media.FlowMedia, spec,

@@ -9,8 +9,11 @@ Tolerance for fp32 storage: 1e-4 + 1e-4 |plain| (sums over the hidden width
 in another order, atanf against torch.atan); bf16 storage: one bf16
 rounding step. Weight and bias gradients of the backward kernels: 1e-3 of
 the largest |plain| of each (sums over all rows in another order). The
-windowed splat (K5) and gather (K6): 1e-5 + 1e-5 |plain| (K5 sums with
-atomics in a run-dependent order; K6 repeats the plain arithmetic).
+windowed splat (K5) and gather (K6, forward and gradient mode): 1e-5 +
+1e-5 |plain| (K5 sums with atomics in a run-dependent order; K6 repeats the
+plain arithmetic). The fused INR backward (K7): each weight and bias
+gradient within 1e-3 of the largest |plain| of it, bitwise repeatable; the
+train step's kernel route within a normwise 1e-3 of autograd's.
 """
 
 import pytest
@@ -20,6 +23,7 @@ from sin_inn_tpu_torch.core import rng as R
 from sin_inn_tpu_torch.ops import subnet as S
 from sin_inn_tpu_torch.ops.cuda import coupling as K
 from sin_inn_tpu_torch.ops.cuda import gather as K6
+from sin_inn_tpu_torch.ops.cuda import inr as K7
 from sin_inn_tpu_torch.ops.cuda import splat as K5
 
 pytestmark = pytest.mark.cuda
@@ -203,7 +207,8 @@ def test_windowed_kernels_match_plain(dev, shape, c, bounds, amp):
     ref = K5.splat_region_plain(v, fl, *bounds)
     torch.cuda.synchronize()
     assert ((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
-    assert K6.launch_counts() == {"gather_region": 2}
+    assert K6.launch_counts() == {"gather_region": 2,
+                                  "gather_region_grads": 0}
     assert K5.launch_counts() == {"splat_region": 1}
 
 
@@ -233,3 +238,165 @@ def test_windowed_kernels_refuse_what_they_cannot_take(dev):
         K5.splat_region(a, fl.cpu(), 8, 8)
     with pytest.raises(TypeError):
         K5.splat_region(a.half(), fl, 8, 8)
+
+
+@pytest.mark.parametrize("shape,c,bounds,amp", [
+    ((2, 40, 50), 3, (8, 8), 5.0),         # in the window
+    ((1, 200, 300), 5, (8, 8), 20.0),      # beyond it: the drop rule
+    ((1, 436, 1024), 5, (64, 128), 90.0),  # the flow path's shape
+    ((1, 130, 260), 3, (13, 70), 0.0),     # zero flow: dhat(0) = dhat(1) = 0
+])
+def test_gather_grads_kernel_matches_plain(dev, shape, c, bounds, amp):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n, h, w = shape
+    a = torch.rand((n, h, w, c), generator=gen, device=dev)
+    q = torch.randn((n, h, w, c), generator=gen, device=dev)
+    fl = (_flow(gen, n, h, w, amp, dev) if amp
+          else torch.zeros((n, h, w, 2), device=dev))
+    K6.reset_launch_counts()
+    for coord in (K6.resample_coord(h, w), K6.RAW):
+        got = K6.gather_region_grads(a, fl, q, *bounds, coord)
+        ref = K6.gather_region_grads_plain(a, fl, q, *bounds, coord)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert ((g - r).abs() <= 1e-5 + 1e-5 * r.abs()).all()
+        if not amp and coord == K6.RAW:
+            assert not got[1].any() and not got[2].any()
+    assert K6.launch_counts() == {"gather_region": 0,
+                                  "gather_region_grads": 2}
+
+
+def test_windowed_functions_backward_on_the_card(dev):
+    """The Functions' backward on CUDA tensors against the CPU's plain
+    versions, and the launches they make."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, h, w = 1, 130, 260
+    img = torch.rand((n, h, w, 3), generator=gen, device=dev)
+    v = torch.rand((n, h, w, 5), generator=gen, device=dev)
+    fl = _flow(gen, n, h, w, 6.0, dev)
+    wgt = torch.randn((n, h, w, 5), generator=gen, device=dev)
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        K5.reset_launch_counts()
+        K6.reset_launch_counts()
+        i_, v_, f_ = (t.to(d).clone().requires_grad_() for t in (img, v, fl))
+        loss = ((K6.resample2d_region(i_, f_, 16, 16) * wgt[..., :3].to(d)
+                 ).sum() + (K5.splat_region(v_, f_, 16, 16) * wgt.to(d)).sum())
+        loss.backward()
+        grads[d.type] = [t.grad.cpu() for t in (i_, v_, f_)]
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            # forward K6 + K5; backward 2 K6 grads and the image's K5 splat
+            assert K6.launch_counts() == {"gather_region": 1,
+                                          "gather_region_grads": 2}
+            assert K5.launch_counts() == {"splat_region": 2}
+    for g, r in zip(grads["cuda"], grads["cpu"]):
+        assert ((g - r).abs() <= 1e-4 + 1e-4 * r.abs()).all()
+
+
+@pytest.mark.parametrize("kind,n,widths", [
+    ("rbf", 5000, (64, 32, 32, 4)),        # ragged last tile
+    ("ff", 4096, (128, 64, 4)),
+    ("rbf", 446_464, (512, 256, 256, 256, 4)),   # the flow path's shape
+    ("rbf", 333, (36, 20, 20, 3)),         # widths that are not multiples of 8
+])
+def test_inr_backward_kernel_matches_plain(dev, kind, n, widths):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rand = lambda *s: torch.randn(s, generator=gen, device=dev)
+    e = widths[0]
+    if kind == "rbf":
+        enc = {"centres": torch.rand((e, 3), generator=gen, device=dev) * 2 - 1,
+               "sigma": rand(e).abs() * 3 + 1}
+    else:
+        enc = {"frequencies": rand(3, e // 2) * 4}
+    layers = [(rand(a, b) / a ** 0.5, rand(b) * 0.1)
+              for a, b in zip(widths[:-1], widths[1:])]
+    x = torch.rand((n, 3), generator=gen, device=dev) * 2 - 1
+    mask = torch.rand(e, generator=gen, device=dev)
+    g = 1e-3 * (0.5 + rand(n, widths[-1]))
+    K7.reset_launch_counts()
+    for bf16 in (False, True):
+        got = K7.fused_inr_backward(kind, enc, layers, x, mask, g, bf16)
+        again = K7.fused_inr_backward(kind, enc, layers, x, mask, g, bf16)
+        ref = K7.fused_inr_backward_plain(kind, enc, layers, x, mask, g, bf16)
+        torch.cuda.synchronize()
+        for pg, pa, pr in zip(got, again, ref):
+            for a_, b_, r_ in zip(pg, pa, pr):
+                assert torch.equal(a_, b_)
+                assert (a_ - r_).abs().max() <= 1e-3 * r_.abs().max()
+    assert K7.launch_counts() == {"fused_inr_backward": 4}
+
+
+def test_inr_backward_kernel_refuses_what_it_cannot_take(dev):
+    x = torch.rand((64, 3), device=dev)
+    enc = {"centres": torch.rand((30, 3), device=dev),
+           "sigma": torch.ones(30, device=dev)}
+    layers = [(torch.rand((30, 16), device=dev), torch.rand(16, device=dev)),
+              (torch.rand((16, 4), device=dev), torch.rand(4, device=dev))]
+    with pytest.raises(ValueError, match="multiples of 4"):     # E = 30
+        K7.fused_inr_backward("rbf", enc, layers, x,
+                              torch.ones(30, device=dev),
+                              torch.rand((64, 4), device=dev))
+
+
+def test_inr_apply_refuses_widths_the_kernel_cannot_take(dev):
+    """Through the model: ``use_kernel="auto"`` on the card raises in the
+    forward for a net the kernel cannot take, launches nothing, and does
+    not take autograd by itself; ``use_kernel="off"`` trains it."""
+    import dataclasses
+
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.models.inr import build_inr, inr_apply
+
+    x = torch.rand((64, 3), device=dev) * 2 - 1
+    for widths, why in ((dict(hidden_dim=512), "shared memory"),
+                        (dict(num_frequencies=64, hidden_dim=18),
+                         "multiples of 4")):
+        cfg = FlowConfig(device="cuda", **widths)
+        spec, params, consts = build_inr(R.root_generator(3), "RBF", cfg, dev)
+        for l in params["mlp"]:
+            l["w"].requires_grad_()
+        K7.reset_launch_counts()
+        with pytest.raises(ValueError, match=f"{why}.*use-kernel off"):
+            inr_apply(spec, params, consts, x)
+        off = inr_apply(dataclasses.replace(spec, use_kernel="off"), params,
+                        consts, x)
+        off.sum().backward()
+        assert all(l["w"].grad is not None for l in params["mlp"])
+        assert K7.launch_counts() == {"fused_inr_backward": 0}
+
+
+def test_flow_train_step_kernel_route_matches_autograd(dev):
+    """One train step's parameter gradients at a small frame: the fused
+    route (K7 backward) against ``use_kernel="off"``, same K5/K6."""
+    import dataclasses
+
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.data.synthetic import moving_texture_video
+    from sin_inn_tpu_torch.models.inr import flat_leaves
+    from sin_inn_tpu_torch.train import flow as FT
+
+    cfg = FlowConfig(device="cuda", num_frequencies=64, hidden_dim=64,
+                     splat_max_dy=16, splat_max_dx=16)
+    spec, state, consts = FT.create_flow_state(R.root_generator(7), cfg)
+    vid = torch.from_numpy(moving_texture_video(2, 136, 200, seed=1)).to(dev)
+    batch = {"frame1": vid[0:1], "frame2": vid[1:2],
+             "times": torch.tensor([0.0], device=dev), "scale": 40.0}
+    leaves = [t for _, t in flat_leaves(state.params)]
+    grads = []
+    for sp in (spec, dataclasses.replace(spec, use_kernel="off")):
+        for t in leaves:
+            t.grad = None
+        for mod in (K5, K6, K7):
+            mod.reset_launch_counts()
+        loss, _ = FT.flow_loss(sp, cfg, state.params, consts, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads.append([t.grad.clone() for t in leaves])
+        assert K5.launch_counts() == {"splat_region": 2}
+        assert K6.launch_counts() == {"gather_region": 2,
+                                      "gather_region_grads": 4}
+        assert K7.launch_counts() == {
+            "fused_inr_backward": int(sp.use_kernel == "auto")}
+    for a, b in zip(*grads):
+        assert (a - b).norm() <= 1e-3 * b.norm()

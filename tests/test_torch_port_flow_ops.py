@@ -267,15 +267,23 @@ def test_region_wrappers_refuse_what_they_cannot_do():
     fl = torch.zeros(1, 8, 8, 2)
     with pytest.raises(ValueError, match="bounds"):
         TK5.splat_region(v, fl, -1, 8)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        TK5.splat_region(v.requires_grad_(), fl, 8, 8)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        TG.resample2d_region(v, fl, 8, 8)
+    # both wrappers are differentiable: the gradients of sum(out) in the
+    # values / the image at zero flow are ones (the splat and the warp at
+    # resample coordinates both move nothing farther than a pixel)
+    fl.requires_grad_()
+    TK5.splat_region(v.requires_grad_(), fl, 8, 8).sum().backward()
+    assert torch.equal(v.grad, torch.ones_like(v))
+    assert fl.grad is not None and not fl.grad.any()   # dhat(0) = 0
+    v.grad = None
+    TG.resample2d_region(v, fl, 8, 8).square().sum().backward()
+    assert v.grad.abs().sum() > 0 and torch.isfinite(fl.grad).all()
+    fl = fl.detach()
     with pytest.raises(TypeError):
         TK5.splat_region(v.detach().double(), fl.double(), 8, 8)
     with pytest.raises(ValueError):
         TG.resample2d_region(v.detach(), fl[..., :1], 8, 8)
-    assert TG.launch_counts() == {"gather_region": 0}
+    assert TG.launch_counts() == {"gather_region": 0,
+                                  "gather_region_grads": 0}
     assert TK5.launch_counts() == {"splat_region": 0}
 
 

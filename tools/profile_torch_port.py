@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's SRF paths, on one card.
 
-    python3 tools/profile_torch_port.py [--train | --flow] [--batches N]
-                                        [--out DIR]
+    python3 tools/profile_torch_port.py [--train | --flow | --flow-train]
+                                        [--batches N] [--out DIR]
 
 Builds the kernels, makes a seeded flagship SRF state (SRConfig defaults:
 scale 4, lr_window 10, 4 couplings, hidden 256) and random uint8 batches at
@@ -17,6 +17,10 @@ HR 352x640, then on ``cuda`` in the ``float32`` mode:
   size (436x1024) with a seeded full-width ``RBF`` INR (FlowConfig
   defaults): one ``flow test`` pair (the INR query and the Wang occlusion
   map) and one interpolated mid-frame (``frame_interp`` at alpha 0.5);
+* ``--flow-train``: one ``flow train`` step at Sintel size (batch 1, the
+  ``RBF`` net, Wang occlusion, bounds dy 64, dx 128; loss, backward, LAMB) on
+  the kernel route and with ``use_kernel="off"``, each with its peak memory
+  and the memory held between the forward and the backward;
 * traces one step of each with ``torch.profiler`` and prints the device
   time by kernel and the device's busy share of the step's wall time.
 
@@ -128,6 +132,56 @@ def _flow(a, dev) -> int:
     return 0
 
 
+def _flow_train(a, dev) -> int:
+    import dataclasses
+
+    import numpy as np
+
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.data.synthetic import moving_texture_video
+    from sin_inn_tpu_torch.ops.cuda import gather as K6
+    from sin_inn_tpu_torch.ops.cuda import inr as K7
+    from sin_inn_tpu_torch.ops.cuda import splat as K5
+    from sin_inn_tpu_torch.train import flow as FT
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, w = 436, 1024
+    cfg = FlowConfig(device="cuda").resolve_splat_bounds(h, w)
+    pair = torch.from_numpy(np.ascontiguousarray(
+        moving_texture_video(2, h, w))).to(dev)
+    batch = {"frame1": pair[0:1], "frame2": pair[1:2],
+             "times": torch.tensor([-1.0], device=dev), "scale": w / 5.0}
+    spec, _, _ = FT.create_flow_state(R.root_generator(0), cfg)
+    for tag, sp in (("flow_train_step", spec),
+                    ("flow_train_step_off",
+                     dataclasses.replace(spec, use_kernel="off"))):
+        _, state, consts = FT.create_flow_state(R.root_generator(0), cfg)
+        step = FT.make_flow_train_step(sp, cfg)
+        fn = lambda: step(state, consts, batch)
+        for mod in (K5, K6, K7):
+            mod.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        med, lo, hi = _events_ms(fn, a.batches)
+        counts = {**K5.launch_counts(), **K6.launch_counts(),
+                  **K7.launch_counts()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        # what the graph holds for the backward: allocated after the loss
+        # is built, less what is allocated with no graph alive
+        state.optimizer.zero_grad(set_to_none=True)
+        base = torch.cuda.memory_allocated(dev)
+        loss, _ = FT.flow_loss(sp, cfg, state.params, consts, batch)
+        held = (torch.cuda.memory_allocated(dev) - base) / 2 ** 30
+        del loss
+        print(f"[time] {tag} (use_kernel={sp.use_kernel}), 1 x {h}x{w}: "
+              f"median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, "
+              f"{a.batches} runs) = {1e3 / med:.2f} pairs/s; peak device "
+              f"memory {peak:.2f} GiB, held for the backward {held:.2f} "
+              f"GiB; launches over {a.batches + 1} steps: {counts}")
+        _profile(tag, fn, a.out)
+        del state, step, fn
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", type=int, default=10)
@@ -136,6 +190,8 @@ def main() -> int:
                     help="profile the train step at batch 8")
     ap.add_argument("--flow", action="store_true",
                     help="profile flow test and interpolation at 436x1024")
+    ap.add_argument("--flow-train", action="store_true",
+                    help="profile a flow train step at 436x1024, both routes")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: needs a CUDA device", file=sys.stderr)
@@ -150,6 +206,8 @@ def main() -> int:
 
     if a.flow:
         return _flow(a, dev)
+    if a.flow_train:
+        return _flow_train(a, dev)
     cfg = SRConfig(device="cuda", compute_dtype="float32")
     if a.train:
         spec, state = SR.create_train_state(R.root_generator(0), cfg)
