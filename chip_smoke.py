@@ -81,6 +81,34 @@ nothing of JAX or of the JAX package. Phases:
    holds between its forward and its backward (the kernel route keeps no
    (N, 512) tensor); ``flow test`` on the trained checkpoint with no kernel
    launch at all.
+10. the fused INR's forward kernel (K7 forward) and the new modes of K7
+    backward against their plain versions at N = 446,464 for the progressive
+    nets ``PFF`` and ``PRBF`` at default widths (mask length 515, MLP
+    515-256-256-256-4) under a seeded spatial-controller state that is not
+    the initial one (cell values in [0, 1], ``spatial_res`` 50): the forward
+    in the ``const``, ``slab`` and ``point`` mask modes and for a
+    non-progressive net within 1e-4 + 1e-4 |plain| in fp32 (sums over up to
+    515 channels in another order), ``slab`` and ``point`` within the same
+    of each other, the bf16 operand mode within a normwise 5e-3 of the bf16
+    plain version and 2e-2 of the fp32 one; the backward with every leaf,
+    the coordinate rows among them, within 1e-3 of its largest |plain|, two
+    launches bitwise equal; times, bounds, scratch size;
+11. the progressive path: ``run_flow_train`` for ``PFF`` with the spatial
+    controller on the 6-frame 436x1024 video (2 epochs = 10 steps, a block
+    advance each, then a resume to 3 epochs with the controller state from
+    the checkpoint); one transition of each controller with
+    ``torch.cuda.set_sync_debug_mode("error")`` (nothing waits for the
+    card), the spatial one on a state with half its cells out of progress,
+    whose mask rows must stay; launch counts of one step exactly K7 forward
+    1, K7 backward 1 (and one reduction), K5 2, K6 2, K6 grads 4, K1-K4 0;
+    the gradients against ``use_kernel="off"`` (the dense (N, 515) mask and
+    autograd) within a normwise 1e-3; pairs/s, step ms and peak memory of
+    both routes over 10 steps after 2 warm-ups at the default schedule (a
+    block every 8 steps); 5 steps of ``PFF`` with the linear controller (K7
+    forward 0, K7 backward 1 a step); ``flow test`` and one interpolated
+    mid-frame from the spatial checkpoint (K7 forward 1 a pair, the peak
+    memory under one (N, 512) tensor over what is held); the card against
+    the CPU on a small crop (flows within 1e-3 px).
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each kernel's numbers; the last line is
@@ -120,6 +148,7 @@ REPLACES = {
     "gather_region": "sin_inn_tpu/ops/pallas/gather.py:79",
     "gather_region_grads": "sin_inn_tpu/ops/pallas/gather.py:148",
     "fused_inr_backward": "sin_inn_tpu/ops/pallas/inr.py:181",
+    "fused_inr_forward": "sin_inn_tpu/ops/pallas/inr.py:156",
 }
 SOURCES = {
     "fused_glow_forward_1x1": "sin_inn_tpu_torch/csrc/coupling_1x1.cu",
@@ -131,6 +160,7 @@ SOURCES = {
     "gather_region": "sin_inn_tpu_torch/csrc/gather_region.cu",
     "gather_region_grads": "sin_inn_tpu_torch/csrc/gather_region.cu",
     "fused_inr_backward": "sin_inn_tpu_torch/csrc/inr_bwd.cu",
+    "fused_inr_forward": "sin_inn_tpu_torch/csrc/inr_fwd.cu",
 }
 COUPLING = ("fused_glow_forward_1x1", "fused_glow_inverse_1x1",
             "fused_glow_backward_1x1", "fused_glow_inverse_backward_1x1")
@@ -950,7 +980,7 @@ def phase_flow(dev, card: str, smi_line: str):
         CheckpointStore(LP.flow_ckpt_dir(cfg, scene)).save(
             7, LP.flow_state_dict(params, consts, 7))
         other = R.named_fold(R.root_generator(cfg.random_seed + 1), "init")
-        spec, rp, rc, _, step = LP._flow_create_and_restore(
+        spec, rp, rc, _, step, _, _ = LP._flow_create_and_restore(
             cfg, other, scene, require="checkpoint missing")
         same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
             flat_leaves({"p": params, "c": consts}),
@@ -1238,7 +1268,7 @@ def phase_flow_train_kernels(dev):
                 "plain_ms": median_ms(lambda: K7.fused_inr_backward_plain(
                     kind, enc, layers, pts, mask, g), 3),
                 "library_ms": None, "bytes": nbytes, "flop": flops,
-                "scratch_bytes": K7.scratch_bytes(n, layers, pts, kind),
+                "scratch_bytes": K7.scratch_bytes(layers, pts, kind, enc),
                 "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
                 "ops_bound_ms": flops / PEAK_FP32 * 1e3}
         inr_rows.append(row)
@@ -1448,7 +1478,7 @@ def phase_flow_train(dev, card: str, smi_line: str):
 
         # flow test serves the trained checkpoint: no kernel at all
         init = R.named_fold(R.root_generator(cfg.random_seed + 1), "init")
-        spec_r, rp, rc, _, at = LP._flow_create_and_restore(
+        spec_r, rp, rc, _, at, _, _ = LP._flow_create_and_restore(
             cfg, init, scene, require="checkpoint missing")
         check(at == FLOW_TRAIN_EPOCHS + 1, f"restored checkpoint {at}")
         _reset_all_counts()
@@ -1460,6 +1490,547 @@ def phase_flow_train(dev, card: str, smi_line: str):
         print(f"[flow train] flow test on the trained checkpoint: "
               f"{pairs} pairs, |flow| max "
               f"{np.abs(served['flow12']).max():.2f} px, no kernel launch")
+    return counts, stats
+
+
+def inr_forward_cost(n: int, widths, d: int, mode: str, wx=None):
+    """FLOP and bytes of one K7 forward launch for a progressive MLP of
+    ``widths`` = [E, H, ..., H, O] (+ d coordinate rows into the first
+    layer) over n points: 2 FLOP per multiply-add of every layer, and in
+    slab mode the mask rebuild of this run's wx (one multiply-add per
+    non-zero weight and mask channel); x read once, out written once, each
+    weight and bias read once, the mask's operands read once."""
+    mats = [a * b for a, b in zip(widths[:-1], widths[1:])]
+    flops = 2 * n * (sum(mats) + d * widths[1])
+    params = sum(mats) + d * widths[1] + sum(widths[1:])
+    nbytes = 4 * (n * (3 + widths[-1]) + params)
+    e = widths[0]
+    if mode == "slab":
+        w, res = wx.shape
+        nnz = int((wx != 0).sum().item())
+        flops += 2 * (n // w) * nnz * (e + d)
+        nbytes += 4 * ((n // w) * res * (e + d) + w * res)
+    elif mode == "point":
+        nbytes += 4 * n * (e + d)
+    else:
+        nbytes += 4 * (e + d)
+    return flops, nbytes
+
+
+def _spatial_masks(spec, dev, seed: int):
+    """A seeded spatial-controller state that is not the initial one, and
+    its mask for the 436x1024 pose grid at t = 0.2 as a vector (a cell's
+    row), row slabs and the split pair."""
+    from sin_inn_tpu_torch.models import controllers as C
+
+    ccfg = C.SpatialConfig.create(spec, 50, block_iterations=8)
+    check(ccfg.cells == 125000 and ccfg.k == 5, f"cell grid {ccfg}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = C.spatial_init(ccfg, dev)._replace(
+        mask=torch.rand((ccfg.cells, ccfg.encoding_dim), generator=gen,
+                        device=dev))
+    times = torch.tensor([0.2], device=dev)
+    slabs = C.spatial_grid_mask_slabs(ccfg, state, times, FLOW_H, FLOW_W)
+    split = C.spatial_grid_mask_split(ccfg, state, times, FLOW_H, FLOW_W)
+    check(tuple(slabs.enc.shape) == (FLOW_H, 50, 512)
+          and tuple(slabs.wx.shape) == (FLOW_W, 50)
+          and tuple(split[1].shape) == (FLOW_H * FLOW_W, 512),
+          "mask operand shapes")
+    return {"const": state.mask[777].clone(), "slab": slabs, "point": split}
+
+
+def phase_prog_kernels(dev):
+    """K7 forward in every mode and K7 backward in the new ones against
+    their plain versions at the progressive path's shapes."""
+    from sin_inn_tpu_torch.core import rng as R
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.models.inr import build_inr
+    from sin_inn_tpu_torch.ops.cuda import inr as K7
+    from sin_inn_tpu_torch.train import flow as FT
+
+    n = FLOW_H * FLOW_W
+    pts = FT.pose_grid(torch.tensor([0.2], device=dev), FLOW_H,
+                       FLOW_W).reshape(-1, 3).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(10)
+    mix = torch.randn((3, 4), generator=gen, device=dev)
+    g = (1e-3 * (0.5 + torch.sin(2.0 * math.pi * (pts @ mix)))).contiguous()
+    fwd_rows, bwd_rows = [], []
+
+    def close(got, ref, what):
+        e = (got - ref).abs()
+        check(bool(torch.isfinite(e).all()), f"{what}: non-finite")
+        check(bool((e <= 1e-4 + 1e-4 * ref.abs()).all()),
+              f"{what}: max abs err {e.max().item():.3e} exceeds "
+              "1e-4 + 1e-4|plain|")
+        return e.max().item()
+
+    def forward_row(net, kind, enc, layers, widths, mode, mask, d_prog):
+        with torch.inference_mode():
+            out = K7.fused_inr_forward(kind, enc, layers, pts, mask)
+            ref = K7.fused_inr_forward_plain(kind, enc, layers, pts, mask)
+            torch.cuda.synchronize()
+            check(out.shape == (n, 4), f"K7 forward output {out.shape}")
+            err = close(out, ref, f"K7 forward ({net}, {mode})")
+            flops, nbytes = inr_forward_cost(
+                n, widths, d_prog, mode,
+                mask.wx if mode == "slab" else None)
+            row = {
+                "shape": [n, 3], "net": net, "mode": mode,
+                "prog": bool(d_prog), "widths": widths, "max_abs_err": err,
+                "ms": median_ms(lambda: K7.fused_inr_forward(
+                    kind, enc, layers, pts, mask), 5),
+                "bf16_ms": median_ms(lambda: K7.fused_inr_forward(
+                    kind, enc, layers, pts, mask, bf16=True), 5),
+                "plain_ms": median_ms(lambda: K7.fused_inr_forward_plain(
+                    kind, enc, layers, pts, mask), 3),
+                "library_ms": None, "bytes": nbytes, "flop": flops,
+                "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+                "ops_bound_ms": flops / PEAK_FP32 * 1e3}
+        fwd_rows.append(row)
+        print(f"[prog kernels] fused_inr_forward {net} {mode}"
+              f"{'' if d_prog else ' (not progressive)'} N={n}: "
+              f"{row['ms']:.3f} ms (bf16 operands {row['bf16_ms']:.3f} ms; "
+              f"plain {row['plain_ms']:.3f} ms; bound fp32 "
+              f"{row['ops_bound_ms']:.3f} / bytes "
+              f"{row['bytes_bound_ms']:.4f} ms; {flops / 1e9:.1f} GFLOP, "
+              f"{flops / row['ms'] / 1e9:.2f} TFLOP/s), max abs err "
+              f"{err:.3e}")
+        return out
+
+    def backward_row(net, kind, enc, layers, widths, mode, mask):
+        with torch.inference_mode():
+            got = K7.fused_inr_backward(kind, enc, layers, pts, mask, g)
+            again = K7.fused_inr_backward(kind, enc, layers, pts, mask, g)
+            ref = K7.fused_inr_backward_plain(kind, enc, layers, pts, mask, g)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a_, b_) for pa, pb in zip(got, again)
+                      for a_, b_ in zip(pa, pb)),
+                  f"K7 backward ({net}, {mode}): two launches differ")
+            err = 0.0
+            for l, (pg, pr) in enumerate(zip(got, ref)):
+                for name, a_, r_ in zip(("dW", "db"), pg, pr):
+                    e = (a_ - r_).abs().max().item()
+                    lim = 1e-3 * r_.abs().max().item()
+                    check(a_.shape == r_.shape and math.isfinite(e)
+                          and e <= lim,
+                          f"K7 backward ({net}, {mode}) {name}_{l}: max abs "
+                          f"err {e:.3e} exceeds 1e-3 max|plain| = {lim:.3e}")
+                    err = max(err, e)
+            # the coordinate rows' own gradient, the first three of dW_0
+            e = (got[0][0][:3] - ref[0][0][:3]).abs().max().item()
+            lim = 1e-3 * ref[0][0][:3].abs().max().item()
+            check(got[0][0].shape[0] == 515 and 0 < lim and e <= lim,
+                  f"K7 backward ({net}, {mode}) dwc: max abs err {e:.3e} "
+                  f"exceeds {lim:.3e}")
+            # on top of the constant-mask count of a non-progressive net:
+            # the coordinate rows' product in the recompute and their
+            # gradient, the mask rebuild, and the bytes of wc, dwc and the
+            # mask's operands
+            flops, nbytes = inr_backward_cost(n, widths)
+            wx = mask.wx if mode == "slab" else None
+            fwd_flops, fwd_bytes = inr_forward_cost(n, widths, 3, mode, wx)
+            const_flops, const_bytes = inr_forward_cost(n, widths, 3, "const")
+            flops += 4 * n * 3 * widths[1] + fwd_flops - const_flops
+            nbytes += 8 * 3 * widths[1] + fwd_bytes - const_bytes
+            row = {
+                "shape": [n, 3], "net": net, "mode": mode, "prog": True,
+                "widths": widths, "max_abs_err": err,
+                "ms": median_ms(lambda: K7.fused_inr_backward(
+                    kind, enc, layers, pts, mask, g), 3),
+                "bf16_ms": median_ms(lambda: K7.fused_inr_backward(
+                    kind, enc, layers, pts, mask, g, bf16=True), 3),
+                "plain_ms": median_ms(lambda: K7.fused_inr_backward_plain(
+                    kind, enc, layers, pts, mask, g), 3),
+                "library_ms": None, "bytes": nbytes, "flop": flops,
+                "scratch_bytes": K7.scratch_bytes(layers, pts, kind, enc,
+                                                  mask),
+                "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+                "ops_bound_ms": flops / PEAK_FP32 * 1e3}
+        bwd_rows.append(row)
+        print(f"[prog kernels] fused_inr_backward {net} {mode} N={n}: "
+              f"{row['ms']:.3f} ms with its reduction (bf16 operands "
+              f"{row['bf16_ms']:.3f} ms; plain {row['plain_ms']:.3f} ms; "
+              f"bound fp32 {row['ops_bound_ms']:.3f} / bytes "
+              f"{row['bytes_bound_ms']:.4f} ms; {flops / 1e9:.1f} GFLOP, "
+              f"{flops / row['ms'] / 1e9:.2f} TFLOP/s), scratch "
+              f"{row['scratch_bytes'] / 2 ** 20:.1f} MiB, max abs err "
+              f"{err:.3e}, two launches bitwise equal")
+
+    for net, kind, modes in (("PFF", "ff", ("slab", "point", "const")),
+                             ("PRBF", "rbf", ("slab",))):
+        cfg = FlowConfig(net=net, device="cuda")
+        spec, params, consts = build_inr(
+            R.named_fold(R.root_generator(10), "init"), net, cfg, dev)
+        layers = [(l["w"], l["b"]) for l in params["mlp"]]
+        widths = [512] + [w.shape[1] for w, _ in layers]
+        check(spec.is_progressive and spec.encoding_dim == 515
+              and [tuple(w.shape) for w, _ in layers] ==
+              [(515, 256), (256, 256), (256, 256), (256, 4)],
+              f"{net} is not mask length 515, MLP 515-256-256-256-4")
+        enc = consts["enc"]
+        masks = _spatial_masks(spec, dev, 11)
+        outs = {}
+        for mode in modes:
+            outs[mode] = forward_row(net, kind, enc, layers, widths, mode,
+                                     masks[mode], 3)
+            backward_row(net, kind, enc, layers, widths, mode, masks[mode])
+        if "point" in outs:
+            # the same mask two ways: the rebuild sums its res terms in
+            # another order than the producer's contraction
+            close(outs["slab"], outs["point"],
+                  f"K7 forward ({net}): slab against point mode")
+            with torch.inference_mode():
+                m = masks["slab"]
+                got16 = K7.fused_inr_forward(kind, enc, layers, pts, m,
+                                             bf16=True)
+                ref16 = K7.fused_inr_forward_plain(kind, enc, layers, pts, m,
+                                                   bf16=True)
+                ref32 = K7.fused_inr_forward_plain(kind, enc, layers, pts, m)
+                rel16 = ((got16 - ref16).norm() / ref16.norm()).item()
+                rel32 = ((got16 - ref32).norm() / ref32.norm()).item()
+            check(rel16 <= 5e-3 and rel32 <= 2e-2,
+                  f"K7 forward bf16 ({net}, slab): normwise {rel16:.3e} "
+                  f"against the bf16 plain version (limit 5e-3), {rel32:.3e} "
+                  "against the fp32 one (limit 2e-2)")
+            print(f"[prog kernels] fused_inr_forward {net} slab, bf16 "
+                  f"operands: normwise {rel16:.3e} against the bf16 plain "
+                  f"version, {rel32:.3e} against the fp32 one")
+        del masks, outs
+
+    # the forward of a non-progressive net (constant mask, no coordinate rows)
+    cfg = FlowConfig(net="RBF", device="cuda")
+    spec, params, consts = build_inr(
+        R.named_fold(R.root_generator(8), "init"), "RBF", cfg, dev)
+    layers = [(l["w"], l["b"]) for l in params["mlp"]]
+    forward_row("RBF", "rbf", consts["enc"], layers, [512, 256, 256, 256, 4],
+                "const", torch.ones(512, device=dev), 0)
+    return {"fused_inr_forward": fwd_rows, "fused_inr_backward": bwd_rows}
+
+
+def phase_prog_path(dev, card: str, smi_line: str):
+    """``flow train``, ``flow test`` and ``flow interpolate`` for ``PFF``
+    under the spatial and the linear controller at Sintel size."""
+    from sin_inn_tpu_torch.core import rng as R
+    from sin_inn_tpu_torch.core.checkpoint import CheckpointStore
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.data.flow_media import FlowMedia
+    from sin_inn_tpu_torch.data.synthetic import moving_texture_video
+    from sin_inn_tpu_torch.models import controllers as C
+    from sin_inn_tpu_torch.models.inr import flat_leaves, tree_to
+    from sin_inn_tpu_torch.train import flow as FT
+    from sin_inn_tpu_torch.train import loop as LP
+
+    stats = {}
+    pairs = FLOW_FRAMES - 1
+    n = FLOW_H * FLOW_W
+    with tempfile.TemporaryDirectory() as work:
+        cfg = FlowConfig(net="PFF", spatially_adaptive=True, device="cuda",
+                         checkpoints_dir=work + "/ck",
+                         results_dir=work + "/results", name="pff_spatial",
+                         epochs=FLOW_TRAIN_EPOCHS)
+        check(cfg.spatial_res == 50 and cfg.controller_epsilon == 1e-3
+              and cfg.batch == 1 and cfg.occl == "wang"
+              and cfg.use_kernel == "auto" and cfg.compute_dtype == "float32",
+              "FlowConfig defaults are not the Sintel PFF spatial config")
+        media = FlowMedia(moving_texture_video(FLOW_FRAMES, FLOW_H, FLOW_W,
+                                               seed=1))
+        scene = "chip_smoke"
+        steps = FLOW_TRAIN_EPOCHS * pairs
+
+        # the main path: run_flow_train, counts set to 0 just before it
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        out = LP.run_flow_train(cfg, media=media, scene=scene)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = _all_counts()
+        check_counts(counts, f"PFF spatial flow train, {steps} steps",
+                     fused_inr_forward=steps, fused_inr_backward=steps,
+                     reduce_weight_grads=steps, splat_region=2 * steps,
+                     gather_region=2 * steps, gather_region_grads=4 * steps)
+        st = out["state"]
+        spec, consts, eff = out["spec"], out["consts"], out["cfg"]
+        ccfg = st.ctrl_cfg
+        check(spec.encoding_dim == 515 and isinstance(ccfg, C.SpatialConfig)
+              and ccfg.cells == 125000 and ccfg.block_iterations == 1
+              and isinstance(st.ctrl_state, C.SpatialState),
+              f"controller {ccfg}")
+        check(st.step == steps and all(math.isfinite(v)
+                                       for v in out["metrics"].values()),
+              f"PFF spatial flow train: step {st.step}, {out['metrics']}")
+        # a block advance every step here: ten blocks of 6 channels opened
+        # wherever a cell is in progress
+        cs = st.ctrl_state
+        first = C.spatial_init(ccfg, dev)
+        check((cs.cur_block, cs.next_block, cs.iteration) ==
+              (6 * (steps + 1), 6 * (steps + 2), 0),
+              f"block pointers {cs.cur_block}, {cs.next_block}")
+        opened = (cs.mask[:, 6:cs.cur_block] == 1.0).all(1)
+        check(not torch.equal(cs.mask, first.mask)
+              and bool((opened == cs.in_progress).all()
+                       or cs.in_progress.all()),
+              "the cell mask did not follow in_progress")
+        saved, at = CheckpointStore(LP.flow_ckpt_dir(cfg, scene)).restore(
+            map_location=dev)
+        check(at == FLOW_TRAIN_EPOCHS and set(saved) == {
+            "params", "consts", "opt", "step", "ctrl_state"}
+            and saved["ctrl_state"]["kind"] == "spatial",
+            f"checkpoint {at} {set(saved)}")
+        print(f"[prog path] PFF --spatially-adaptive: {steps} steps in "
+              f"{run_s:.2f} s with set-up; loss {out['metrics']['loss']:.5f}"
+              f"; block pointer {cs.cur_block}, cells in progress "
+              f"{cs.in_progress.float().mean().item():.3f}; launches "
+              f"{counts}")
+
+        # resume: one more epoch, the controller state from the checkpoint
+        out2 = LP.run_flow_train(cfg.replace(epochs=FLOW_TRAIN_EPOCHS + 1),
+                                 media=media, scene=scene)
+        cs2 = out2["state"].ctrl_state
+        check(out2["start_epoch"] == FLOW_TRAIN_EPOCHS
+              and out2["state"].step == steps + pairs
+              and cs2.cur_block == cs.cur_block + 6 * pairs,
+              f"resume: from epoch {out2['start_epoch']}, step "
+              f"{out2['state'].step}, block pointer {cs2.cur_block}")
+        print(f"[prog path] resumed at epoch {out2['start_epoch']} with the "
+              f"controller state: block pointer {cs.cur_block} -> "
+              f"{cs2.cur_block}")
+        st = out2["state"]
+
+        # one transition of each controller with synchronisations forbidden;
+        # the spatial one on a state with half its cells out of progress,
+        # at the default schedule's block length, on a ramp step and on an
+        # advance
+        batch = LP._to_device_batch(media.sample(np.arange(2, 3)), dev)
+        ccfg8 = dataclasses.replace(ccfg, block_iterations=8)
+        half = torch.arange(ccfg.cells, device=dev) % 2 == 0
+        loss, aux = FT.flow_loss(spec, eff, st.params, consts, batch, ccfg8,
+                                 st.ctrl_state)
+        lin_cfg = C.LinearConfig.create(spec, 1000, epsilon=1e-3)
+        lin = C.linear_init(lin_cfg, dev)
+        for it in (0, 7):
+            probe = st.ctrl_state._replace(in_progress=half, iteration=it)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                after = FT.controller_step(ccfg8, probe, aux, batch)
+                lin = FT.controller_step(lin_cfg, lin, aux, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            # cells out of progress keep their rows; the others ramp (to
+            # 0.25 at iteration 1) or, at the advance, open the block where
+            # the gate left them in progress (cells far from this pair's
+            # time saw no loss in this block and leave)
+            win = slice(probe.cur_block, probe.next_block)
+            live = after.in_progress
+            check(torch.equal(after.mask[~half], probe.mask[~half])
+                  and bool(live.any()) and not bool(live[~half].any())
+                  and bool((after.mask[live][:, win] >= 0.25).all())
+                  and (it == 0 or torch.equal(after.mask[half & ~live],
+                                              probe.mask[half & ~live])),
+                  f"transition at iteration {it}: in_progress not followed")
+            check(after.iteration == (it + 1) % 8 and after.cur_block ==
+                  (probe.next_block if it == 7 else probe.cur_block),
+                  f"transition at iteration {it}: counters")
+        check(lin.iteration == 2 and bool(lin.mask[6:12].gt(0).all()),
+              "linear transition")
+        print("[prog path] one ramp step and one block advance of the "
+              "spatial controller (half the cells out of progress: their "
+              "rows stay) and two steps of the linear one with "
+              "set_sync_debug_mode('error'): nothing waits for the card")
+        del loss, aux, probe, after
+
+        # one step's launches, and its gradients against the dense route
+        spec_off = dataclasses.replace(spec, use_kernel="off")
+        leaves = [t for _, t in flat_leaves(st.params)]
+
+        def grads_of(sp):
+            for t in leaves:
+                t.grad = None
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            loss, _ = FT.flow_loss(sp, eff, st.params, consts, batch, ccfg,
+                                   st.ctrl_state)
+            held = (torch.cuda.memory_allocated(dev) - base) / 2 ** 30
+            loss.backward()
+            torch.cuda.synchronize()
+            return loss.item(), [t.grad.clone() for t in leaves], held
+
+        _reset_all_counts()
+        loss_k, g_k, held_k = grads_of(spec)
+        step_counts = _all_counts()
+        check_counts(step_counts, "one PFF spatial train step",
+                     fused_inr_forward=1, fused_inr_backward=1,
+                     reduce_weight_grads=1, splat_region=2, gather_region=2,
+                     gather_region_grads=4)
+        _reset_all_counts()
+        loss_a, g_a, held_a = grads_of(spec_off)
+        check_counts(_all_counts(), "one PFF spatial step, use_kernel='off'",
+                     splat_region=2, gather_region=2, gather_region_grads=4)
+        gerr = _leaf_norm_err(g_k, g_a)
+        check(gerr <= 1e-3 and abs(loss_k - loss_a) <= 1e-5 * abs(loss_a),
+              f"PFF spatial kernel route against the dense route: gradients "
+              f"normwise {gerr:.3e} (limit 1e-3), loss {loss_k} / {loss_a}")
+        stats.update(grad_err=gerr, step_counts=step_counts,
+                     held_gib={"kernel": held_k, "off": held_a})
+        print(f"[prog path] one step: launches {step_counts}; gradients "
+              f"against use_kernel='off' normwise {gerr:.3e}, loss "
+              f"{loss_k:.6f} / {loss_a:.6f}; held between forward and "
+              f"backward {held_k:.2f} GiB (kernel route) / {held_a:.2f} GiB "
+              f"(use_kernel='off')")
+        for t in leaves:
+            t.grad = None
+        del g_k, g_a
+
+        # rates and peak memory of both routes at the default schedule
+        # (epochs 1000: a block every 8 steps), each on a fresh state
+        cached = [LP._to_device_batch(b, dev) for b in media.batches(1)]
+        tcfg = eff.replace(epochs=1000)
+        for tag, sp in (("kernel", spec), ("off", spec_off)):
+            gen = R.named_fold(R.root_generator(cfg.random_seed), "init")
+            _, state, cs_ = FT.create_flow_state(gen, tcfg)
+            check(state.ctrl_cfg.block_iterations == 8, "default schedule")
+            step = FT.make_flow_train_step(sp, tcfg)
+            for i in range(2):
+                step(state, cs_, cached[i])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            events = []
+            t0 = time.perf_counter()
+            for i in range(10):
+                a, b = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                a.record()
+                m = step(state, cs_, cached[i % pairs])
+                b.record()
+                events.append((a, b))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(bool(torch.isfinite(m["loss"]))
+                  and state.ctrl_state.cur_block == 12, f"{tag} route")
+            stats[tag] = {
+                "pairs_per_sec": 10 / wall,
+                "step_ms": statistics.median(a.elapsed_time(b)
+                                             for a, b in events),
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+            r = stats[tag]
+            print(f"[prog path] PFF spatial, use_kernel="
+                  f"{'auto' if tag == 'kernel' else tag}: "
+                  f"{r['pairs_per_sec']:.2f} pairs/s, {r['step_ms']:.2f} "
+                  f"ms/step (batch 1, {FLOW_H}x{FLOW_W}, float32), peak "
+                  f"device memory {r['peak_gib']:.2f} GiB, on {card} "
+                  f"({smi_line})")
+            del state, step
+
+        # PFF under the linear controller: a constant mask, so the plain
+        # forward and K7 backward with the coordinate rows
+        lcfg = cfg.replace(spatially_adaptive=False, name="pff_linear",
+                           epochs=1)
+        _reset_all_counts()
+        lout = LP.run_flow_train(lcfg, media=media, scene=scene)
+        torch.cuda.synchronize()
+        lcounts = _all_counts()
+        check_counts(lcounts, f"PFF linear flow train, {pairs} steps",
+                     fused_inr_backward=pairs, reduce_weight_grads=pairs,
+                     splat_region=2 * pairs, gather_region=2 * pairs,
+                     gather_region_grads=4 * pairs)
+        ls = lout["state"].ctrl_state
+        check(isinstance(ls, C.LinearState) and ls.iteration == pairs
+              and math.isfinite(lout["metrics"]["loss"])
+              and float(ls.mask.sum()) > 6.0,
+              f"PFF linear: iteration {ls.iteration}")
+        lstep = FT.make_flow_train_step(lout["spec"], lout["cfg"])
+        for i in range(2):
+            lstep(lout["state"], lout["consts"], cached[i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(10):
+            lstep(lout["state"], lout["consts"], cached[i % pairs])
+        torch.cuda.synchronize()
+        stats["linear_pairs_per_sec"] = 10 / (time.perf_counter() - t0)
+        print(f"[prog path] PFF linear controller: {pairs} steps, launches "
+              f"{lcounts}; {stats['linear_pairs_per_sec']:.2f} pairs/s over "
+              f"10 more steps, on {card} ({smi_line})")
+        del lout, lstep
+        add_counts(counts, lcounts)
+
+        # serving from the spatial checkpoint: K7 forward once per pair, and
+        # no (N, E) tensor: the peak stays under one (N, 512) fp32 tensor
+        # over what is allocated before
+        init = R.named_fold(R.root_generator(cfg.random_seed + 1), "init")
+        spec_r, rp, rc, _, at, rcfg, rstate = LP._flow_create_and_restore(
+            cfg, init, scene, require="checkpoint missing")
+        check(at == FLOW_TRAIN_EPOCHS + 1 and rstate.cur_block == cs2.cur_block
+              and torch.equal(rstate.mask, cs2.mask),
+              f"restored checkpoint {at}, block pointer {rstate.cur_block}")
+        del st, out, out2, cs, cs2, first, saved, cached
+        LP.flow_test_outputs(cfg, media, spec_r, rp, rc, rcfg, rstate)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        served = LP.flow_test_outputs(cfg, media, spec_r, rp, rc, rcfg,
+                                      rstate)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        test_counts = _all_counts()
+        check_counts(test_counts, "flow test from the spatial checkpoint",
+                     fused_inr_forward=pairs)
+        check(served["flow12"].shape == (pairs, FLOW_H, FLOW_W, 2)
+              and bool(np.isfinite(served["flow12"]).all()),
+              "flow test from the spatial checkpoint: flows")
+        one = n * 512 * 4 / 2 ** 30
+        check(peak < one, f"flow test from the spatial checkpoint took "
+              f"{peak:.2f} GiB over what was held: an (N, 512) tensor is "
+              f"{one:.2f} GiB")
+        add_counts(counts, test_counts)
+        stats["test_fps"] = pairs / test_s
+        print(f"[prog path] flow test from the spatial checkpoint: {pairs} "
+              f"pairs in {test_s:.3f} s, |flow| max "
+              f"{np.abs(served['flow12']).max():.2f} px, launches "
+              f"{test_counts}, peak {peak:.2f} GiB over the {base / 2**30:.2f}"
+              f" GiB held (an (N, 512) tensor: {one:.2f} GiB)")
+        pair = torch.from_numpy(media.video[2:4]).to(dev)
+        t2 = float(media.times[2])
+        _reset_all_counts()
+        mid = FT.frame_interp(spec_r, cfg, rp, rc, t2, pair, 0.5,
+                              media.flow_scale, rcfg, rstate)
+        torch.cuda.synchronize()
+        mid_counts = _all_counts()
+        check_counts(mid_counts, "one mid-frame from the spatial checkpoint",
+                     fused_inr_forward=1, splat_region=2, gather_region=2)
+        check(mid.shape == (FLOW_H, FLOW_W, 3)
+              and bool(torch.isfinite(mid).all()), "mid-frame")
+        add_counts(counts, mid_counts)
+        stats["mid_frame_ms"] = median_ms(lambda: FT.frame_interp(
+            spec_r, cfg, rp, rc, t2, pair, 0.5, media.flow_scale, rcfg,
+            rstate), 10)
+        stats["pair_ms"] = median_ms(lambda: FT.flow_infer(
+            spec_r, rp, rc, torch.tensor([t2], device=dev), media.flow_scale,
+            FLOW_H, FLOW_W, rcfg, rstate), 10)
+        print(f"[prog path] from the spatial checkpoint: a pair's flows "
+              f"{stats['pair_ms']:.3f} ms, a mid-frame "
+              f"{stats['mid_frame_ms']:.3f} ms between events; launches of "
+              f"one mid-frame {mid_counts}")
+
+        # the card against the CPU on a small crop (slab route on both)
+        res = []
+        t2t = torch.tensor([t2])
+        for d in (dev, torch.device("cpu")):
+            p_, c_ = tree_to(rp, d), tree_to(rc, d)
+            s_ = rstate._replace(**{k: v.to(d) for k, v in
+                                    rstate._asdict().items()
+                                    if isinstance(v, torch.Tensor)})
+            fl, _ = FT.flow_infer(spec_r, p_, c_, t2t.to(d), 12.8, 40, 64,
+                                  rcfg, s_)
+            res.append(fl.cpu())
+        ferr = (res[0] - res[1]).abs().max().item()
+        check(ferr <= 1e-3, f"card vs CPU on a 40x64 crop (PFF spatial): "
+                            f"flows {ferr:.3e} px (limit 1e-3)")
+        print(f"[prog path] card vs CPU (40x64 crop, slab route): flows max "
+              f"abs err {ferr:.3e} px")
     return counts, stats
 
 
@@ -1480,12 +2051,15 @@ def main() -> int:
         flow = phase_flow(dev, card, smi_line)
         ft_rows = phase_flow_train_kernels(dev)
         ft_counts, ft = phase_flow_train(dev, card, smi_line)
+        prog_rows = phase_prog_kernels(dev)
+        prog_counts, prog = phase_prog_path(dev, card, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     add_counts(counts, train_counts)
     flow_counts = dict(flow["counts"])
     add_counts(flow_counts, ft_counts)
+    add_counts(flow_counts, prog_counts)
     kernels = []
     for n in COUPLING:
         # K1/K2: the eval/infer shapes (batch 40), as before, with the
@@ -1515,7 +2089,14 @@ def main() -> int:
     # path's): launches of the flow train run
     flow_shapes = {n: [r] for n, r in flow_rows.items()}
     flow_shapes["gather_region_grads"] = ft_rows["gather_region_grads"]
-    flow_shapes["fused_inr_backward"] = ft_rows["fused_inr_backward"][:1]
+    # K7: the rows of the paths' own modes (backward: the RBF net's constant
+    # mask and PFF's slabs; forward: PFF's slabs), the others beside them
+    slab = lambda rows: [r for r in rows if (r["net"], r["mode"]) ==
+                         ("PFF", "slab")]
+    flow_shapes["fused_inr_backward"] = (
+        ft_rows["fused_inr_backward"][:1]
+        + slab(prog_rows["fused_inr_backward"]))
+    flow_shapes["fused_inr_forward"] = slab(prog_rows["fused_inr_forward"])
     for n, rs in flow_shapes.items():
         bytes_ms = sum(r["bytes_bound_ms"] for r in rs)
         ops_ms = sum(r["ops_bound_ms"] for r in rs)
@@ -1529,7 +2110,14 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None if None in lib else sum(lib), "shapes": rs})
-    kernels[-1]["other_nets"] = ft_rows["fused_inr_backward"][1:]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["fused_inr_backward"]["other_nets"] = (
+        ft_rows["fused_inr_backward"][1:]
+        + [r for r in prog_rows["fused_inr_backward"]
+           if r not in slab(prog_rows["fused_inr_backward"])])
+    by_name["fused_inr_forward"]["other_modes"] = [
+        r for r in prog_rows["fused_inr_forward"]
+        if r not in slab(prog_rows["fused_inr_forward"])]
     print(f"[flow] flow test {flow['test_fps']:.2f} frames/s (pairs), "
           f"on {card} ({smi_line})")
     print(f"[flow] interpolation {flow['interp_fps']:.2f} mid-frames/s, "
@@ -1537,6 +2125,10 @@ def main() -> int:
     print(f"[flow train] {ft['kernel']['pairs_per_sec']:.2f} pairs/s "
           f"(use_kernel='off': {ft['off']['pairs_per_sec']:.2f}), on {card} "
           f"({smi_line})")
+    print(f"[prog path] PFF spatial {prog['kernel']['pairs_per_sec']:.2f} "
+          f"pairs/s (use_kernel='off': {prog['off']['pairs_per_sec']:.2f}), "
+          f"PFF linear {prog['linear_pairs_per_sec']:.2f} pairs/s, flow test "
+          f"{prog['test_fps']:.2f} pairs/s, on {card} ({smi_line})")
     print(f"[done] sr test {fps:.2f} frames/s; train "
           f"{train['frames_per_sec']:.2f} frames/s; bf16 err {bf16_err:.3e}"
           f" (K3 {bwd_bf16_err:.3e}); total "

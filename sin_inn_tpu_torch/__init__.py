@@ -8,9 +8,12 @@ Ported so far: the SRF ``sr train`` and ``sr test`` entry points and the
 validation step, with the fused 1x1 GLOW coupling forward and inverse and
 their backward passes as hand-written CUDA kernels
 (``ops/cuda/coupling.py``, ``csrc/coupling_1x1.cu``,
-``csrc/coupling_1x1_bwd.cu``); and flow serving, ``flow test`` and ``flow
-interpolate`` with the non-progressive INRs, with the windowed splat and
-gather as hand-written CUDA kernels (``ops/cuda/splat.py``,
-``ops/cuda/gather.py``, ``csrc/splat_region.cu``,
-``csrc/gather_region.cu``).
+``csrc/coupling_1x1_bwd.cu``); and the flow pipeline on the static global
+windows, ``flow train``, ``flow test`` and ``flow interpolate``, for every
+INR of the registry, the progressive ones under their linear or spatially
+adaptive controller (``models/controllers.py``), with the windowed splat and
+gather and the fused INR's forward and backward as hand-written CUDA
+kernels (``ops/cuda/splat.py``, ``ops/cuda/gather.py``, ``ops/cuda/inr.py``;
+``csrc/splat_region.cu``, ``csrc/gather_region.cu``, ``csrc/inr_fwd.cu``,
+``csrc/inr_bwd.cu``).
 """

@@ -4,7 +4,8 @@
 reference's ``sr`` flags plus ``--device`` (default ``cuda``; a CUDA request
 without a card fails) and ``--remat``. ``python -m sin_inn_tpu_torch.cli
 flow {train,test,interpolate} ...`` takes the reference's data, net,
-training, occlusion and window-bound flags, ``--use-kernel`` and
+training, occlusion, controller (``--spatially-adaptive``,
+``--spatial-res``) and window-bound flags, ``--use-kernel`` and
 ``--device``; ``flow train`` runs the test pass on the trained net when it
 is done, as the reference does. ``sr export`` and ``flow
 {export,summarize,sintel}`` are not ported yet and exit with code 2.
@@ -116,7 +117,15 @@ def _flow_parser(sub):
     ap.add_argument("--batch", default=1, type=int)
     ap.add_argument("--test-size", default=436, type=int)
     ap.add_argument("--test-batch", default=1, type=int)
-    ap.add_argument("--net", default="RBF")
+    ap.add_argument("--net", default="RBF",
+                    help="INR of the model registry; the progressive nets "
+                         "(PFF, PRBF, PRBFG, PPE, PRFF, PUFF, MPFF) train "
+                         "under a controller")
+    ap.add_argument("--spatially-adaptive", action="store_true",
+                    help="progressive nets: the spatially adaptive "
+                         "controller instead of the linear ramp")
+    ap.add_argument("--spatial-res", type=int, default=50,
+                    help="spatially-adaptive controller grid resolution")
     ap.add_argument("--epochs", default=1000, type=int)
     ap.add_argument("--val-iter", type=int)
     ap.add_argument("--lr", default=1e-4, type=float)
@@ -153,6 +162,7 @@ def flow_config_from_args(a) -> FlowConfig:
         input_video=a.input_video, name=a.name, end=a.end, step=a.step,
         size=a.size, batch=a.batch, test_size=a.test_size,
         test_batch=a.test_batch, net=a.net, epochs=a.epochs,
+        spatially_adaptive=a.spatially_adaptive, spatial_res=a.spatial_res,
         val_iter=a.val_iter, lr=a.lr, loss_l1=a.loss_l1,
         loss_census=a.loss_census, loss_ssim=a.loss_ssim,
         census_width=a.census_width, loss_smooth1=a.loss_smooth1,
@@ -192,7 +202,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                                   splat_max_dx=cfg.splat_max_dx)
             print(L.run_flow_test(eff, scene=out["scene"], spec=out["spec"],
                                   params=out["state"].params,
-                                  consts=out["consts"]))
+                                  consts=out["consts"],
+                                  ctrl_cfg=out["state"].ctrl_cfg,
+                                  ctrl_state=out["state"].ctrl_state))
         elif a.operation == "test":
             print(L.run_flow_test(cfg))
         else:

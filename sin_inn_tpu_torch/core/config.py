@@ -186,6 +186,13 @@ class FlowConfig:
     output_channels: int = 4
     num_frequencies_pe: int = 4
     std_rbf: float = 12.0
+    # Progressive nets (PFF, PRBF, ...): the spatially adaptive controller
+    # on a spatial_res^3 cell grid instead of the linear coarse-to-fine ramp
+    spatially_adaptive: bool = False
+    spatial_res: int = 50
+    # progress threshold of both controllers: a cell (spatial) or the whole
+    # ramp (linear, 0 = never) stops once its loss is under it
+    controller_epsilon: float = 1e-3
 
     # Train
     epochs: int = 1000
@@ -215,9 +222,9 @@ class FlowConfig:
     results_dir: str = "results"
     checkpoints_dir: str = "checkpoints"
     compute_dtype: str = "float32"
-    # the fused INR backward kernel in training: 'auto' | 'off' ('off' takes
-    # ordinary autograd through the plain INR; the warps and splats stay on
-    # K5/K6 either way). On the card 'auto' raises for widths the kernel
+    # the fused INR kernels: 'auto' | 'off' ('off' takes ordinary autograd
+    # through the plain INR, with a dense per-point mask under the spatial
+    # controller; the warps and splats stay on K5/K6 either way). On the card 'auto' raises for widths the kernel
     # cannot take; it never gives way to 'off' by itself. The two routes
     # agree to rounding in float32 only: in bfloat16 the fused forward rounds
     # the products' operands and accumulates in fp32, the plain one casts the

@@ -2,8 +2,9 @@
 
 The JAX params list (aligned with the same spec) holds conv weights as HWIO
 numpy arrays; the port keeps ``torch.nn.Conv2d``'s OIHW. The INR's dense
-layers keep the JAX layout, (fan_in, fan_out), unchanged. This is how tests,
-and any state trained with the JAX package, reach the port.
+layers keep the JAX layout, (fan_in, fan_out), unchanged, and so do the
+progressive controllers' states, field by field. This is how tests, and any
+state trained with the JAX package, reach the port.
 """
 
 from __future__ import annotations
@@ -64,8 +65,27 @@ def inr_params_from_jax(params_np: Dict, consts_np: Dict, device="cpu",
                         dtype=torch.float32) -> Tuple[Dict, Dict]:
     """An INR's JAX params and consts (numpy leaves) -> the port's.
 
-    ``params["mlp"][i]["w"]`` stays (fan_in, fan_out) and ``b`` (fan_out,);
-    ``consts["enc"]`` keeps its names (RBF: ``centres`` (E, d), ``sigma``
-    (E,))."""
+    ``params["mlp"][i]["w"]`` stays (fan_in, fan_out) and ``b`` (fan_out,),
+    a progressive net's first layer (E + d, H) with the coordinate rows in
+    front; ``consts["enc"]`` keeps its names (RBF: ``centres`` (E, d),
+    ``sigma`` (E,))."""
     return (_tree_from_np(params_np, device, dtype),
             _tree_from_np(consts_np, device, dtype))
+
+
+def ctrl_state_from_jax(state_np, device="cpu"):
+    """A JAX controller state (a ``LinearState``, ``SpatialState``,
+    ``AdaptiveState`` or ``FixedSpatialState`` NamedTuple, its fields numpy
+    arrays or anything ``np.asarray`` takes) -> the port's state of the same
+    name on ``device``: tensors keep their dtypes, the counters that the
+    port keeps on the host become ints. None stays None."""
+    from sin_inn_tpu_torch.models import controllers as C
+
+    if state_np is None:
+        return None
+    kinds = {cls.__name__: kind for kind, cls in C.STATE_TYPES.items()}
+    name = type(state_np).__name__
+    if name not in kinds:
+        raise ValueError(f"not a controller state: {name}")
+    fields = {k: np.asarray(v) for k, v in state_np._asdict().items()}
+    return C.state_from_dict({"kind": kinds[name], **fields}, device)

@@ -8,27 +8,35 @@ JAX package's layout: ``params = {"mlp": [{"w": (fan_in, fan_out), "b":
 layer is ``x @ w + b``.
 
 The JAX package routes eligible nets through a fused encode-mask-MLP kernel
-(``ops/pallas/inr.py``). For a constant mask, the case of every
-non-progressive net, its forward is plain XLA (``_xla_forward``) and only
-its backward is a kernel. So here: under ``torch.no_grad()`` :func:`inr_apply`
-is the plain encode -> mask -> MLP, and with gradients enabled an eligible
-net (:func:`fused_inr_supported`, ``INRSpec.use_kernel == "auto"``) goes
-through ``ops/cuda/inr.py`` ``FusedINR``, whose backward is the fused kernel
-(the plain version on CPU tensors). ``use_kernel == "off"`` keeps ordinary
-autograd through the plain route. The progressive nets, with the
-controllers, the forward kernel and the per-point mask modes they need, are
-not ported yet and raise here.
+(``ops/pallas/inr.py``), and so does the port (``ops/cuda/inr.py``), by the
+mask's format:
+
+* no mask or a constant channel mask (every non-progressive net, and the
+  progressive nets under the linear controller): the forward is the plain
+  encode -> mask -> MLP (the JAX package's ``_xla_forward``) and only the
+  backward is the kernel (K7 backward), so under ``torch.no_grad()`` such a
+  net takes the plain route;
+* a factored per-point mask of the spatial controller (row slabs, or the
+  split per-point stream): the forward is the kernel too (K7 forward),
+  with or without gradients, so that the (n, E) mask is never built.
+
+:func:`fused_inr_eligible` is the one gate (``INRSpec.use_kernel == "auto"``
+and :func:`fused_inr_supported`); ``train/flow.py`` chooses the mask's
+format by the same gate (:func:`fused_spatial_mask_format`).
+``use_kernel == "off"`` keeps ordinary autograd through the plain route,
+where a factored mask is put together into its dense (n, E) form.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from sin_inn_tpu_torch.core.config import FlowConfig
+from sin_inn_tpu_torch.ops.cuda.inr import TILE_ROWS, fused_inr
 from sin_inn_tpu_torch.ops.encodings import ENCODINGS, encoding_output_channels
 
 
@@ -126,9 +134,16 @@ class INRSpec:
     num_layers: int
     output_channels: int
     compute_dtype: str = "float32"
-    # 'auto': the fused INR backward kernel where it applies; 'off': ordinary
+    # 'auto': the fused INR kernels where they apply; 'off': ordinary
     # autograd through the plain route
     use_kernel: str = "auto"
+
+    @property
+    def encoding_channels(self) -> int:
+        """Channels of the encoding itself (the mask length less the
+        coordinate rows a progressive net puts in front)."""
+        return self.encoding_dim - (self.domain_dim if self.is_progressive
+                                    else 0)
 
 
 # name -> (kind, encoding, progressive), as the reference's registry
@@ -185,10 +200,6 @@ def build_inr(gen: torch.Generator, name: str, cfg: FlowConfig,
         raise ValueError(f"unknown INR model {name!r}; have "
                          f"{sorted(MODEL_REGISTRY)}")
     kind, encoding, progressive = MODEL_REGISTRY[name]
-    if progressive:
-        raise NotImplementedError(
-            f"INR {name!r} is progressive: it needs the controllers (slice "
-            "B2), which are not ported yet")
     d = cfg.domain_dim
     widths = [cfg.hidden_dim] * cfg.num_layers + [cfg.output_channels]
 
@@ -204,10 +215,12 @@ def build_inr(gen: torch.Generator, name: str, cfg: FlowConfig,
     init_fn, _ = ENCODINGS[encoding]
     enc_params, enc_consts = init_fn(gen, *_enc_args(encoding, cfg))
     enc_ch = _enc_out_channels(encoding, cfg)
-    spec = INRSpec(name, "encoded", encoding, d, enc_ch, False,
+    # a progressive net feeds the raw coordinates in front of the encoding
+    mask_dim = enc_ch + d if progressive else enc_ch
+    spec = INRSpec(name, "encoded", encoding, d, mask_dim, progressive,
                    cfg.hidden_dim, cfg.num_layers, cfg.output_channels,
                    cfg.compute_dtype, cfg.use_kernel)
-    mlp = mlp_init(gen, [enc_ch] + widths)
+    mlp = mlp_init(gen, [mask_dim] + widths)
     return (spec, tree_to({"mlp": mlp, "enc": enc_params}, device),
             tree_to({"enc": enc_consts}, device))
 
@@ -225,56 +238,148 @@ def get_encoding(spec: INRSpec, params, consts,
     return enc
 
 
+def alpha_mask(spec: INRSpec, alpha: float,
+               device="cpu") -> torch.Tensor:
+    """The dense soft mask (encoding_dim,) of a progress fraction: the
+    coordinate rows and the first alpha share of the encoding channels open,
+    the channel at the edge open by the fraction's remainder."""
+    e = spec.encoding_dim
+    if alpha == 0:
+        return torch.zeros(e, device=device)
+    a = torch.tensor(alpha * (e - spec.domain_dim) + spec.domain_dim,
+                     dtype=torch.float32, device=device)
+    idx = torch.arange(e, dtype=torch.float32, device=device)
+    cur = torch.floor(a)
+    return torch.where(idx < cur, 1.0, torch.where(idx == cur, a - cur, 0.0))
+
+
 _FUSED_ENCODINGS = {"rbf": "rbf", "gaussian_ff": "ff", "uniform_ff": "ff"}
+
+Mask = Union[None, torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
 def fused_inr_supported(spec: INRSpec, params, consts, x: torch.Tensor,
-                        mask: Optional[torch.Tensor]) -> bool:
-    """Whether ``ops/cuda/inr.py`` ``FusedINR`` computes this net: an
-    encoded, non-progressive net on the RBF or the Fourier features with no
-    trainable encoding parameters, not in ``float32_highest`` (the strict
-    mode never takes a kernel), 2-D points and no mask or a constant (E,)
-    one. These are questions of structure only. What the CUDA kernel needs
+                        mask: Mask) -> bool:
+    """Whether ``ops/cuda/inr.py`` computes this net with this mask: an
+    encoded net on the RBF or the Fourier features with no trainable
+    encoding parameters, not in ``float32_highest`` (the strict mode never
+    takes a kernel), 2-D points, and as mask: none, a constant
+    (encoding_dim,) vector, and for a progressive net the spatial
+    controller's factored forms: the split pair (mc (d, n), me (n, E - d))
+    or the row slabs (enc (rows, res, E - d), coord (rows, res, d), wx (W,
+    res)) with rows x W = n and W a multiple of the kernels' tile (the TPU
+    kernel asks W % 128 and takes one tile per row; here a 32-point tile must
+    not straddle two image rows). An unsplit per-point (n, E) mask is not
+    taken. These are questions of structure only. What the CUDA kernels need
     of the widths (``ops/cuda/inr.py`` ``kernel_supports``: multiples of 4, a
     32-row tile within a block's shared memory) is not asked here: on the
-    card a net of this structure that the kernel cannot take is refused with
-    a ValueError, never handed to plain autograd. The CPU's plain version
-    takes any width."""
+    card a net of this structure that the kernels cannot take is refused
+    with a ValueError, never handed to plain autograd. The CPU's plain
+    versions take any width."""
     if spec.kind != "encoded" or spec.encoding not in _FUSED_ENCODINGS:
         return False
-    if spec.is_progressive or params.get("enc"):
+    if params.get("enc"):
         return False
     if spec.compute_dtype in ("highest", "float32_highest"):
         return False
-    if x.dim() != 2 or (mask is not None and mask.dim() != 1):
+    if x.dim() != 2 or spec.num_layers < 1:
         return False
-    if spec.num_layers < 1:
+    if isinstance(mask, tuple) and len(mask) == 3:
+        if not spec.is_progressive:
+            return False
+        enc, coord, wx = mask
+        if enc.dim() != 3 or coord.dim() != 3 or wx.dim() != 2:
+            return False
+        if wx.shape[0] % TILE_ROWS != 0:
+            return False
+        if enc.shape[0] * wx.shape[0] != x.shape[0]:
+            return False
+    elif isinstance(mask, tuple):
+        if not spec.is_progressive or len(mask) != 2:
+            return False
+        mc, me = mask
+        if mc.dim() != 2 or me.dim() != 2 or me.shape[0] != x.shape[0]:
+            return False
+    elif mask is not None and mask.dim() != 1:
         return False
     return x.device.type in ("cpu", "cuda")
 
 
-def inr_apply(spec: INRSpec, params, consts, x: torch.Tensor,
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """encode -> mask -> MLP. x: (n, d) points; ``mask``: None or a constant
-    (E,) channel mask (no gradient reaches it); returns (n, out). With
-    gradients enabled an eligible net takes the fused route, whose backward
-    is the K7 kernel; under ``no_grad`` and with ``use_kernel == "off"``
-    every net takes the plain route. On the card the fused route raises a
-    ValueError for widths its kernel cannot take (``use_kernel="off"`` is the
-    way to train such a net). The two routes agree to rounding in float32
-    only: in ``bfloat16`` the fused forward rounds the products' operands and
-    accumulates in fp32, the plain one casts the activations, so ``auto``
-    and ``off`` differ in the forward too. The progressive nets' per-point
-    masks come with the controllers."""
-    if (spec.use_kernel == "auto" and torch.is_grad_enabled()
-            and fused_inr_supported(spec, params, consts, x, mask)):
-        from sin_inn_tpu_torch.ops.cuda.inr import fused_inr
+def fused_inr_eligible(spec: INRSpec, params, consts, x: torch.Tensor,
+                       mask: Mask) -> bool:
+    """The one gate of the fused route: the ``use_kernel`` switch and the
+    structural check. Both places that decide it, the mask format in
+    ``train/flow.py`` ``flow_forward`` and the dispatch in
+    :func:`inr_apply`, ask here (the former through
+    :func:`fused_spatial_mask_format`), so they cannot drift apart: if they
+    did, ``flow_forward`` would build a factored mask that :func:`inr_apply`
+    puts together again into the dense (n, E) form the slabs exist to
+    avoid."""
+    return (spec.use_kernel == "auto"
+            and fused_inr_supported(spec, params, consts, x, mask))
 
+
+def fused_spatial_mask_format(spec: INRSpec, params, consts,
+                              x: torch.Tensor, w: int) -> str:
+    """The format ``flow_forward`` emits the spatial controller's mask in
+    for the dense pose grid of width ``w``: ``'slabs'`` (the fused route, a
+    width that is a multiple of the kernels' tile), ``'split'`` (the fused
+    route on any other width: the per-point mask streamed to the kernel) or
+    ``'dense'`` (the plain route: ``use_kernel="off"`` or a net the fused
+    route does not compute)."""
+    if fused_inr_eligible(spec, params, consts, x, None):
+        return "slabs" if w % TILE_ROWS == 0 else "split"
+    return "dense"
+
+
+def dense_mask(mask: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """The (n, encoding_dim) mask of a factored one: the row slabs
+    contracted with the x-axis weights as the kernel would, or the split
+    pair put side by side, coordinate channels first."""
+    if len(mask) == 3:
+        enc, coord, wx = mask
+        wx = wx.to(enc.dtype)
+        me = torch.einsum("wr,SrE->SwE", wx, enc).reshape(-1, enc.shape[-1])
+        mc = torch.einsum("wr,SrD->SwD", wx, coord).reshape(
+            -1, coord.shape[-1])
+    else:
+        mc, me = mask
+        mc = mc.t()
+    return torch.cat([mc.to(me.dtype), me], dim=-1)
+
+
+def inr_apply(spec: INRSpec, params, consts, x: torch.Tensor,
+              mask: Mask = None, alpha: Optional[float] = None
+              ) -> torch.Tensor:
+    """encode -> mask -> MLP. x: (n, d) points; returns (n, out). ``mask``
+    overrides the channel mask (no gradient reaches it): a constant
+    (encoding_dim,) vector, a dense per-point (n, encoding_dim) tensor, or
+    one of the spatial controller's factored forms (see
+    :func:`fused_inr_supported`); without one, ``alpha`` < 1 masks a
+    progressive net by :func:`alpha_mask`.
+
+    An eligible net (:func:`fused_inr_eligible`) takes the fused route: with
+    a factored mask always (K7 forward, and K7 backward when gradients are
+    on), with a constant or no mask when gradients are enabled (plain
+    forward that keeps no activation, K7 backward); under ``no_grad`` the
+    latter takes the plain route. On the card the fused route raises a
+    ValueError for widths its kernels cannot take (``use_kernel="off"`` is
+    the way to run such a net). The two routes agree to rounding in float32
+    only: in ``bfloat16`` the fused route rounds the products' operands and
+    accumulates in fp32, the plain one casts the activations, so ``auto``
+    and ``off`` differ in the forward too."""
+    if (mask is None and alpha is not None and spec.is_progressive
+            and alpha < 1):
+        mask = alpha_mask(spec, alpha, x.device)
+    if (fused_inr_eligible(spec, params, consts, x, mask)
+            and (isinstance(mask, tuple) or torch.is_grad_enabled())):
         layers = [(l["w"], l["b"]) for l in params["mlp"]]
         out = fused_inr(_FUSED_ENCODINGS[spec.encoding], consts["enc"],
                         layers, x.float(), mask,
                         bf16=spec.compute_dtype == "bfloat16")
         return out.to(x.dtype)
+    if isinstance(mask, tuple):
+        mask = dense_mask(mask)
     code = get_encoding(spec, params, consts, x)
     out_dtype = code.dtype
     cast = _cast(spec.compute_dtype)

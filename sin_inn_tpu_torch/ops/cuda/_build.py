@@ -2,8 +2,9 @@
 
 Each source under ``sin_inn_tpu_torch/csrc`` has a plain C interface and is
 compiled on first use into ``sin_inn_tpu_torch/build`` (listed in
-``.gitignore``) as a shared library whose name carries a hash of the source
-and the flags, so an edited source never loads a stale build. The target is
+``.gitignore``) as a shared library whose name carries a hash of the source,
+the headers (``*.cuh``) beside it and the flags, so an edited source never
+loads a stale build. The target is
 ``sm_90a`` (Hopper with ``wgmma``/``setmaxnreg``). :func:`build_all` starts one
 nvcc per source, all at once, and waits for them together.
 """
@@ -29,6 +30,7 @@ SOURCES = {"coupling_1x1": "coupling_1x1.cu",
            "coupling_1x1_bwd": "coupling_1x1_bwd.cu",
            "gather_region": "gather_region.cu",
            "inr_bwd": "inr_bwd.cu",
+           "inr_fwd": "inr_fwd.cu",
            "splat_region": "splat_region.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,6 +57,8 @@ def nvcc_path() -> str:
 def _target(name: str) -> Path:
     src = CSRC / SOURCES[name]
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

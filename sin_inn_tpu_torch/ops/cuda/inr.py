@@ -1,44 +1,68 @@
-"""Fused backward of the encoded coordinate MLP (K7 backward): CUDA kernel,
-plain version and the autograd Function.
+"""The fused encoded coordinate MLP (K7): CUDA kernels for its forward and
+its backward, their plain versions and the autograd Function.
 
-``fused_inr_backward`` replaces the TPU kernel ``_bwd_kernel`` of
-``sin_inn_tpu/ops/pallas/inr.py`` in its ``const`` mask mode with
-``prog=False`` (``_fused_bwd_call``): per tile of points it recomputes
-encode -> mask -> MLP and emits the weight and bias gradients of every layer,
-and nothing else (the coordinates, the mask and the parameter-free encodings
-take no gradient). The kernel is ``csrc/inr_bwd.cu``; its header states what
-bounds it on an H100 and how the design deals with that. The forward kernel
-of the TPU package and its per-point mask modes serve the progressive nets
-and are not ported yet.
+``fused_inr_forward`` replaces the TPU kernel ``_fwd_kernel`` of
+``sin_inn_tpu/ops/pallas/inr.py`` (``_fused_fwd_call``) and
+``fused_inr_backward`` its ``_bwd_kernel`` (``_fused_bwd_call``): per tile of
+points, encode -> mask -> MLP, and for the backward a recompute of that chain
+followed by the weight and bias gradients of every layer, and nothing else
+(the coordinates, the mask and the parameter-free encodings take no
+gradient). The kernels are ``csrc/inr_fwd.cu`` and ``csrc/inr_bwd.cu`` over
+``csrc/inr_common.cuh``; their headers state what bounds them on an H100 and
+how the design deals with that.
 
-:class:`FusedINR` is the counterpart of ``fused_encoded_mlp`` for a constant
-mask: its forward is the plain encode -> mask -> MLP (as the TPU package's
-``_xla_forward``) and keeps no (N, E) or (N, hidden) tensor for the backward,
-only the points, the mask, the encoding constants and the weights. Its
-backward is one K7 launch and one launch of the reduction kernel
+Nets. ``layers`` = [(W_l (K_l, N_l), b_l)]. A progressive net feeds the raw
+coordinates in front of the encoding, so its W_0 is (d + E, H): the first d
+rows are the coordinate rows (the TPU kernel's ``wc``), the rest the
+encoding's. The wrappers tell the two by W_0's height against the
+encoding's width E. Gradients come back in the leaves' shapes, the
+coordinate rows' (``dwc``) inside dW_0.
+
+Mask modes, told by the mask's form:
+
+* ``const``: a (E,) vector, or (d + E,) for a progressive net (coordinate
+  channels first), the same for every point;
+* ``point``: the pair (mc (d, n), me (n, E)) of
+  ``controllers.spatial_grid_mask_split``: the per-point mask streamed;
+* ``slab``: ``controllers.SpatialSlabMask`` (enc (rows, res, E), coord (rows,
+  res, d), wx (W, res)) with n = rows x W: the kernel rebuilds the mask of a
+  tile from its image row's slab and the tile's rows of ``wx``, so the (n, E)
+  mask never exists. A tile must not straddle two image rows: W is a
+  multiple of the tile's 32 points.
+
+``point`` and ``slab`` are for progressive nets only.
+
+:class:`FusedINR` is the counterpart of ``fused_encoded_mlp``. For a
+constant mask its forward is the plain encode -> mask -> MLP (as the TPU
+package's ``_xla_forward``); for the per-point modes it is K7 forward. Either
+way it keeps no (n, E) or (n, hidden) tensor for the backward, only the
+points, the mask's operands, the encoding constants and the weights. Its
+backward is one K7 backward launch and one launch of the reduction kernel
 (``ops/cuda/coupling.py`` ``reduce_weight_grads``).
 
 Operand modes, as the TPU kernel's ``precise`` flag: ``bf16=False`` keeps
-fp32 operands in every MLP product, ``bf16=True`` rounds both operands of
-each product to bf16 and sums in fp32. The encoding's contraction over the
-coordinates is fp32 in both.
+fp32 operands in every product, ``bf16=True`` rounds both operands of each
+MLP product, of the coordinate rows' product and of the slab rebuild to bf16
+and sums in fp32. The encoding's contraction over the coordinates is fp32 in
+both.
 
-The CUDA kernel needs: an encoding width and a hidden width that are
-multiples of 4 (it reads float4), at least one hidden layer and at most 7,
-at most 4 coordinates, and a tile of 32 rows x (E + hidden layers x H + O)
-floats within the 227 KB of shared memory a block can have. (The TPU
-kernel's multiple-of-128 rule answered the TPU's lanes.)
+The CUDA kernels need: an encoding width and a hidden width that are
+multiples of 4 (they read float4), at least one hidden layer and at most 7,
+at most 4 coordinates, and their tile within the 227 KB of shared memory a
+block can have: for the backward 32 rows x (E + hidden layers x H + O)
+floats, plus 32 x 4 for a progressive net and 33 x res in slab mode. (The
+TPU kernel's multiple-of-128 rule answered the TPU's lanes.)
 
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel
-or raises, a CPU tensor takes :func:`fused_inr_backward_plain`.
-``fused_inr_backward.launches`` counts kernel launches.
+or raises, a CPU tensor takes the plain version. ``fused_inr_forward.launches``
+and ``fused_inr_backward.launches`` count kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -48,12 +72,14 @@ from sin_inn_tpu_torch.ops.cuda.coupling import reduce_weight_grads
 from sin_inn_tpu_torch.ops.encodings import ff_apply, rbf_apply
 
 KINDS = ("rbf", "ff")
-_TILE_ROWS = 32
+MODES = ("const", "point", "slab")
+TILE_ROWS = 32               # points per tile of both kernels
 _MAX_SMEM = 232448           # bytes of shared memory a block can have
 _MAX_LAYERS = 8
-_PLAIN_CHUNK = 16384         # rows per chunk of the plain version
+_PLAIN_CHUNK = 16384         # rows per chunk of the plain versions
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+Mask = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
 def _bf16_round(t: torch.Tensor) -> torch.Tensor:
@@ -71,111 +97,279 @@ def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
 def encode(kind: str, enc: Dict, x: torch.Tensor,
            mask: torch.Tensor) -> torch.Tensor:
     """a_0 = encoding(x) * mask, (n, E), with the arithmetic of
-    ``ops/encodings.py`` (fp32 whatever the operand mode)."""
+    ``ops/encodings.py`` (fp32 whatever the operand mode). ``mask``: (E,) or
+    (n, E)."""
     apply_fn = rbf_apply if kind == "rbf" else ff_apply
     return apply_fn({}, enc, x) * mask
 
 
+def encoding_width(kind: str, enc: Dict) -> int:
+    return (enc["centres"].shape[0] if kind == "rbf"
+            else 2 * enc["frequencies"].shape[1])
+
+
+class _Net(NamedTuple):
+    """A call's operands as both the plain versions and the kernels read
+    them."""
+    mode: str                        # 'const' | 'point' | 'slab'
+    prog: bool                       # coordinate rows in front of W_0
+    d: int
+    e: int                           # encoding width
+    me: torch.Tensor                 # (E,) | (n, E) | (rows, res, E)
+    mc: Optional[torch.Tensor]       # (d,) | (d, n) | (rows, res, d)
+    wx: Optional[torch.Tensor]       # (W, res), slab mode
+
+
+def _resolve(kind: str, enc: Dict, layers: Layers, x: torch.Tensor,
+             mask: Optional[Mask]) -> _Net:
+    """Check the operands' forms against each other and name the mode."""
+    if kind not in KINDS:
+        raise ValueError(f"encoding kind must be one of {KINDS}, got {kind!r}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no fused INR kernel for device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"expected (n, d) points, got {tuple(x.shape)}")
+    n, d = x.shape
+    e = encoding_width(kind, enc)
+    rows0 = layers[0][0].shape[0]
+    if rows0 not in (e, e + d):
+        raise ValueError(f"the first layer has {rows0} rows; the encoding "
+                         f"gives {e} channels (+ {d} coordinate rows for a "
+                         "progressive net)")
+    prog = rows0 == e + d
+    if mask is None:
+        mask = torch.ones(rows0, dtype=torch.float32, device=x.device)
+    if isinstance(mask, torch.Tensor):
+        if mask.shape != (rows0,):
+            raise ValueError(f"expected a ({rows0},) mask, got "
+                             f"{tuple(mask.shape)}")
+        mask = mask.detach().float()
+        return _Net("const", prog, d, e, mask[rows0 - e:],
+                    mask[:d] if prog else None, None)
+    if not prog:
+        raise ValueError("a per-point mask (split pair or row slabs) is for "
+                         "progressive nets")
+    mask = tuple(t.detach().float() for t in mask)
+    if len(mask) == 2:
+        mc, me = mask
+        if mc.shape != (d, n) or me.shape != (n, e):
+            raise ValueError(f"expected a split mask (mc ({d}, {n}), me "
+                             f"({n}, {e})), got {tuple(mc.shape)} and "
+                             f"{tuple(me.shape)}")
+        return _Net("point", True, d, e, me, mc, None)
+    if len(mask) != 3:
+        raise ValueError("a mask is a vector, a split pair (mc, me) or row "
+                         "slabs (enc, coord, wx)")
+    se, sc, wx = mask
+    if (se.dim() != 3 or wx.dim() != 2 or se.shape[2] != e
+            or sc.shape != (se.shape[0], se.shape[1], d)
+            or wx.shape[1] != se.shape[1] or se.shape[0] * wx.shape[0] != n):
+        raise ValueError(
+            f"expected row slabs enc (rows, res, {e}), coord (rows, res, "
+            f"{d}), wx (W, res) with rows x W = {n}, got "
+            f"{tuple(se.shape)}, {tuple(sc.shape)}, {tuple(wx.shape)}")
+    if wx.shape[0] % TILE_ROWS:
+        raise ValueError(f"slab mode needs a frame width that is a multiple "
+                         f"of the {TILE_ROWS}-point tile, got "
+                         f"{wx.shape[0]}")
+    return _Net("slab", True, d, e, se, sc, wx)
+
+
+def _chunk_rows(net: _Net) -> int:
+    """Rows per chunk of the plain versions: whole image rows in slab
+    mode."""
+    if net.mode != "slab":
+        return _PLAIN_CHUNK
+    w = net.wx.shape[0]
+    return max(1, _PLAIN_CHUNK // w) * w
+
+
+def _mask_values(net: _Net, s: int, t: int, bf16: bool):
+    """(mev, mcv) of the rows [s, t): mev (E,) or (t - s, E), mcv (d,) or
+    (t - s, d) or None. Slab mode contracts the rows' slabs with the x-axis
+    weights, operands rounded to bf16 in the bf16 mode."""
+    if net.mode == "const":
+        return net.me, net.mc
+    if net.mode == "point":
+        return net.me[s:t], net.mc[:, s:t].t()
+    w = net.wx.shape[0]
+    rows = slice(s // w, -(-t // w))
+    wx, se, sc = net.wx, net.me[rows], net.mc[rows]
+    if bf16:
+        wx, se, sc = _bf16_round(wx), _bf16_round(se), _bf16_round(sc)
+    mev = torch.einsum("wr,SrE->SwE", wx, se).reshape(-1, net.e)
+    mcv = torch.einsum("wr,SrD->SwD", wx, sc).reshape(-1, net.d)
+    return mev, mcv
+
+
+def _first_layer(net: _Net, layers: Layers):
+    """(wc (d, H) or None, W_0's encoding rows (E, H))."""
+    w0 = layers[0][0]
+    return (w0[:net.d], w0[net.d:]) if net.prog else (None, w0)
+
+
+def _recompute(kind, enc, net, layers, x, s, t, bf16, keep_last: bool):
+    """The activations of rows [s, t): [a_0, ..., a_{L-1}] (and the output
+    when ``keep_last``), and xm (the masked coordinates) or None."""
+    xs = x[s:t]
+    mev, mcv = _mask_values(net, s, t, bf16)
+    acts = [encode(kind, enc, xs, mev)]
+    xm = xs * mcv if net.prog else None
+    wc, w0 = _first_layer(net, layers)
+    n_lin = len(layers)
+    for l, (w, b) in enumerate(layers):
+        if l == n_lin - 1 and not keep_last:
+            break
+        z = _mm(acts[-1], w0 if l == 0 else w, bf16)
+        if l == 0 and net.prog:
+            z = z + _mm(xm, wc, bf16)
+        z = z + b
+        acts.append(torch.relu(z) if l < n_lin - 1 else z)
+    return acts, xm
+
+
 def fused_inr_forward_plain(kind: str, enc: Dict, layers: Layers,
-                            x: torch.Tensor, mask: torch.Tensor,
+                            x: torch.Tensor, mask: Optional[Mask] = None,
                             bf16: bool = False) -> torch.Tensor:
-    """encode -> mask -> MLP, (n, d) -> (n, O): relu between the layers,
-    none after the last; biases added in fp32."""
-    h = encode(kind, enc, x, mask)
-    for i, (w, b) in enumerate(layers):
-        h = _mm(h, w, bf16) + b
-        if i < len(layers) - 1:
-            h = torch.relu(h)
-    return h
+    """Plain PyTorch version of K7 forward: encode -> mask -> MLP, (n, d) ->
+    (n, O): relu between the layers, none after the last; biases added in
+    fp32. A constant mask runs in one piece; the per-point modes in row
+    chunks, so that no (n, E) tensor is ever held."""
+    net = _resolve(kind, enc, layers, x, mask)
+    n = x.shape[0]
+    step = n if net.mode == "const" else _chunk_rows(net)
+    outs = [_recompute(kind, enc, net, layers, x, s, min(s + step, n), bf16,
+                       True)[0][-1] for s in range(0, max(n, 1), max(step, 1))]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def fused_inr_backward_plain(kind: str, enc: Dict, layers: Layers,
-                             x: torch.Tensor, mask: torch.Tensor,
+                             x: torch.Tensor, mask: Optional[Mask],
                              g: torch.Tensor, bf16: bool = False
                              ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Plain PyTorch version of K7's backward: [(dW_l, db_l)] for the output
+    """Plain PyTorch version of K7 backward: [(dW_l, db_l)] for the output
     cotangent g (n, O), by the hand-derived formulas (no autograd), in row
-    chunks so that no (n, E) tensor is ever held."""
-    grads = [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in layers]
-    for s in range(0, x.shape[0], _PLAIN_CHUNK):
-        xs, gl = x[s:s + _PLAIN_CHUNK], g[s:s + _PLAIN_CHUNK].float()
-        acts = [encode(kind, enc, xs, mask)]
-        for w, b in layers[:-1]:
-            acts.append(torch.relu(_mm(acts[-1], w, bf16) + b))
+    chunks so that no (n, E) tensor is ever held. For a progressive net the
+    first d rows of dW_0 are the coordinate rows' gradient."""
+    net = _resolve(kind, enc, layers, x, mask)
+    grads = [(torch.zeros_like(w, dtype=torch.float32),
+              torch.zeros_like(b, dtype=torch.float32)) for w, b in layers]
+    n = x.shape[0]
+    step = _chunk_rows(net)
+    for s in range(0, n, step):
+        t = min(s + step, n)
+        gl = g[s:t].float()
+        acts, xm = _recompute(kind, enc, net, layers, x, s, t, bf16, False)
         for l in range(len(layers) - 1, -1, -1):
             dw, db = grads[l]
-            dw += _mm(acts[l].t(), gl, bf16)
+            if l == 0 and net.prog:
+                dw[:net.d] += _mm(xm.t(), gl, bf16)
+                dw[net.d:] += _mm(acts[0].t(), gl, bf16)
+            else:
+                dw += _mm(acts[l].t(), gl, bf16)
             db += gl.sum(0)
             if l > 0:
                 gl = _mm(gl, layers[l][0].t(), bf16) * (acts[l] > 0)
     return grads
 
 
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+_I32, _I64, _PTR = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+# (bf16, rbf, mode, prog, n_points, n_lin, d, e, hidden, out, res, w_img)
+_SHAPE_ARGS = [_I32] * 4 + [_I64] + [_I32] * 7
+# x, w[], b[], wt[], enc_a, enc_b, enc_c, me, mc, wx, wc
+_OPERAND_ARGS = [_PTR] * 11
+
+
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
+def _bwd_lib() -> ctypes.CDLL:
     lib = _build.library("inr_bwd")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in ("sininn_inr_bwd_smem_bytes", "sininn_inr_bwd_slot_floats"):
-        getattr(lib, fn).argtypes = [i32] * 4
-        getattr(lib, fn).restype = i64
-    lib.sininn_inr_bwd_blocks.argtypes = (
-        [i32, i32, i64] + [i32] * 5 + [ctypes.POINTER(i32)])
-    lib.sininn_inr_bwd_blocks.restype = i32
-    lib.sininn_inr_bwd.argtypes = (
-        [i32, i32, ptr, ptr, i64] + [i32] * 5 + [ptr] * 8 + [i32, ptr])
-    lib.sininn_inr_bwd.restype = i32
-    lib.sininn_error_string.argtypes = [i32]
+    lib.sininn_inr_bwd_smem_bytes.argtypes = [_I32] * 6
+    lib.sininn_inr_bwd_smem_bytes.restype = _I64
+    lib.sininn_inr_bwd_slot_floats.argtypes = [_I32] * 6
+    lib.sininn_inr_bwd_slot_floats.restype = _I64
+    lib.sininn_inr_bwd_blocks.argtypes = _SHAPE_ARGS + [ctypes.POINTER(_I32)]
+    lib.sininn_inr_bwd_blocks.restype = _I32
+    # ..., g, partials, blocks, stream
+    lib.sininn_inr_bwd.argtypes = (_SHAPE_ARGS + _OPERAND_ARGS
+                                   + [_PTR, _PTR, _I32, _PTR])
+    lib.sininn_inr_bwd.restype = _I32
+    lib.sininn_error_string.argtypes = [_I32]
     lib.sininn_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _dims(layers: Layers, x: torch.Tensor) -> Tuple[int, int, int, int, int]:
-    """(n_lin, d, E, H, O) of a net, checked for the shape the kernel's
-    layout assumes: (E, H), (H, H)..., (H, O)."""
+@functools.lru_cache(maxsize=None)
+def _fwd_lib() -> ctypes.CDLL:
+    lib = _build.library("inr_fwd")
+    lib.sininn_inr_fwd.argtypes = _SHAPE_ARGS + _OPERAND_ARGS + [_PTR, _PTR]
+    lib.sininn_inr_fwd.restype = _I32
+    lib.sininn_error_string.argtypes = [_I32]
+    lib.sininn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _dims(layers: Layers, x: torch.Tensor, prog: bool = False
+          ) -> Tuple[int, int, int, int, int]:
+    """(n_lin, d, E, H, O) of a net, checked for the shape the kernels'
+    layout assumes: (E [+ d], H), (H, H)..., (H, O)."""
     n_lin = len(layers)
     if n_lin < 2:
-        raise ValueError("the fused INR backward needs at least one hidden "
+        raise ValueError("the fused INR kernels need at least one hidden "
                          "layer")
-    e, hidden = layers[0][0].shape
+    d = x.shape[1]
+    rows0, hidden = layers[0][0].shape
     out = layers[-1][0].shape[1]
     for l, (w, b) in enumerate(layers):
-        want = (e if l == 0 else hidden, out if l == n_lin - 1 else hidden)
+        want = (rows0 if l == 0 else hidden, out if l == n_lin - 1 else hidden)
         if tuple(w.shape) != want or tuple(b.shape) != (want[1],):
             raise ValueError(f"layer {l}: weight {tuple(w.shape)}, bias "
-                             f"{tuple(b.shape)}; the fused INR backward "
-                             f"needs {want} and ({want[1]},)")
-    return n_lin, x.shape[1], e, hidden, out
+                             f"{tuple(b.shape)}; the fused INR kernels "
+                             f"need {want} and ({want[1]},)")
+    return n_lin, d, rows0 - (d if prog else 0), hidden, out
 
 
-def kernel_supports(n_lin: int, d: int, e: int, hidden: int,
-                    out: int) -> bool:
-    """What ``csrc/inr_bwd.cu`` takes (see the module docstring)."""
-    smem = 4 * _TILE_ROWS * (e + (n_lin - 1) * hidden + out)
+def _smem_bytes(n_lin: int, e: int, hidden: int, out: int, prog: bool,
+                res: int) -> int:
+    """Shared memory of one backward block (the forward's is smaller): every
+    activation of a 32-row tile and the output cotangent; for a progressive
+    net the masked coordinates (4 floats a row) and, in slab mode (``res`` >
+    0), the tile's rows of wx with a flag per column."""
+    return (4 * TILE_ROWS * (e + (n_lin - 1) * hidden + out
+                              + (4 if prog else 0))
+            + 4 * (TILE_ROWS + 1) * res)
+
+
+def kernel_supports(n_lin: int, d: int, e: int, hidden: int, out: int,
+                    prog: bool = False, res: int = 0) -> bool:
+    """What ``csrc/inr_fwd.cu`` and ``csrc/inr_bwd.cu`` take (see the module
+    docstring); ``prog``: a progressive net; ``res``: the slabs' cell
+    resolution in slab mode."""
     return (2 <= n_lin <= _MAX_LAYERS and 1 <= d <= 4 and e % 4 == 0
             and hidden % 4 == 0 and e >= 4 and hidden >= 4 and out >= 1
-            and smem <= _MAX_SMEM)
+            and _smem_bytes(n_lin, e, hidden, out, prog, res) <= _MAX_SMEM)
 
 
-def _grid(lib: ctypes.CDLL, bf16: bool, kind: str, n_points: int,
-          dims: Tuple[int, int, int, int, int], device) -> Tuple[int, int]:
-    """(blocks P, floats per slot) of one launch on ``device``."""
-    n_lin, d, e, hidden, out = dims
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = lib.sininn_inr_bwd_blocks(int(bf16), int(kind == "rbf"),
-                                        n_points, n_lin, d, e, hidden, out,
-                                        ctypes.byref(blocks))
-    _raise_on(err, lib, "inr_bwd (grid)")
-    return blocks.value, lib.sininn_inr_bwd_slot_floats(n_lin, e, hidden, out)
-
-
-def scratch_bytes(n_points: int, layers: Layers, x: torch.Tensor,
-                  kind: str = "rbf", bf16: bool = False) -> int:
-    """Bytes of the per-block gradient slots one launch allocates on
-    ``x``'s (CUDA) device."""
-    blocks, slot = _grid(_lib(), bf16, kind, n_points, _dims(layers, x),
-                         x.device)
-    return 4 * blocks * slot
+def require_kernel(layers: Layers, x: torch.Tensor, prog: bool = False,
+                   res: int = 0) -> Tuple[int, int, int, int, int]:
+    """(n_lin, d, E, H, O) of a net that the kernels take; a ValueError that
+    names the limits for any other. Nothing on the card gives way to plain
+    autograd by itself: the caller asks for it with ``use_kernel="off"``."""
+    n_lin, d, e, hidden, out = dims = _dims(layers, x, prog)
+    if not kernel_supports(*dims, prog=prog, res=res):
+        raise ValueError(
+            f"the fused INR kernels do not take d={d}, E={e}, "
+            f"hidden={hidden}, {n_lin} layers, out={out}: they need 1 <= d <= "
+            f"4, 2 to {_MAX_LAYERS} layers, an encoding width and a hidden "
+            f"width that are multiples of 4, and a {TILE_ROWS}-row tile of "
+            f"all activations within {_MAX_SMEM} bytes of shared memory "
+            f"(this net needs {_smem_bytes(n_lin, e, hidden, out, prog, res)}). "
+            "Run this net through the plain route and ordinary autograd "
+            "with use_kernel=\"off\" (--use-kernel off)")
+    return dims
 
 
 def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
@@ -185,7 +379,7 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
 
 
 def _enc_operands(kind: str, enc: Dict):
-    """The encoding constants as the kernel reads them, computed with the
+    """The encoding constants as the kernels read them, computed with the
     plain forward's own expressions."""
     if kind == "rbf":
         c = enc["centres"]
@@ -194,67 +388,105 @@ def _enc_operands(kind: str, enc: Dict):
     return (enc["frequencies"].contiguous(), None, None)
 
 
-def require_kernel(layers: Layers, x: torch.Tensor
-                   ) -> Tuple[int, int, int, int, int]:
-    """(n_lin, d, E, H, O) of a net that ``csrc/inr_bwd.cu`` takes; a
-    ValueError that names the limits for any other. Nothing on the card gives
-    way to plain autograd by itself: the caller asks for it with
-    ``use_kernel="off"``."""
-    n_lin, d, e, hidden, out = dims = _dims(layers, x)
-    if not kernel_supports(*dims):
-        smem = 4 * _TILE_ROWS * (e + (n_lin - 1) * hidden + out)
-        raise ValueError(
-            f"the fused INR backward kernel does not take d={d}, E={e}, "
-            f"hidden={hidden}, {n_lin} layers, out={out}: it needs 1 <= d <= "
-            f"4, 2 to {_MAX_LAYERS} layers, an encoding width and a hidden "
-            f"width that are multiples of 4, and a {_TILE_ROWS}-row tile of "
-            f"all activations within {_MAX_SMEM} bytes of shared memory "
-            f"(this net needs {smem}). Train this net through ordinary "
-            "autograd with use_kernel=\"off\" (--use-kernel off)")
-    return dims
+def _ptr_array(ts):
+    arr = (ctypes.c_void_p * _MAX_LAYERS)()
+    for i, t in enumerate(ts):
+        arr[i] = t.data_ptr() if t is not None else None
+    return arr
 
 
-def _launch(kind: str, enc: Dict, layers: Layers, x: torch.Tensor,
-            mask: torch.Tensor, g: torch.Tensor, bf16: bool):
-    n_lin, d, e, hidden, out = require_kernel(layers, x)
-    n = x.shape[0]
+class _Call(NamedTuple):
+    """The arguments both C entry points share, and the tensors they point
+    into (kept alive until the launch is queued)."""
+    shape: tuple
+    operands: tuple       # as _OPERAND_ARGS
+    keep: tuple
+    ws: list
+    bs: list
+
+
+def _prepare(kind: str, enc: Dict, net: _Net, layers: Layers,
+             x: torch.Tensor, bf16: bool, transposed: bool) -> _Call:
+    res = net.wx.shape[1] if net.mode == "slab" else 0
+    n_lin, d, e, hidden, out = require_kernel(layers, x, net.prog, res)
     dev = x.device
     ws = [w.detach().float().contiguous() for w, _ in layers]
     bs = [b.detach().float().contiguous() for _, b in layers]
+    me, mc, wx = net.me, net.mc, net.wx
     if bf16:
         ws = [_bf16_round(w) for w in ws]
-    wts = [w.t().contiguous() if 0 < l < n_lin - 1 else None
+        if net.mode == "slab":
+            me, mc, wx = _bf16_round(me), _bf16_round(mc), _bf16_round(wx)
+    wts = [w.t().contiguous() if transposed and 0 < l < n_lin - 1 else None
            for l, w in enumerate(ws)]
     enc_ops = _enc_operands(kind, enc)
-    tensors = [x, g, mask, *ws, *bs, *(t for t in wts if t is not None),
-               *(t for t in enc_ops if t is not None)]
-    for t in tensors:
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"the fused INR backward takes float32 tensors "
+    x = x.contiguous()
+    me = me.contiguous()
+    mc = mc.contiguous() if mc is not None else None
+    wx = wx.contiguous() if wx is not None else None
+    keep = (x, me, mc, wx, *ws, *bs, *wts, *enc_ops)
+    for t in keep:
+        if t is not None and (t.device != dev or t.dtype != torch.float32):
+            raise ValueError(f"the fused INR kernels take float32 tensors "
                              f"on {dev}, got {t.dtype} on {t.device}")
-    x, g, mask = x.contiguous(), g.contiguous(), mask.contiguous()
+    # the kernels read the encoding rows of W_0 and its coordinate rows (the
+    # first d of a progressive net's) apart
+    w_ptrs = _ptr_array(ws)
+    wc_ptr = None
+    if net.prog:
+        wc_ptr = ws[0].data_ptr()
+        w_ptrs[0] = ws[0].data_ptr() + 4 * d * hidden
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    shape = (int(bf16), int(kind == "rbf"), MODES.index(net.mode),
+             int(net.prog), x.shape[0], n_lin, d, e, hidden, out, res,
+             net.wx.shape[0] if net.mode == "slab" else 0)
+    operands = (x.data_ptr(), w_ptrs, _ptr_array(bs), _ptr_array(wts),
+                *[ptr(t) for t in enc_ops], ptr(me), ptr(mc), ptr(wx),
+                wc_ptr)
+    return _Call(shape, operands, keep, ws, bs)
 
-    def ptrs(ts):
-        arr = (ctypes.c_void_p * _MAX_LAYERS)()
-        for i, t in enumerate(ts):
-            arr[i] = t.data_ptr() if t is not None else None
-        return arr
 
-    lib = _lib()
-    blocks, slot = _grid(lib, bf16, kind, n, (n_lin, d, e, hidden, out), dev)
+def _grid(lib: ctypes.CDLL, call: _Call, device) -> Tuple[int, int]:
+    """(blocks P, floats per slot) of one backward launch on ``device``."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.sininn_inr_bwd_blocks(*call.shape, ctypes.byref(blocks))
+    _raise_on(err, lib, "inr_bwd (grid)")
+    _, _, _, prog, _, n_lin, d, e, hidden, out, _, _ = call.shape
+    return blocks.value, lib.sininn_inr_bwd_slot_floats(
+        n_lin, d, e, hidden, out, prog)
+
+
+def scratch_bytes(layers: Layers, x: torch.Tensor, kind: str, enc: Dict,
+                  mask: Optional[Mask] = None, bf16: bool = False) -> int:
+    """Bytes of the per-block gradient slots one backward launch allocates
+    on ``x``'s (CUDA) device."""
+    net = _resolve(kind, enc, layers, x, mask)
+    call = _prepare(kind, enc, net, layers, x, bf16, False)
+    blocks, slot = _grid(_bwd_lib(), call, x.device)
+    return 4 * blocks * slot
+
+
+def _launch_backward(kind: str, enc: Dict, net: _Net, layers: Layers,
+                     x: torch.Tensor, g: torch.Tensor, bf16: bool):
+    call = _prepare(kind, enc, net, layers, x, bf16, True)
+    dev = x.device
+    g = g.contiguous()
+    if g.device != dev or g.dtype != torch.float32:
+        raise ValueError(f"the fused INR backward takes a float32 cotangent "
+                         f"on {dev}, got {g.dtype} on {g.device}")
+    lib = _bwd_lib()
+    blocks, slot = _grid(lib, call, dev)
     partials = torch.empty((blocks, slot), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.sininn_inr_bwd(
-            int(bf16), int(kind == "rbf"), x.data_ptr(), g.data_ptr(), n,
-            n_lin, d, e, hidden, out, ptrs(ws), ptrs(bs), ptrs(wts),
-            *[t.data_ptr() if t is not None else None for t in enc_ops],
-            mask.data_ptr(), partials.data_ptr(), blocks, stream)
+        err = lib.sininn_inr_bwd(*call.shape, *call.operands, g.data_ptr(),
+                                 partials.data_ptr(), blocks, stream)
         _raise_on(err, lib, "inr_bwd")
         fused_inr_backward.launches += 1
     flat = reduce_weight_grads(partials)
     grads, at = [], 0
-    for w, b in zip(ws, bs):
+    for w, b in zip(call.ws, call.bs):
         dw = flat[at:at + w.numel()].view(w.shape)
         at += w.numel()
         grads.append((dw, flat[at:at + b.numel()]))
@@ -262,66 +494,97 @@ def _launch(kind: str, enc: Dict, layers: Layers, x: torch.Tensor,
     return grads
 
 
-def _check(kind: str, x: torch.Tensor, mask: torch.Tensor,
-           g: Optional[torch.Tensor], layers: Layers) -> None:
-    if kind not in KINDS:
-        raise ValueError(f"encoding kind must be one of {KINDS}, got {kind!r}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no fused INR kernel for device {x.device}")
-    e = layers[0][0].shape[0]
-    if x.dim() != 2 or mask.shape != (e,):
-        raise ValueError(f"expected (n, d) points and an ({e},) mask, got "
-                         f"{tuple(x.shape)} and {tuple(mask.shape)}")
-    if g is not None and g.shape != (x.shape[0], layers[-1][0].shape[1]):
-        raise ValueError(f"cotangent {tuple(g.shape)} does not match "
-                         f"({x.shape[0]}, {layers[-1][0].shape[1]})")
+def _launch_forward(kind: str, enc: Dict, net: _Net, layers: Layers,
+                    x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    call = _prepare(kind, enc, net, layers, x, bf16, False)
+    dev = x.device
+    out = torch.empty((x.shape[0], layers[-1][0].shape[1]),
+                      dtype=torch.float32, device=dev)
+    lib = _fwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.sininn_inr_fwd(*call.shape, *call.operands,
+                                 out.data_ptr(), stream)
+        _raise_on(err, lib, "inr_fwd")
+        fused_inr_forward.launches += 1
+    return out
+
+
+def fused_inr_forward(kind: str, enc: Dict, layers: Layers, x: torch.Tensor,
+                      mask: Optional[Mask] = None,
+                      bf16: bool = False) -> torch.Tensor:
+    """K7 forward: encode -> mask -> MLP at the points x (n, d) -> (n, O).
+    kind: 'rbf' (enc: ``centres`` (E, d), ``sigma`` (E,)) or 'ff' (enc:
+    ``frequencies`` (d, E / 2)); layers: [(W_l (K_l, N_l), b_l)], W_0 with
+    the coordinate rows in front for a progressive net; mask: None, a
+    vector, a split pair or row slabs (see the module docstring)."""
+    net = _resolve(kind, enc, layers, x, mask)
+    if x.device.type == "cpu":
+        return fused_inr_forward_plain(kind, enc, layers, x, mask, bf16)
+    if x.shape[0] == 0:
+        return x.new_zeros((0, layers[-1][0].shape[1]), dtype=torch.float32)
+    return _launch_forward(kind, enc, net, layers, x.float(), bf16)
 
 
 def fused_inr_backward(kind: str, enc: Dict, layers: Layers, x: torch.Tensor,
-                       mask: torch.Tensor, g: torch.Tensor,
+                       mask: Optional[Mask], g: torch.Tensor,
                        bf16: bool = False
                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """K7 backward: [(dW_l, db_l)] of encode -> mask -> MLP at the points x
-    (n, d) for the output cotangent g (n, O). kind: 'rbf' (enc: ``centres``
-    (E, d), ``sigma`` (E,)) or 'ff' (enc: ``frequencies`` (d, E / 2));
-    layers: [(W_l (K_l, N_l), b_l)]; mask: (E,)."""
-    _check(kind, x, mask, g, layers)
+    (n, d) for the output cotangent g (n, O). Operands as
+    :func:`fused_inr_forward`; for a progressive net the first d rows of
+    dW_0 are the coordinate rows' gradient."""
+    net = _resolve(kind, enc, layers, x, mask)
+    if g.shape != (x.shape[0], layers[-1][0].shape[1]):
+        raise ValueError(f"cotangent {tuple(g.shape)} does not match "
+                         f"({x.shape[0]}, {layers[-1][0].shape[1]})")
     if x.device.type == "cpu":
         return fused_inr_backward_plain(kind, enc, layers, x, mask, g, bf16)
     if x.shape[0] == 0:
         return [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in layers]
-    return _launch(kind, enc, layers, x, mask, g.float(), bf16)
+    return _launch_backward(kind, enc, net, layers, x.float(), g.float(),
+                            bf16)
 
 
 class FusedINR(torch.autograd.Function):
-    """Plain forward that keeps no activation, K7 backward.
-    ``apply(kind, bf16, enc, x, mask, *leaves)`` with leaves = W_0, b_0, W_1,
-    b_1, ...; gradients come back for the leaves only."""
+    """A forward that keeps no activation (plain for a constant mask, K7
+    forward for the per-point modes), K7 backward.
+    ``apply(kind, bf16, enc, x, n_mask, *mask_tensors, *leaves)`` with
+    ``n_mask`` the number of mask tensors (1: a vector, 2: a split pair, 3:
+    row slabs) and leaves = W_0, b_0, W_1, b_1, ...; gradients come back for
+    the leaves only."""
 
     @staticmethod
-    def forward(ctx, kind, bf16, enc, x, mask, *leaves):
+    def forward(ctx, kind, bf16, enc, x, n_mask, *rest):
+        mask_ts, leaves = rest[:n_mask], rest[n_mask:]
+        mask = mask_ts[0] if n_mask == 1 else tuple(mask_ts)
         layers = list(zip(leaves[0::2], leaves[1::2]))
-        _check(kind, x, mask, None, layers)
+        net = _resolve(kind, enc, layers, x, mask)
+        ctx.kind, ctx.bf16, ctx.enc, ctx.n_mask = kind, bf16, enc, n_mask
+        ctx.save_for_backward(x, *mask_ts, *leaves)
+        if net.mode != "const":
+            return fused_inr_forward(kind, enc, layers, x, mask, bf16)
         if x.device.type == "cuda":
-            require_kernel(layers, x)       # refuse before the step, not in it
-        ctx.kind, ctx.bf16, ctx.enc = kind, bf16, enc
-        ctx.save_for_backward(x, mask, *leaves)
+            # refuse before the step, not in it
+            require_kernel(layers, x, net.prog)
         return fused_inr_forward_plain(kind, enc, layers, x, mask, bf16)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, mask, *leaves = ctx.saved_tensors
+        x, *rest = ctx.saved_tensors
+        mask_ts, leaves = rest[:ctx.n_mask], rest[ctx.n_mask:]
+        mask = mask_ts[0] if ctx.n_mask == 1 else tuple(mask_ts)
         layers = list(zip(leaves[0::2], leaves[1::2]))
         grads = fused_inr_backward(ctx.kind, ctx.enc, layers, x, mask,
                                    g.contiguous(), ctx.bf16)
         flat = [t.to(leaf.dtype) for pair, (leaf, _) in zip(grads, layers)
                 for t in pair]
-        return (None, None, None, None, None, *flat)
+        return (None,) * (5 + ctx.n_mask) + tuple(flat)
 
 
 def fused_inr(kind: str, enc: Dict, layers: Layers, x: torch.Tensor,
-              mask: Optional[torch.Tensor] = None,
+              mask: Optional[Mask] = None,
               bf16: bool = False) -> torch.Tensor:
     """The differentiable fused INR: (n, d) points -> (n, O). ``enc`` holds
     the encoding's constant tensors (no gradient reaches them, ``x`` or
@@ -329,11 +592,14 @@ def fused_inr(kind: str, enc: Dict, layers: Layers, x: torch.Tensor,
     if mask is None:
         mask = torch.ones(layers[0][0].shape[0], dtype=torch.float32,
                           device=x.device)
+    mask_ts = (mask,) if isinstance(mask, torch.Tensor) else tuple(mask)
+    mask_ts = tuple(t.detach() for t in mask_ts)
     leaves = [t for pair in layers for t in pair]
-    return FusedINR.apply(kind, bf16, enc, x, mask.detach().float(), *leaves)
+    return FusedINR.apply(kind, bf16, enc, x, len(mask_ts), *mask_ts, *leaves)
 
 
-KERNELS = (fused_inr_backward,)
+KERNELS = (fused_inr_forward, fused_inr_backward)
+fused_inr_forward.launches = 0
 fused_inr_backward.launches = 0
 
 

@@ -1,37 +1,42 @@
 """Training, inference and frame interpolation of the flow INR.
 
-Counterpart of ``sin_inn_tpu/train/flow.py`` for the non-progressive nets
-on the static (global) windows: ``pose_grid``, ``flow_forward`` (no
-controller state), ``_splat_ops`` (the static routes), the training side
+Counterpart of ``sin_inn_tpu/train/flow.py`` on the static (global)
+windows: ``pose_grid``, ``flow_forward`` (with the controller's mask for a
+progressive net), ``_splat_ops`` (the static routes), the training side
 (``FlowTrainState``, ``build_flow_model``, ``photometric_flow_loss``,
-``flow_loss``, ``create_flow_state``, ``make_flow_train_step``), ``flow_infer``
-(the function ``make_flow_infer`` jits), ``frame_interp`` (the function
-``make_frame_interp`` jits, with the same arithmetic) and ``epe``. PyTorch
-runs eagerly, so the step is a plain closure.
+``flow_loss``, ``create_flow_state``, ``make_flow_train_step`` with the
+controller's transition), ``flow_infer`` (the function ``make_flow_infer``
+jits), ``frame_interp`` (the function ``make_frame_interp`` jits, with the
+same arithmetic) and ``epe``. PyTorch runs eagerly, so the step is a plain
+closure.
 
 One train step on the kernel route runs, as the TPU package's step does
-with its local windows off: the INR forward as plain PyTorch and its
-backward as the fused kernel (K7 backward), two windowed warps (K6) and two
-windowed splats (K5) forward, and the gather kernel's gradient mode four
-times backward (the two warps' flow gradients, the two splats' backward).
-The frames need no gradient, so the backward launches no K5.
+with its local windows off: the INR forward (plain PyTorch for a constant
+mask, the fused kernel K7 forward under the spatial controller, whose mask
+reaches it as row slabs) and its backward as the fused kernel (K7
+backward), two windowed warps (K6) and two windowed splats (K5) forward, and
+the gather kernel's gradient mode four times backward (the two warps' flow
+gradients, the two splats' backward). The frames need no gradient, so the
+backward launches no K5. The controller's transition follows the optimizer
+step and reads nothing back from the device.
 
-The progressive nets with their controllers and the local-window kernels
-are not ported yet: a trained net whose window sidecar names local windows
-is refused where the sidecar is read (``train/loop.py``
-``_load_window_bounds``).
+The local-window kernels are not ported yet: a trained net whose window
+sidecar names local windows is refused where the sidecar is read
+(``train/loop.py`` ``_load_window_bounds``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from sin_inn_tpu_torch.core.config import FlowConfig
 from sin_inn_tpu_torch.core.device import resolve_device
+from sin_inn_tpu_torch.models import controllers as ctrl
 from sin_inn_tpu_torch.models.inr import (INRSpec, build_inr, flat_leaves,
+                                          fused_spatial_mask_format,
                                           inr_apply)
 from sin_inn_tpu_torch.ops import losses as L
 from sin_inn_tpu_torch.ops.cuda.gather import resample2d_region
@@ -46,17 +51,48 @@ from sin_inn_tpu_torch.train.optim import lamb
 
 @dataclass
 class FlowTrainState:
-    """Params (leaves that require grad), their LAMB optimizer, the step.
-    The controller state joins with the progressive nets."""
+    """Params (leaves that require grad), their LAMB optimizer, the step,
+    and for a progressive net its controller's config and state (None, a
+    ``LinearState`` or a ``SpatialState``)."""
     params: Any
     optimizer: torch.optim.Optimizer
     step: int = 0
+    ctrl_cfg: Any = None
+    ctrl_state: Any = None
+
+
+def controller_config(spec: INRSpec, cfg: FlowConfig):
+    """The config of the net's controller: None for a non-progressive net,
+    the spatial controller with ``cfg.spatially_adaptive`` (a block every
+    3/4 of the epochs over the number of blocks), else the linear ramp."""
+    if not spec.is_progressive:
+        return None
+    if cfg.spatially_adaptive:
+        blocks = max((spec.encoding_dim - spec.domain_dim * 2)
+                     // (spec.domain_dim * 2), 1)
+        return ctrl.SpatialConfig.create(
+            spec, cfg.spatial_res,
+            block_iterations=max(3 * cfg.epochs // (4 * blocks), 1),
+            epsilon=cfg.controller_epsilon)
+    return ctrl.LinearConfig.create(spec, cfg.epochs,
+                                    epsilon=cfg.controller_epsilon)
+
+
+def controller_init(ctrl_cfg, device="cpu"):
+    """The controller's initial state on ``device`` (None without one)."""
+    if ctrl_cfg is None:
+        return None
+    init = (ctrl.spatial_init if isinstance(ctrl_cfg, ctrl.SpatialConfig)
+            else ctrl.linear_init)
+    return init(ctrl_cfg, device)
 
 
 def build_flow_model(gen: torch.Generator, cfg: FlowConfig, device="cpu"):
-    """(spec, params, consts) of the config's net (non-progressive: no
-    controller to wire)."""
-    return build_inr(gen, cfg.net, cfg, device)
+    """(spec, params, consts, ctrl_cfg, ctrl_state): the config's net and,
+    for a progressive one, its controller."""
+    spec, params, consts = build_inr(gen, cfg.net, cfg, device)
+    ctrl_cfg = controller_config(spec, cfg)
+    return spec, params, consts, ctrl_cfg, controller_init(ctrl_cfg, device)
 
 
 def pose_grid(times: torch.Tensor, h: int, w: int,
@@ -76,12 +112,49 @@ def pose_grid(times: torch.Tensor, h: int, w: int,
     return torch.stack([t, gy, gx], dim=-1)
 
 
+def controller_mask(spec: INRSpec, params, consts, ctrl_cfg, ctrl_state,
+                    times: torch.Tensor, h: int, w: int, pts: torch.Tensor):
+    """(mask, stash): the controller's mask for the pose grid ``pts`` in the
+    format the INR's route takes, detached. The spatial controller on a
+    (t, y, x) grid emits, by :func:`fused_spatial_mask_format` (the gate
+    ``inr_apply`` dispatches by): row slabs for the fused kernels, the split
+    per-point pair where the width is no multiple of their tile, the dense
+    (n, E) mask for the plain route; in bfloat16 the slabs and per-point
+    masks are emitted in bf16. A 2-D cell grid takes the generic point
+    lookup, whose indices and weights come back in ``stash`` for the
+    update."""
+    if ctrl_state is None:
+        return None, {}
+    if not isinstance(ctrl_state, ctrl.SpatialState):
+        return ctrl.linear_mask(ctrl_state).detach(), {}
+    if ctrl_cfg.mask_dim != 3:
+        mask, inds, alphas = ctrl.spatial_point_mask(ctrl_cfg, ctrl_state, pts)
+        return mask.detach(), {"inds": inds, "alphas": alphas}
+    mdt = torch.bfloat16 if spec.compute_dtype == "bfloat16" else None
+    fmt = fused_spatial_mask_format(spec, params, consts, pts, w)
+    make = {"slabs": ctrl.spatial_grid_mask_slabs,
+            "split": ctrl.spatial_grid_mask_split,
+            "dense": ctrl.spatial_grid_mask}[fmt]
+    mask = make(ctrl_cfg, ctrl_state, times, h, w, dtype=mdt)
+    if isinstance(mask, tuple):
+        return tuple(t.detach() for t in mask), {}
+    return mask.detach(), {}
+
+
 def flow_forward(spec: INRSpec, params, consts, times: torch.Tensor, h: int,
-                 w: int, scale) -> Tuple[torch.Tensor, torch.Tensor]:
-    """INR -> (flow12, flow21), each (B, H, W, 2), for a non-progressive
-    net (``build_inr`` refuses the others until the controllers land)."""
+                 w: int, scale, ctrl_cfg=None, ctrl_state=None,
+                 stash: Optional[Dict] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """INR -> (flow12, flow21), each (B, H, W, 2), under the controller's
+    mask when there is a controller state. ``stash`` (a dict) receives what
+    the controller's update reuses of the mask lookup."""
     pts = pose_grid(times, h, w, spec.domain_dim).reshape(-1, spec.domain_dim)
-    out = inr_apply(spec, params, consts, pts)
+    with torch.no_grad():
+        mask, kept = controller_mask(spec, params, consts, ctrl_cfg,
+                                     ctrl_state, times, h, w, pts)
+    if stash is not None:
+        stash.update(kept)
+    out = inr_apply(spec, params, consts, pts, mask=mask)
     flows = out.reshape(times.shape[0], h, w, 4) * scale
     return flows[..., :2].contiguous(), flows[..., 2:].contiguous()
 
@@ -181,22 +254,26 @@ def photometric_flow_loss(cfg: FlowConfig, frame1: torch.Tensor,
     return loss, aux
 
 
-def flow_loss(spec: INRSpec, cfg: FlowConfig, params, consts,
-              batch: Dict) -> Tuple[torch.Tensor, Dict]:
+def flow_loss(spec: INRSpec, cfg: FlowConfig, params, consts, batch: Dict,
+              ctrl_cfg=None, ctrl_state=None) -> Tuple[torch.Tensor, Dict]:
     """Bidirectional photometric training loss of one batch
-    ({frame1, frame2 (B, H, W, 3), times (B,), scale[, gt_flow]})."""
+    ({frame1, frame2 (B, H, W, 3), times (B,), scale[, gt_flow]}), under the
+    controller's mask. aux["stash"] holds what the controller's update
+    reuses."""
     frame1, frame2 = batch["frame1"], batch["frame2"]
     _, h, w, _ = frame1.shape
+    stash: Dict = {}
     flow12, flow21 = flow_forward(spec, params, consts, batch["times"], h, w,
-                                  batch["scale"])
+                                  batch["scale"], ctrl_cfg, ctrl_state, stash)
     loss, aux = photometric_flow_loss(cfg, frame1, frame2, flow12, flow21)
+    aux["stash"] = stash
     if "gt_flow" in batch:
         aux["epe"] = epe(flow12.detach(), batch["gt_flow"])
     return loss, aux
 
 
-def train_state(params, cfg: FlowConfig, opt_state=None,
-                step: int = 0) -> FlowTrainState:
+def train_state(params, cfg: FlowConfig, opt_state=None, step: int = 0,
+                ctrl_cfg=None, ctrl_state=None) -> FlowTrainState:
     """Make ``params`` trainable leaves and build their LAMB optimizer
     (restoring its state from ``opt_state`` when given)."""
     leaves = [t for _, t in flat_leaves(params)]
@@ -205,44 +282,75 @@ def train_state(params, cfg: FlowConfig, opt_state=None,
     opt = lamb(leaves, cfg.lr)
     if opt_state is not None:
         opt.load_state_dict(opt_state)
-    return FlowTrainState(params=params, optimizer=opt, step=step)
+    return FlowTrainState(params=params, optimizer=opt, step=step,
+                          ctrl_cfg=ctrl_cfg, ctrl_state=ctrl_state)
 
 
 def create_flow_state(gen: torch.Generator, cfg: FlowConfig):
     """(spec, FlowTrainState, consts): the config's net, drawn from ``gen``
-    (a CPU generator) and placed on ``cfg.device``, with LAMB."""
-    spec, params, consts = build_flow_model(gen, cfg,
-                                            resolve_device(cfg.device))
-    return spec, train_state(params, cfg), consts
+    (a CPU generator) and placed on ``cfg.device``, with LAMB and, for a
+    progressive net, its controller's config and initial state."""
+    spec, params, consts, ctrl_cfg, ctrl_state = build_flow_model(
+        gen, cfg, resolve_device(cfg.device))
+    return (spec, train_state(params, cfg, ctrl_cfg=ctrl_cfg,
+                              ctrl_state=ctrl_state), consts)
+
+
+def controller_step(ctrl_cfg, ctrl_state, aux: Dict, batch: Dict):
+    """The controller's transition after one train step: the spatial
+    controller takes the per-point photometric error (the scatter-free grid
+    form on a (t, y, x) cell grid), the linear one the scalar loss. Its
+    counters live on the host and the loss stays on the device, so nothing
+    here waits for the card."""
+    if ctrl_state is None:
+        return None
+    if isinstance(ctrl_state, ctrl.SpatialState):
+        if ctrl_cfg.mask_dim == 3:
+            _, h, w, _ = batch["frame1"].shape
+            return ctrl.spatial_grid_update(ctrl_cfg, ctrl_state,
+                                            aux["point_loss"],
+                                            batch["times"], h, w)
+        return ctrl.spatial_update(ctrl_cfg, ctrl_state, aux["point_loss"],
+                                   aux["stash"]["inds"],
+                                   aux["stash"]["alphas"])
+    return ctrl.linear_update(ctrl_cfg, ctrl_state, aux["loss"])
 
 
 def make_flow_train_step(spec: INRSpec, cfg: FlowConfig):
     """Returns fn(state, consts, batch) -> metrics: one gradient of
-    :func:`flow_loss` and one LAMB update, in place. The metrics stay
-    tensors on the device (the loop reads them at its own cadence)."""
+    :func:`flow_loss` under the state's controller mask, one LAMB update in
+    place, then the controller's transition. The metrics stay tensors on
+    the device (the loop reads them at its own cadence)."""
 
     def step(state: FlowTrainState, consts, batch) -> Dict:
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = flow_loss(spec, cfg, state.params, consts, batch)
+        loss, aux = flow_loss(spec, cfg, state.params, consts, batch,
+                              state.ctrl_cfg, state.ctrl_state)
         loss.backward()
         state.optimizer.step()
+        with torch.no_grad():
+            state.ctrl_state = controller_step(state.ctrl_cfg,
+                                               state.ctrl_state, aux, batch)
         state.step += 1
-        return {k: v for k, v in aux.items() if k != "point_loss"}
+        return {k: v for k, v in aux.items()
+                if k not in ("stash", "point_loss")}
 
     return step
 
 
 def flow_infer(spec: INRSpec, params, consts, times: torch.Tensor,
-               scale, h: int, w: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(flow12, flow21) at the frame ``times`` (the function of
-    ``make_flow_infer``)."""
+               scale, h: int, w: int, ctrl_cfg=None, ctrl_state=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(flow12, flow21) at the frame ``times`` under the controller's mask
+    (the function of ``make_flow_infer``)."""
     with torch.no_grad():
-        return flow_forward(spec, params, consts, times, h, w, scale)
+        return flow_forward(spec, params, consts, times, h, w, scale,
+                            ctrl_cfg, ctrl_state)
 
 
 def frame_interp(spec: INRSpec, cfg: FlowConfig, params, consts, t0,
-                 frames2: torch.Tensor, alpha: float,
-                 scale) -> torch.Tensor:
+                 frames2: torch.Tensor, alpha: float, scale,
+                 ctrl_cfg=None, ctrl_state=None) -> torch.Tensor:
     """One softsplat mid-frame between frames2[0] and frames2[1] (2, H, W, 3)
     at t0 + alpha (t1 - t0): both flows queried at the pair's time t0, the
     -20 L1 photometric softmax metric of each direction, each endpoint
@@ -254,7 +362,8 @@ def frame_interp(spec: INRSpec, cfg: FlowConfig, params, consts, t0,
     with torch.no_grad():
         t0 = torch.as_tensor(t0, dtype=torch.float32,
                              device=frames2.device).reshape(1)
-        f12, f21 = flow_forward(spec, params, consts, t0, h, w, scale)
+        f12, f21 = flow_forward(spec, params, consts, t0, h, w, scale,
+                                ctrl_cfg, ctrl_state)
         frame0, frame1 = frames2[0:1], frames2[1:2]
         flow01, flow10 = f12[0:1], f21[0:1]
         alpha = float(alpha)

@@ -39,7 +39,8 @@ from sin_inn_tpu_torch.data.flow_viz import flow_to_image
 from sin_inn_tpu_torch.data.sr_video import (SRVideo, make_datasets,
                                              prefetch_to_device, to_device)
 from sin_inn_tpu_torch.io.video_io import VideoWriter
-from sin_inn_tpu_torch.models.inr import build_inr, flat_leaves
+from sin_inn_tpu_torch.models import controllers as C
+from sin_inn_tpu_torch.models.inr import flat_leaves
 from sin_inn_tpu_torch.ops.occlusion import OCCLUSIONS
 from sin_inn_tpu_torch.train import flow as FT
 from sin_inn_tpu_torch.train import sr as SR
@@ -237,15 +238,18 @@ def flow_ckpt_dir(cfg: FlowConfig, scene: str) -> str:
     return path.join(cfg.checkpoints_dir, scene, cfg.name)
 
 
-def flow_state_dict(params, consts, step: int, opt=None) -> Dict:
-    """The flow checkpoint: ``{"params", "consts", "step"}``, and ``"opt"``
-    (the optimizer's state dict) when training saves it. The encoding
-    consts ride with the params, so a restore never pairs trained weights
-    with freshly drawn RBF centres. The controller state joins with the
-    progressive nets."""
+def flow_state_dict(params, consts, step: int, opt=None,
+                    ctrl_state=None) -> Dict:
+    """The flow checkpoint: ``{"params", "consts", "step"}``, ``"opt"`` (the
+    optimizer's state dict) when training saves it, and for a progressive
+    net ``"ctrl_state"`` (the controller's state as a dict of tensors and
+    ints with its kind). The encoding consts ride with the params, so a
+    restore never pairs trained weights with freshly drawn RBF centres."""
     out = {"params": params, "consts": consts, "step": int(step)}
     if opt is not None:
         out["opt"] = opt
+    if ctrl_state is not None:
+        out["ctrl_state"] = C.state_to_dict(ctrl_state)
     return out
 
 
@@ -262,46 +266,81 @@ def _check_tree(fresh, restored, what: str) -> None:
                              f"{tuple(a.shape)}")
 
 
+def _restored_ctrl_state(fresh, restored: Dict, device):
+    """The controller state of a checkpoint, checked against the config's
+    fresh one: the same kind, every tensor of the same shape. A progressive
+    net's checkpoint without one, or one for a net that has no controller,
+    does not match the config."""
+    tree = restored.get("ctrl_state")
+    if fresh is None and tree is None:
+        return None
+    if fresh is None or tree is None:
+        raise ValueError(
+            "checkpoint " + ("holds" if tree is not None else "lacks")
+            + " a controller state and the config's net "
+            + ("has no controller" if fresh is None else "needs one")
+            + " (check --net and --spatially-adaptive)")
+    want = C.state_to_dict(fresh)
+    if tree.get("kind") != want["kind"]:
+        raise ValueError(f"checkpoint controller is {tree.get('kind')!r}, "
+                         f"the config's is {want['kind']!r} (check "
+                         "--spatially-adaptive)")
+    state = C.state_from_dict(tree, device)
+    for name, a in want.items():
+        b = getattr(state, name, None)
+        if isinstance(a, torch.Tensor) and tuple(a.shape) != tuple(b.shape):
+            raise ValueError(f"checkpoint ctrl_state.{name}: shape "
+                             f"{tuple(b.shape)}, config needs "
+                             f"{tuple(a.shape)} (check --spatial-res)")
+    return state
+
+
 def _flow_restore(cfg: FlowConfig, init_gen, scene: str):
-    """The config's INR and the latest checkpoint of ``flow_ckpt_dir``,
-    shape-checked against it. Returns (spec, params, consts, store,
-    restored or None, step)."""
+    """The config's INR with its controller, and the latest checkpoint of
+    ``flow_ckpt_dir`` shape-checked against them. Returns (spec, params,
+    consts, ctrl_cfg, ctrl_state, store, restored or None, step); the
+    controller state is the checkpoint's when there is a checkpoint."""
     device = resolve_device(cfg.device)
     store = CheckpointStore(flow_ckpt_dir(cfg, scene))
-    spec, params, consts = build_inr(init_gen, cfg.net, cfg, device)
+    spec, params, consts, ctrl_cfg, ctrl_state = FT.build_flow_model(
+        init_gen, cfg, device)
     restored, step = store.restore(map_location=device)
     if restored is not None:
         _check_tree(params, restored["params"], "params")
         _check_tree(consts, restored["consts"], "consts")
-    return spec, params, consts, store, restored, step
+        ctrl_state = _restored_ctrl_state(ctrl_state, restored, device)
+    return spec, params, consts, ctrl_cfg, ctrl_state, store, restored, step
 
 
 def _flow_create_and_restore(cfg: FlowConfig, init_gen, scene: str,
                              require: str = ""):
     """The config's INR, then the latest checkpoint of ``flow_ckpt_dir``
-    restored over it (its params and consts; a training checkpoint's
-    optimizer state is left aside). ``require`` (an error message) makes a
-    missing checkpoint fatal. Returns (spec, params, consts, store, step)."""
-    spec, params, consts, store, restored, step = _flow_restore(
-        cfg, init_gen, scene)
+    restored over it (its params, consts and controller state; a training
+    checkpoint's optimizer state is left aside). ``require`` (an error
+    message) makes a missing checkpoint fatal. Returns (spec, params,
+    consts, store, step, ctrl_cfg, ctrl_state)."""
+    (spec, params, consts, ctrl_cfg, ctrl_state, store, restored,
+     step) = _flow_restore(cfg, init_gen, scene)
     if restored is not None:
-        return spec, restored["params"], restored["consts"], store, int(step)
+        return (spec, restored["params"], restored["consts"], store,
+                int(step), ctrl_cfg, ctrl_state)
     if require:
         raise FileNotFoundError(require)
-    return spec, params, consts, store, 0
+    return spec, params, consts, store, 0, ctrl_cfg, ctrl_state
 
 
 def _flow_train_create_and_restore(cfg: FlowConfig, init_gen, scene: str):
-    """create_flow_state + latest-scan restore: the checkpoint's params and
-    consts, with its optimizer state when it has one (a serving checkpoint
-    starts a fresh optimizer). Returns (spec, FlowTrainState, consts, store,
-    start_epoch)."""
-    spec, params, consts, store, restored, step = _flow_restore(
-        cfg, init_gen, scene)
+    """create_flow_state + latest-scan restore: the checkpoint's params,
+    consts and controller state, with its optimizer state when it has one
+    (a serving checkpoint starts a fresh optimizer). Returns (spec,
+    FlowTrainState, consts, store, start_epoch)."""
+    (spec, params, consts, ctrl_cfg, ctrl_state, store, restored,
+     step) = _flow_restore(cfg, init_gen, scene)
     if restored is None:
-        return spec, FT.train_state(params, cfg), consts, store, 0
+        return (spec, FT.train_state(params, cfg, ctrl_cfg=ctrl_cfg,
+                                     ctrl_state=ctrl_state), consts, store, 0)
     state = FT.train_state(restored["params"], cfg, restored.get("opt"),
-                           int(restored["step"]))
+                           int(restored["step"]), ctrl_cfg, ctrl_state)
     return spec, state, restored["consts"], store, int(step)
 
 
@@ -370,8 +409,9 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
     default) and at the last epoch the step's metrics and pairs/s are
     logged, with the validation EPE when the val media has GT flow (summed
     on the device, one scalar read). A checkpoint (``{"params", "consts",
-    "opt", "step"}``) and the window-bound sidecar are written every
-    ``epochs // 100`` epochs, at the last epoch and on SIGTERM/SIGINT; a
+    "opt", "step"}``, and ``"ctrl_state"`` for a progressive net, whose
+    controller a resume continues) and the window-bound sidecar are written
+    every ``epochs // 100`` epochs, at the last epoch and on SIGTERM/SIGINT; a
     rerun resumes from the latest one. When the flow outgrows the windows
     (whose far taps are dropped) the loop warns once."""
     device = resolve_device(cfg.device)
@@ -425,7 +465,8 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
                         vb = _to_device_batch(vb, device)
                         f12, _ = FT.flow_infer(spec, state.params, consts,
                                                vb["times"], vb["scale"],
-                                               vh, vw)
+                                               vh, vw, state.ctrl_cfg,
+                                               state.ctrl_state)
                         nb = int(vb["times"].shape[0])
                         epe_sum = epe_sum + FT.epe(f12, vb["gt_flow"]) * nb
                         n += nb
@@ -435,7 +476,7 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
             if saved or stop:
                 store.save(epoch + 1, flow_state_dict(
                     state.params, consts, state.step,
-                    state.optimizer.state_dict()))
+                    state.optimizer.state_dict(), state.ctrl_state))
                 _save_window_bounds(store.directory, cfg, fh, fw)
             if (saved and cfg.splat_max_dy and "flow_max_y" in m
                     and not window_warned):
@@ -465,9 +506,10 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
 
 
 def flow_test_outputs(cfg: FlowConfig, media: flow_media.FlowMedia, spec,
-                      params, consts) -> Dict:
+                      params, consts, ctrl_cfg=None, ctrl_state=None) -> Dict:
     """Flows and occlusion masks of every frame pair of ``media``,
-    ``cfg.test_batch`` pairs per INR query. Returns numpy arrays:
+    ``cfg.test_batch`` pairs per INR query, under the controller's mask for
+    a progressive net. Returns numpy arrays:
     ``flow12`` (P, H, W, 2), ``masks`` (P, H, W, 1) or None, and ``epe``
     (the mean end-point error against the GT, or None without GT)."""
     device = resolve_device(cfg.device)
@@ -480,7 +522,8 @@ def flow_test_outputs(cfg: FlowConfig, media: flow_media.FlowMedia, spec,
         for batch in media.batches(cfg.test_batch):
             times = torch.from_numpy(batch["times"]).to(device)
             f12, f21 = FT.flow_infer(spec, params, consts, times,
-                                     float(batch["scale"]), h, w)
+                                     float(batch["scale"]), h, w, ctrl_cfg,
+                                     ctrl_state)
             if "gt_flow" in batch:
                 gt = torch.from_numpy(batch["gt_flow"]).to(device)
                 epes.append(float(FT.epe(f12, gt)))
@@ -493,7 +536,8 @@ def flow_test_outputs(cfg: FlowConfig, media: flow_media.FlowMedia, spec,
 
 
 def run_flow_test(cfg: FlowConfig, media=None, scene: str = "scene",
-                  spec=None, params=None, consts=None) -> Dict:
+                  spec=None, params=None, consts=None, ctrl_cfg=None,
+                  ctrl_state=None) -> Dict:
     """``flow test``: predicted flows (Middlebury colours) and occlusion
     masks of every pair written as GIFs with a JSON sidecar, and the EPE
     against the GT when there is one. Restores the scene's checkpoint
@@ -507,9 +551,11 @@ def run_flow_test(cfg: FlowConfig, media=None, scene: str = "scene",
                                  *media.video.shape[1:3])
     if params is None:
         init = R.named_fold(R.root_generator(cfg.random_seed), "init")
-        spec, params, consts, _, _ = _flow_create_and_restore(
-            cfg, init, scene, require=f"no checkpoint for scene {scene}")
-    out = flow_test_outputs(cfg, media, spec, params, consts)
+        spec, params, consts, _, _, ctrl_cfg, ctrl_state = \
+            _flow_create_and_restore(
+                cfg, init, scene, require=f"no checkpoint for scene {scene}")
+    out = flow_test_outputs(cfg, media, spec, params, consts, ctrl_cfg,
+                            ctrl_state)
 
     os.makedirs(cfg.results_dir, exist_ok=True)
     tag = f"{scene}_{cfg.name}"
@@ -535,7 +581,8 @@ def run_flow_test(cfg: FlowConfig, media=None, scene: str = "scene",
 
 
 def interpolate_frames(cfg: FlowConfig, media: flow_media.FlowMedia, spec,
-                       params, consts, factor: int = 2) -> np.ndarray:
+                       params, consts, factor: int = 2, ctrl_cfg=None,
+                       ctrl_state=None) -> np.ndarray:
     """Temporal upsampling: ``factor - 1`` softsplat mid-frames
     (:func:`train.flow.frame_interp`) between every adjacent pair, the
     input frames kept. Returns (F, H, W, 3) uint8 frames, F = (N - 1)
@@ -552,7 +599,8 @@ def interpolate_frames(cfg: FlowConfig, media: flow_media.FlowMedia, spec,
         frames_out.append(to_u8(video[i]))
         for k in range(1, factor):
             mid = FT.frame_interp(spec, cfg, params, consts, float(times[i]),
-                                  pair, k / factor, scale)
+                                  pair, k / factor, scale, ctrl_cfg,
+                                  ctrl_state)
             frames_out.append(to_u8(torch.clamp(mid, 0.0, 1.0).cpu().numpy()))
     frames_out.append(to_u8(video[-1]))
     return np.stack(frames_out)
@@ -570,9 +618,11 @@ def run_flow_interpolate(cfg: FlowConfig, factor: int = 2, media=None,
     cfg, _ = _load_window_bounds(cfg, flow_ckpt_dir(cfg, scene),
                                  *media.video.shape[1:3])
     init = R.named_fold(R.root_generator(cfg.random_seed), "init")
-    spec, params, consts, _, _ = _flow_create_and_restore(
-        cfg, init, scene, require=f"no checkpoint for scene {scene}")
-    frames = interpolate_frames(cfg, media, spec, params, consts, factor)
+    spec, params, consts, _, _, ctrl_cfg, ctrl_state = \
+        _flow_create_and_restore(
+            cfg, init, scene, require=f"no checkpoint for scene {scene}")
+    frames = interpolate_frames(cfg, media, spec, params, consts, factor,
+                                ctrl_cfg, ctrl_state)
 
     os.makedirs(cfg.results_dir, exist_ok=True)
     tag = f"{scene}_{cfg.name}"

@@ -12,8 +12,12 @@ the largest |plain| of each (sums over all rows in another order). The
 windowed splat (K5) and gather (K6, forward and gradient mode): 1e-5 +
 1e-5 |plain| (K5 sums with atomics in a run-dependent order; K6 repeats the
 plain arithmetic). The fused INR backward (K7): each weight and bias
-gradient within 1e-3 of the largest |plain| of it, bitwise repeatable; the
-train step's kernel route within a normwise 1e-3 of autograd's.
+gradient within 1e-3 of the largest |plain| of it, bitwise repeatable, in
+every mask mode and with the coordinate rows of a progressive net; the fused
+INR forward (K7 forward): 1e-4 + 1e-4 |plain| in fp32 (sums over up to 515
+channels in another order), 2e-2 in the bf16 operand mode (activations near
+a bf16 tie round either way); the train step's kernel route within a
+normwise 1e-3 of autograd's.
 """
 
 import pytest
@@ -324,7 +328,8 @@ def test_inr_backward_kernel_matches_plain(dev, kind, n, widths):
             for a_, b_, r_ in zip(pg, pa, pr):
                 assert torch.equal(a_, b_)
                 assert (a_ - r_).abs().max() <= 1e-3 * r_.abs().max()
-    assert K7.launch_counts() == {"fused_inr_backward": 4}
+    assert K7.launch_counts() == {"fused_inr_forward": 0,
+                                  "fused_inr_backward": 4}
 
 
 def test_inr_backward_kernel_refuses_what_it_cannot_take(dev):
@@ -363,7 +368,8 @@ def test_inr_apply_refuses_widths_the_kernel_cannot_take(dev):
                         consts, x)
         off.sum().backward()
         assert all(l["w"].grad is not None for l in params["mlp"])
-        assert K7.launch_counts() == {"fused_inr_backward": 0}
+        assert K7.launch_counts() == {"fused_inr_forward": 0,
+                                      "fused_inr_backward": 0}
 
 
 def test_flow_train_step_kernel_route_matches_autograd(dev):
@@ -397,6 +403,134 @@ def test_flow_train_step_kernel_route_matches_autograd(dev):
         assert K6.launch_counts() == {"gather_region": 2,
                                       "gather_region_grads": 4}
         assert K7.launch_counts() == {
+            "fused_inr_forward": 0,
             "fused_inr_backward": int(sp.use_kernel == "auto")}
     for a, b in zip(*grads):
         assert (a - b).norm() <= 1e-3 * b.norm()
+
+
+# ---------------------------------------------------------------------------
+# K7 forward, and K7 backward in the per-point mask modes and with the
+# coordinate rows of a progressive net
+# ---------------------------------------------------------------------------
+
+def _prog_net(gen, dev, kind, e, hidden, n_hidden, out=4, d=3):
+    rand = lambda *s: torch.randn(s, generator=gen, device=dev)
+    if kind == "rbf":
+        enc = {"centres": torch.rand((e, d), generator=gen, device=dev) * 2 - 1,
+               "sigma": rand(e).abs() * 3 + 1}
+    else:
+        enc = {"frequencies": rand(d, e // 2) * 4}
+    widths = [e + d] + [hidden] * n_hidden + [out]
+    layers = [(rand(a, b) / a ** 0.5, rand(b) * 0.1)
+              for a, b in zip(widths[:-1], widths[1:])]
+    return enc, layers
+
+
+def _masks(gen, dev, mode, rows, w, res, e, d=3):
+    """A seeded mask of the mode with values in [0, 1], and its dense (n,
+    d + E) form."""
+    u = lambda *s: torch.rand(s, generator=gen, device=dev)
+    if mode == "const":
+        m = u(d + e)
+        return m, m[None].expand(rows * w, -1)
+    if mode == "point":
+        mc, me = u(d, rows * w), u(rows * w, e)
+        return (mc, me), torch.cat([mc.t(), me], -1)
+    # hat-like weights: a few non-zero columns per row of wx
+    wx = torch.zeros((w, res), device=dev)
+    centre = torch.linspace(1, res - 2, w, device=dev)
+    for off in (-1, 0, 1):
+        j = (centre.long() + off).clamp(0, res - 1)
+        wx[torch.arange(w, device=dev), j] += u(w) / 3
+    se, sc = u(rows, res, e), u(rows, res, d)
+    dense = torch.cat([torch.einsum("wr,SrD->SwD", wx, sc).reshape(-1, d),
+                       torch.einsum("wr,SrE->SwE", wx, se).reshape(-1, e)], -1)
+    return (se, sc, wx), dense
+
+
+@pytest.mark.parametrize("kind,mode,rows,w,res,widths", [
+    ("ff", "const", 5, 37, 0, (64, 32, 2)),          # ragged last tile
+    ("rbf", "const", 3, 64, 0, (36, 20, 1)),
+    ("ff", "point", 7, 45, 0, (64, 32, 2)),          # ragged last tile
+    ("rbf", "point", 4, 64, 0, (128, 64, 3)),
+    ("ff", "slab", 6, 64, 5, (64, 32, 2)),
+    ("rbf", "slab", 3, 96, 34, (36, 20, 1)),
+    ("ff", "slab", 436, 1024, 50, (512, 256, 3)),    # the flow path's shape
+])
+def test_inr_kernels_match_plain_in_every_mask_mode(dev, kind, mode, rows, w,
+                                                    res, widths):
+    """K7 forward within 1e-4 + 1e-4 |plain| (sums over up to 515 channels
+    in another order), K7 backward with every leaf, the coordinate rows
+    among them, within 1e-3 of its largest |plain| and bitwise repeatable;
+    fp32 and bf16 operands. The plain version with the factored mask agrees
+    with the dense mask through autograd."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    e, hidden, n_hidden = widths
+    enc, layers = _prog_net(gen, dev, kind, e, hidden, n_hidden)
+    n = rows * w
+    x = torch.rand((n, 3), generator=gen, device=dev) * 2 - 1
+    mask, dense = _masks(gen, dev, mode, rows, w, res, e)
+    g = 1e-3 * (0.5 + torch.randn((n, 4), generator=gen, device=dev))
+    K7.reset_launch_counts()
+    for bf16 in (False, True):
+        out = K7.fused_inr_forward(kind, enc, layers, x, mask, bf16)
+        ref = K7.fused_inr_forward_plain(kind, enc, layers, x, mask, bf16)
+        torch.cuda.synchronize()
+        tol = 1e-4 if not bf16 else 2e-2     # bf16: ties broken elsewhere
+        assert ((out - ref).abs() <= tol + tol * ref.abs()).all()
+        got = K7.fused_inr_backward(kind, enc, layers, x, mask, g, bf16)
+        again = K7.fused_inr_backward(kind, enc, layers, x, mask, g, bf16)
+        want = K7.fused_inr_backward_plain(kind, enc, layers, x, mask, g,
+                                           bf16)
+        torch.cuda.synchronize()
+        for pg, pa, pr in zip(got, again, want):
+            for a_, b_, r_ in zip(pg, pa, pr):
+                assert a_.shape == r_.shape and torch.equal(a_, b_)
+                assert (a_ - r_).abs().max() <= 1e-3 * r_.abs().max()
+    assert K7.launch_counts() == {"fused_inr_forward": 2,
+                                  "fused_inr_backward": 4}
+    if n > 100_000:
+        return
+    # the dense mask through autograd
+    leaves = [t.clone().requires_grad_() for pair in layers for t in pair]
+    code = torch.cat([x, K7.encode(kind, enc, x, 1.0)], -1) * dense
+    h = code
+    for i in range(0, len(leaves), 2):
+        h = h @ leaves[i] + leaves[i + 1]
+        if i < len(leaves) - 2:
+            h = torch.relu(h)
+    ref = K7.fused_inr_forward_plain(kind, enc, layers, x, mask)
+    assert ((h - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()
+    (h * g).sum().backward()
+    want = K7.fused_inr_backward_plain(kind, enc, layers, x, mask, g)
+    for leaf, r_ in zip(leaves, [t for pair in want for t in pair]):
+        assert (leaf.grad - r_).abs().max() <= 1e-3 * r_.abs().max()
+
+
+def test_fused_inr_function_runs_the_forward_kernel_for_slabs(dev):
+    """The Function: K7 forward as the primal of the slab mode (with and
+    without gradients), the plain forward for a constant mask; one K7
+    backward either way."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    enc, layers = _prog_net(gen, dev, "ff", 64, 32, 2)
+    x = torch.rand((4 * 64, 3), generator=gen, device=dev) * 2 - 1
+    slabs, _ = _masks(gen, dev, "slab", 4, 64, 5, 64)
+    vec, _ = _masks(gen, dev, "const", 4, 64, 0, 64)
+    for mask, fwd in ((slabs, 1), (vec, 0)):
+        leaves = [(w.clone().requires_grad_(), b.clone().requires_grad_())
+                  for w, b in layers]
+        K7.reset_launch_counts()
+        out = K7.fused_inr("ff", enc, leaves, x, mask)
+        out.sum().backward()
+        torch.cuda.synchronize()
+        assert K7.launch_counts() == {"fused_inr_forward": fwd,
+                                      "fused_inr_backward": 1}
+        assert all(w.grad.shape == w.shape for w, _ in leaves)
+        with torch.no_grad():
+            served = K7.fused_inr("ff", enc, leaves, x, mask)
+        assert torch.equal(served, out.detach())
+        assert K7.launch_counts()["fused_inr_forward"] == 2 * fwd
+    with pytest.raises(ValueError, match="multiple of the 32-point tile"):
+        bad, _ = _masks(gen, dev, "slab", 4, 40, 5, 64)
+        K7.fused_inr_forward("ff", enc, layers, x[:4 * 40], bad)

@@ -168,8 +168,9 @@ def test_flow_restore_round_trip_and_refusals(tmp_path):
         TL._flow_create_and_restore(cfg, R.root_generator(0), "clip",
                                     require="no checkpoint for clip")
     spec, params, consts = _save_checkpoint(cfg, "clip")
-    _, rp, rc, _, step = TL._flow_create_and_restore(
+    _, rp, rc, _, step, ctrl_cfg, ctrl_state = TL._flow_create_and_restore(
         cfg, R.root_generator(0), "clip")
+    assert ctrl_cfg is None and ctrl_state is None      # RBF: no controller
     assert step == 5
     for (ka, a), (kb, b) in zip(TI.flat_leaves({"p": params, "c": consts}),
                                 TI.flat_leaves({"p": rp, "c": rc})):
@@ -202,7 +203,7 @@ def test_run_flow_test_and_interpolate(tmp_path, video):
     import imageio.v2 as io
     assert len(io.mimread(res["path"])) == 10
 
-    spec, params, consts, _, _ = TL._flow_create_and_restore(
+    spec, params, consts, _, _, _, _ = TL._flow_create_and_restore(
         cfg, R.root_generator(0), "clip")
     frames = TL.interpolate_frames(cfg, media, spec, params, consts, 2)
     assert frames.shape == (7, H, W, 3) and frames.dtype == np.uint8

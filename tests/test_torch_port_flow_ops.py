@@ -114,6 +114,8 @@ def test_inr_apply_matches_jax(net, hidden):
 
 
 def test_build_inr_matches_jax_shapes_and_refuses_progressive():
+    """(The name is from when the progressive nets were refused: they are
+    built now, with the JAX package's shapes.)"""
     cfg = FlowConfig(device="cpu")
     spec, params, consts = TI.build_inr(torch.Generator().manual_seed(0),
                                         "RBF", cfg)
@@ -124,8 +126,15 @@ def test_build_inr_matches_jax_shapes_and_refuses_progressive():
         [tuple(l["w"].shape) for l in jparams["mlp"]]
     assert tuple(consts["enc"]["centres"].shape) == (512, 3)
     for name in ("PRBF", "MPFF", "PFF"):
-        with pytest.raises(NotImplementedError, match="slice B2"):
-            TI.build_inr(torch.Generator(), name, cfg)
+        pspec, pparams, _ = TI.build_inr(torch.Generator(), name, cfg)
+        jpspec, jpparams, _ = JI.build_inr(jax.random.key(0), name,
+                                           JaxFlowConfig())
+        assert pspec.is_progressive and pspec.encoding_dim == 515 \
+            == jpspec.encoding_dim
+        assert [tuple(l["w"].shape) for l in pparams["mlp"]] == \
+            [tuple(l["w"].shape) for l in jpparams["mlp"]]
+    with pytest.raises(ValueError, match="unknown INR model"):
+        TI.build_inr(torch.Generator(), "PXX", cfg)
 
 
 # ---------------------------------------------------------------------------

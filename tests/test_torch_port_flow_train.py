@@ -292,7 +292,7 @@ def _paired_states(occl):
     assert spec.use_pallas == "on" and ctrl_cfg is None
     jstep = JF.make_flow_train_step(spec, jcfg, ctrl_cfg, tx)
     tp, tc = inr_params_from_jax(_np(state.params), _np(consts))
-    tspec, _, _ = TF.build_flow_model(torch.Generator().manual_seed(0), tcfg)
+    tspec = TF.build_flow_model(torch.Generator().manual_seed(0), tcfg)[0]
     tstate = TF.train_state(tp, tcfg)
     tstep = TF.make_flow_train_step(tspec, tcfg)
     return (jstep, state, consts), (tstep, tstate, tc)
@@ -468,9 +468,12 @@ def test_flow_config_training_fields():
     assert cfg.replace(val_iter=7).effective_val_iter == 7
     with pytest.raises(ValueError, match="edge_func"):
         FlowConfig(edge_func="box")
-    for gone in ("splat_local_dy", "window_refit", "spatially_adaptive",
-                 "flow_producer", "import_torch", "mesh_data"):
+    for gone in ("splat_local_dy", "window_refit", "flow_producer",
+                 "import_torch", "mesh_data"):
         assert not hasattr(cfg, gone)
+    # the controllers' fields came with the progressive nets
+    for f in ("spatially_adaptive", "spatial_res", "controller_epsilon"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
 
 
 def test_flow_train_cli(tmp_path, monkeypatch):

@@ -373,7 +373,8 @@ def test_fused_inr_routing():
         served = TI.inr_apply(spec, tp, tc, x)
     assert served.grad_fn is None
     assert torch.equal(served, off.detach())
-    assert TK7.launch_counts() == {"fused_inr_backward": 0}     # CPU: plain
+    assert TK7.launch_counts() == {"fused_inr_forward": 0,
+                                   "fused_inr_backward": 0}     # CPU: plain
     assert FlowConfig().use_kernel == "auto"
     with pytest.raises(ValueError, match="use_kernel"):
         FlowConfig(use_kernel="on")

@@ -2,6 +2,7 @@
 """Where the time goes in the PyTorch port's SRF paths, on one card.
 
     python3 tools/profile_torch_port.py [--train | --flow | --flow-train]
+                                        [--net NET] [--spatially-adaptive]
                                         [--batches N] [--out DIR]
 
 Builds the kernels, makes a seeded flagship SRF state (SRConfig defaults:
@@ -21,6 +22,11 @@ HR 352x640, then on ``cuda`` in the ``float32`` mode:
   ``RBF`` net, Wang occlusion, bounds dy 64, dx 128; loss, backward, LAMB) on
   the kernel route and with ``use_kernel="off"``, each with its peak memory
   and the memory held between the forward and the backward;
+* ``--net`` and ``--spatially-adaptive`` choose the INR and its controller
+  for ``--flow`` and ``--flow-train`` (default ``RBF``; ``--net PFF
+  --spatially-adaptive`` is the progressive path, whose train step carries
+  the controller's transition and whose serving starts from a seeded
+  controller state that is not the initial one);
 * traces one step of each with ``torch.profiler`` and prints the device
   time by kernel and the device's busy share of the step's wall time.
 
@@ -94,38 +100,49 @@ def _flow(a, dev) -> int:
 
     from sin_inn_tpu_torch.core.config import FlowConfig
     from sin_inn_tpu_torch.data.synthetic import moving_texture_video
-    from sin_inn_tpu_torch.models.inr import build_inr
     from sin_inn_tpu_torch.ops.cuda import gather as K6
+    from sin_inn_tpu_torch.ops.cuda import inr as K7
     from sin_inn_tpu_torch.ops.cuda import splat as K5
     from sin_inn_tpu_torch.ops.occlusion import occlusion_wang
     from sin_inn_tpu_torch.train import flow as FT
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = FlowConfig(device="cuda")
+    cfg = FlowConfig(device="cuda", net=a.net,
+                     spatially_adaptive=a.spatially_adaptive)
     h, w = cfg.size, 1024
-    spec, params, consts = build_inr(R.root_generator(0), cfg.net, cfg, dev)
+    spec, params, consts, ccfg, cstate = FT.build_flow_model(
+        R.root_generator(0), cfg, dev)
+    if cstate is not None:
+        # a mask as training leaves it, not the initial one: seeded values
+        cstate = cstate._replace(mask=torch.rand(
+            cstate.mask.shape, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1)))
     pair = torch.from_numpy(np.ascontiguousarray(
         moving_texture_video(2, h, w))).to(dev)
     times = torch.tensor([-1.0], device=dev)
     scale = w / 5.0
 
     def test_pair():
-        f12, f21 = FT.flow_infer(spec, params, consts, times, scale, h, w)
+        f12, f21 = FT.flow_infer(spec, params, consts, times, scale, h, w,
+                                 ccfg, cstate)
         return occlusion_wang(f12, f21, cfg.occl_thresh)
 
     steps = (("flow_test_pair", test_pair),
              ("interp_mid_frame", lambda: FT.frame_interp(
-                 spec, cfg, params, consts, -1.0, pair, 0.5, scale)))
-    K5.reset_launch_counts()
-    K6.reset_launch_counts()
+                 spec, cfg, params, consts, -1.0, pair, 0.5, scale, ccfg,
+                 cstate)))
+    for mod in (K5, K6, K7):
+        mod.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
+    print(f"[time] net {cfg.net}, controller "
+          f"{type(cstate).__name__ if cstate is not None else 'none'}")
     for name, fn in steps:
         med, lo, hi = _events_ms(fn, a.batches)
         print(f"[time] {name}, 1 x {h}x{w}: median {med:.3f} ms (min "
               f"{lo:.3f}, max {hi:.3f}, {a.batches} runs) = "
               f"{1e3 / med:.1f} per second")
     print(f"[time] launches over the timed runs: {K5.launch_counts()} "
-          f"{K6.launch_counts()}; peak device memory "
+          f"{K6.launch_counts()} {K7.launch_counts()}; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     for name, fn in steps:
         _profile(name, fn, a.out)
@@ -146,7 +163,9 @@ def _flow_train(a, dev) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     h, w = 436, 1024
-    cfg = FlowConfig(device="cuda").resolve_splat_bounds(h, w)
+    cfg = FlowConfig(device="cuda", net=a.net,
+                     spatially_adaptive=a.spatially_adaptive
+                     ).resolve_splat_bounds(h, w)
     pair = torch.from_numpy(np.ascontiguousarray(
         moving_texture_video(2, h, w))).to(dev)
     batch = {"frame1": pair[0:1], "frame2": pair[1:2],
@@ -169,10 +188,13 @@ def _flow_train(a, dev) -> int:
         # is built, less what is allocated with no graph alive
         state.optimizer.zero_grad(set_to_none=True)
         base = torch.cuda.memory_allocated(dev)
-        loss, _ = FT.flow_loss(sp, cfg, state.params, consts, batch)
+        loss, _ = FT.flow_loss(sp, cfg, state.params, consts, batch,
+                               state.ctrl_cfg, state.ctrl_state)
         held = (torch.cuda.memory_allocated(dev) - base) / 2 ** 30
         del loss
-        print(f"[time] {tag} (use_kernel={sp.use_kernel}), 1 x {h}x{w}: "
+        print(f"[time] {tag} (net {cfg.net}, controller "
+              f"{type(state.ctrl_state).__name__}, use_kernel="
+              f"{sp.use_kernel}), 1 x {h}x{w}: "
               f"median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}, "
               f"{a.batches} runs) = {1e3 / med:.2f} pairs/s; peak device "
               f"memory {peak:.2f} GiB, held for the backward {held:.2f} "
@@ -192,6 +214,11 @@ def main() -> int:
                     help="profile flow test and interpolation at 436x1024")
     ap.add_argument("--flow-train", action="store_true",
                     help="profile a flow train step at 436x1024, both routes")
+    ap.add_argument("--net", default="RBF",
+                    help="--flow, --flow-train: the INR (RBF, PFF, PRBF, ...)")
+    ap.add_argument("--spatially-adaptive", action="store_true",
+                    help="--flow, --flow-train: a progressive net's spatial "
+                         "controller instead of the linear one")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: needs a CUDA device", file=sys.stderr)
