@@ -41,7 +41,12 @@ nothing of JAX or of the JAX package. Phases:
    atomic sums run in another order); device time per call (torch.profiler:
    every kernel and memset of the call) of each kernel, of its plain
    version and, for K6, of ``grid_sample``, and each kernel's median time
-   between CUDA events (which includes the host's launch path);
+   between CUDA events (which includes the host's launch path); then the
+   local-window kernels, K6 local (C=3, resample coordinates) and K5 local
+   (C=5), at local dy 32, dx 128, cap_y 64, on the tile offsets of a seeded
+   flow with a drift of 10-40 px per 128 x 128 tile, +-4 px of detail and a
+   stripe of 45 px more that leaves the local window: the same limits,
+   times and yardstick, and the time of ``tile_flow_offsets`` itself;
 7. the flow path: a 6-frame synthetic 436x1024 video and a seeded
    full-width ``RBF`` INR (E = 512, MLP 512-256-256-256-4) saved and
    restored through the checkpoint store; ``flow_test_outputs`` over the 5
@@ -53,13 +58,17 @@ nothing of JAX or of the JAX package. Phases:
    (flows of Sintel magnitude, some beyond the window); the card against
    the CPU on a small crop (flows within 1e-3 px, frames within 1e-3). The
    phase never sets ``allow_tf32`` and checks that it stays off, and the
-   RBF encoding of the full pose grid is bitwise the same with it on.
+   RBF encoding of the full pose grid is bitwise the same with it on. Then
+   one mid-frame from a checkpoint whose sidecar names local windows (dy
+   64, dx 128, local dy 32): exactly 2 K5 local + 2 K6 local launches,
+   within 1e-4 of the static windows' mid-frame.
 8. the training kernels of the flow path against their plain versions: the
    gather kernel's gradient mode (K6 grads) at 1 x 436 x 1024 with C = 3 and
    resample coordinates (the warp's backward) and C = 5 and raw coordinates
    (the splat's backward), on phase 6's flow and on zero flow (where every
    tap distance is 0 or 1 and both derivatives must be exactly 0 in raw
-   coordinates): out, dfx, dfy within 1e-5 + 1e-5 |plain|; the fused INR
+   coordinates): out, dfx, dfy within 1e-5 + 1e-5 |plain|; K6 local grads
+   in both modes on phase 6's local flow, the same limits; the fused INR
    backward (K7 backward, constant mask) at N = 446,464 for the ``RBF`` and
    ``FFN`` nets at default widths: every weight and bias gradient within
    1e-3 of the largest |plain| of its leaf in fp32 (sums over 446,464 rows
@@ -71,16 +80,25 @@ nothing of JAX or of the JAX package. Phases:
    refused on the card with a ValueError, not handed to autograd;
 9. ``flow train``: the 6-frame 436x1024 video through ``run_flow_train`` at
    the ``FlowConfig`` defaults (RBF, batch 1, Wang occlusion, bounds dy 64,
-   dx 128) for 2 epochs = 10 steps, then a resume to 3 epochs from the
-   checkpoint with the optimizer state; finite losses, the metrics file,
-   the sidecar; launch counts of one step exactly K5 2, K6 2, K6 grads 4, K7
-   backward 1 (and one reduction), K1-K4 0; the parameter gradients of one
-   step against ``use_kernel="off"`` (autograd through the plain INR)
-   within a normwise 1e-3; train pairs/s and step ms over 10 steps after 2
-   warm-up steps and the peak memory, for both routes, and the memory each
-   holds between its forward and its backward (the kernel route keeps no
-   (N, 512) tensor); ``flow test`` on the trained checkpoint with no kernel
-   launch at all.
+   dx 128, local dy 32, the window refit on) for 2 epochs = 10 steps, every
+   one on the local windows (K5 local 2, K6 local 2, K6 local grads 4, K7
+   backward 1 and its reduction a step); the refit at the second save
+   tightens the bounds to the seeded net's few-px flows, and the sidecar
+   records the refitted bounds and the monitor's history; a resume to 3
+   epochs from the checkpoint with the optimizer state, on the refitted
+   bounds (its launches follow them); finite losses, the metrics file; at
+   the resolved defaults, one step's launches exactly K5 local 2, K6 local
+   2, K6 local grads 4, K7 backward 1 (and one reduction), no static K5/K6
+   and K1-K4 0; the parameter gradients of that step against
+   ``use_kernel="off"`` (autograd through the plain INR and the windowed
+   forms, no kernel launch) within a normwise 1e-3; one whole step under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the offsets and the
+   monitors make the host wait for nothing); train pairs/s and step ms over
+   10 steps after 2 warm-up steps and the peak memory, for the local
+   windows, the static windows and ``use_kernel="off"``, and
+   the memory each holds between its forward and its backward (the kernel
+   route keeps no (N, 512) tensor); ``flow test`` on the trained checkpoint
+   with no kernel launch at all.
 10. the fused INR's forward kernel (K7 forward) and the new modes of K7
     backward against their plain versions at N = 446,464 for the progressive
     nets ``PFF`` and ``PRBF`` at default widths (mask length 515, MLP
@@ -93,8 +111,10 @@ nothing of JAX or of the JAX package. Phases:
     plain version and 2e-2 of the fp32 one; the backward with every leaf,
     the coordinate rows among them, within 1e-3 of its largest |plain|, two
     launches bitwise equal; times, bounds, scratch size;
-11. the progressive path: ``run_flow_train`` for ``PFF`` with the spatial
-    controller on the 6-frame 436x1024 video (2 epochs = 10 steps, a block
+11. the progressive path, on the static windows (``splat_local_dy="off"``,
+    so that one train path keeps the static K5, K6 and K6 grads launches):
+    ``run_flow_train`` for ``PFF`` with the spatial controller on the
+    6-frame 436x1024 video (2 epochs = 10 steps, a block
     advance each, then a resume to 3 epochs with the controller state from
     the checkpoint); one transition of each controller with
     ``torch.cuda.set_sync_debug_mode("error")`` (nothing waits for the
@@ -149,6 +169,9 @@ REPLACES = {
     "gather_region_grads": "sin_inn_tpu/ops/pallas/gather.py:148",
     "fused_inr_backward": "sin_inn_tpu/ops/pallas/inr.py:181",
     "fused_inr_forward": "sin_inn_tpu/ops/pallas/inr.py:156",
+    "splat_region_local": "sin_inn_tpu/ops/pallas/splat.py:276",
+    "gather_region_local": "sin_inn_tpu/ops/pallas/gather.py:334",
+    "gather_region_local_grads": "sin_inn_tpu/ops/pallas/gather.py:334",
 }
 SOURCES = {
     "fused_glow_forward_1x1": "sin_inn_tpu_torch/csrc/coupling_1x1.cu",
@@ -161,6 +184,9 @@ SOURCES = {
     "gather_region_grads": "sin_inn_tpu_torch/csrc/gather_region.cu",
     "fused_inr_backward": "sin_inn_tpu_torch/csrc/inr_bwd.cu",
     "fused_inr_forward": "sin_inn_tpu_torch/csrc/inr_fwd.cu",
+    "splat_region_local": "sin_inn_tpu_torch/csrc/splat_region.cu",
+    "gather_region_local": "sin_inn_tpu_torch/csrc/gather_region.cu",
+    "gather_region_local_grads": "sin_inn_tpu_torch/csrc/gather_region.cu",
 }
 COUPLING = ("fused_glow_forward_1x1", "fused_glow_inverse_1x1",
             "fused_glow_backward_1x1", "fused_glow_inverse_backward_1x1")
@@ -168,6 +194,7 @@ BACKWARD = ("fused_glow_backward_1x1", "fused_glow_inverse_backward_1x1")
 FLOW_H, FLOW_W = 436, 1024     # Sintel
 FLOW_FRAMES = 6
 DY, DX = 64, 128               # resolve_splat_bounds at 436x1024
+LDY, CAPY = 32, 64             # its local row bound and the offsets' cap
 FLOW_TRAIN_EPOCHS = 2
 
 
@@ -898,6 +925,7 @@ def phase_flow_kernels(dev):
             "bytes": nbytes, "flop": flops,
             "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
             "ops_bound_ms": flops / PEAK_FP32 * 1e3}
+    rows.update(_local_flow_kernels(dev, img, cat))
     for n, r in rows.items():
         lib_s = ("" if r["library_ms"] is None
                  else f", grid_sample {r['library_ms']:.4f} ms")
@@ -908,6 +936,113 @@ def phase_flow_kernels(dev):
               f" max abs err {r['max_abs_err']:.3e}")
     print(f"[flow kernels] flow beyond the window at {out_y:.1%} (y) and "
           f"{out_x:.1%} (x) of the pixels")
+    return rows
+
+
+def _local_flow(gen, dev):
+    """A seeded flow (1, 436, 1024, 2) with a drift of 10-40 px per 128 x 128
+    tile (a different one in each tile), +-4 px of smooth detail, and a
+    16-column stripe of 45 px more in y that leaves the local row window
+    (dy 32)."""
+    hb, wb = -(-FLOW_H // 128), -(-FLOW_W // 128)
+    drift = 10.0 + 30.0 * torch.rand((1, hb, wb, 2), generator=gen,
+                                     device=dev)
+    drift = drift.repeat_interleave(128, 1).repeat_interleave(128, 2)
+    ys = torch.arange(FLOW_H, device=dev, dtype=torch.float32)[None, :, None]
+    xs = torch.arange(FLOW_W, device=dev, dtype=torch.float32)[None, None, :]
+    detail = 4.0 * torch.stack([torch.sin(xs / 23.0 + ys / 31.0),
+                                torch.cos(xs / 29.0 - ys / 19.0)], -1)
+    stripe = 45.0 * ((xs >= 700) & (xs < 716)).float().expand(1, FLOW_H,
+                                                              FLOW_W)
+    fl = drift[:, :FLOW_H, :FLOW_W] + detail
+    fl[..., 1] += stripe
+    return fl.contiguous()
+
+
+def _local_flow_kernels(dev, img, cat):
+    """K6 local (C = 3, resample coordinates) and K5 local (C = 5) against
+    their plain versions at 1 x 436 x 1024, local dy 32, dx 128, cap_y 64,
+    on the offsets of a flow that leaves the local window in part; times,
+    bounds, grid_sample for K6 local, and the offsets' own time."""
+    import torch.nn.functional as F
+
+    from sin_inn_tpu_torch.ops.cuda import gather as K6
+    from sin_inn_tpu_torch.ops.cuda import splat as K5
+    from sin_inn_tpu_torch.ops.offsets import tile_flow_offsets
+
+    fl = _local_flow(torch.Generator(device=dev).manual_seed(11), dev)
+    offs = tile_flow_offsets(fl, 128, 128, CAPY, 0)
+    dev_y = max(offs.dev_src[1].item(), offs.dev_out[1].item())
+    check(dev_y > LDY - 1, f"the flow stays within the local window "
+                           f"(deviation {dev_y:.1f} px)")
+    check(offs.off_src[..., 1].abs().min().item() >= 8,
+          "a tile of the local flow has no row offset")
+    coord = K6.resample_coord(FLOW_H, FLOW_W)
+    px = FLOW_H * FLOW_W
+    rows = {}
+    with torch.inference_mode():
+        got = K6.gather_region_local(img, fl, offs.off_src, LDY, DX, CAPY, 0,
+                                     coord)
+        ref = K6.gather_region_plain(img, fl, LDY, DX, coord,
+                                     off_src=offs.off_src)
+        torch.cuda.synchronize()
+        err = _close(got, ref, "gather_region_local (K6 local)")
+        ys, xs = torch.meshgrid(
+            torch.arange(FLOW_H, device=dev, dtype=torch.float32),
+            torch.arange(FLOW_W, device=dev, dtype=torch.float32),
+            indexing="ij")
+        grid = torch.stack([(xs + fl[0, ..., 0]) / (FLOW_W - 1) * 2 - 1,
+                            (ys + fl[0, ..., 1]) / (FLOW_H - 1) * 2 - 1],
+                           -1)[None]
+        nchw = img.permute(0, 3, 1, 2).contiguous()
+        lib = lambda: F.grid_sample(nchw, grid, mode="bilinear",
+                                    padding_mode="zeros",
+                                    align_corners=False)
+        # the static kernel's bytes plus the offsets read once
+        nbytes = px * (3 + 2 + 3) * 4 + offs.off_src.numel() * 4
+        flops = px * (16 + 9 * 3)
+        kern = lambda: K6.gather_region_local(img, fl, offs.off_src, LDY, DX,
+                                              CAPY, 0, coord)
+        rows["gather_region_local"] = {
+            "shape": [1, FLOW_H, FLOW_W, 3], "max_abs_err": err,
+            "ms": device_ms(kern, 50),
+            "plain_ms": device_ms(lambda: K6.gather_region_plain(
+                img, fl, LDY, DX, coord, off_src=offs.off_src), 10),
+            "library_ms": device_ms(lib, 50),
+            "event_ms": median_ms(kern, 50),
+            "bytes": nbytes, "flop": flops,
+            "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "ops_bound_ms": flops / PEAK_FP32 * 1e3}
+
+        got = K5.splat_region_local(cat, fl, offs.off_out, offs.off_src, LDY,
+                                    DX)
+        ref = K5.splat_region_local_plain(cat, fl, offs.off_out, LDY, DX)
+        torch.cuda.synchronize()
+        err = _close(got, ref, "splat_region_local (K5 local)")
+        dropped = (ref - K5.splat_region_plain(cat, fl, 4 * DY, 4 * DX)
+                   ).abs().max().item()
+        check(dropped > 0.1, "the local window dropped no tap")
+        nbytes = px * (5 + 2 + 5) * 4 + offs.off_out.numel() * 4
+        flops = px * (16 + 12 * 5)
+        kern = lambda: K5.splat_region_local(cat, fl, offs.off_out,
+                                             offs.off_src, LDY, DX)
+        rows["splat_region_local"] = {
+            "shape": [1, FLOW_H, FLOW_W, 5], "max_abs_err": err,
+            "ms": device_ms(kern, 50),
+            "plain_ms": device_ms(lambda: K5.splat_region_local_plain(
+                cat, fl, offs.off_out, LDY, DX), 10),
+            "library_ms": None,
+            "event_ms": median_ms(kern, 50),
+            "bytes": nbytes, "flop": flops,
+            "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "ops_bound_ms": flops / PEAK_FP32 * 1e3}
+        off_ms = device_ms(lambda: tile_flow_offsets(fl, 128, 128, CAPY, 0),
+                           20)
+        off_event = median_ms(lambda: tile_flow_offsets(fl, 128, 128, CAPY,
+                                                        0), 20)
+    print(f"[flow kernels] local flow: deviation from the tile offsets up to "
+          f"{dev_y:.1f} px (local dy {LDY}); tile_flow_offsets {off_ms:.4f} "
+          f"ms on the device, {off_event:.4f} ms between events per flow")
     return rows
 
 
@@ -1110,6 +1245,38 @@ def phase_flow(dev, card: str, smi_line: str):
                   f"mid-frame {r['mid_frame_ms']:.3f} ms between events, "
                   f"K5 {r['k5_device_ms']:.4f} ms on the device")
 
+        # one mid-frame from a checkpoint whose sidecar names local windows
+        # (dy 64, dx 128, local dy 32): K5 local and K6 local, 2 each
+        ck = LP.flow_ckpt_dir(cfg, scene)
+        LP._save_window_bounds(ck, cfg.replace(
+            splat_max_dy=DY, splat_max_dx=DX, splat_local_dy=LDY,
+            splat_local_dx=None), FLOW_H, FLOW_W)
+        lcfg, found = LP._load_window_bounds(cfg, ck, FLOW_H, FLOW_W)
+        lcfg = LP._inference_bounds(lcfg)
+        check(found and (lcfg.splat_max_dy, lcfg.splat_max_dx,
+                         lcfg.splat_local_dy) == (DY, DX, LDY),
+              f"local sidecar applied as {lcfg}")
+        _reset_all_counts()
+        mid_l = FT.frame_interp(spec, lcfg, params, consts, t2, pair, 0.5,
+                                media.flow_scale)
+        torch.cuda.synchronize()
+        local_counts = _all_counts()
+        check_counts(local_counts, "one mid-frame from a local-window sidecar",
+                     splat_region_local=2, gather_region_local=2)
+        mid_s = FT.frame_interp(spec, cfg, params, consts, t2, pair, 0.5,
+                                media.flow_scale)
+        lerr = (mid_l - mid_s).abs().max().item()
+        check(bool(torch.isfinite(mid_l).all()) and lerr <= 1e-4,
+              f"local-window mid-frame against the static one: {lerr:.3e} "
+              f"(flows within both windows; limit 1e-4)")
+        add_counts(interp_counts, local_counts)
+        stats["local_mid_frame_ms"] = median_ms(lambda: FT.frame_interp(
+            spec, lcfg, params, consts, t2, pair, 0.5, media.flow_scale), 10)
+        print(f"[flow] one mid-frame from a local-window sidecar (local dy "
+              f"{LDY}): launches {local_counts}, "
+              f"{stats['local_mid_frame_ms']:.3f} ms between events, against "
+              f"the static windows {lerr:.3e}")
+
         # the card against the CPU on a small crop (kernel route pinned)
         small = cfg.replace(splat_max_dy=16, splat_max_dx=16)
         crop = np.ascontiguousarray(media.video[2:4, :40, :64])
@@ -1202,6 +1369,8 @@ def phase_flow_train_kernels(dev):
               f"between events (plain {r['plain_ms']:.3f} ms; bound bytes "
               f"{r['bytes_bound_ms']:.4f} / fp32 {r['ops_bound_ms']:.4f} ms) "
               f"max abs err {r['max_abs_err']:.3e}")
+
+    local_rows = _local_grads_kernels(dev, gen)
 
     inr_rows = []
     n = px
@@ -1306,7 +1475,53 @@ def phase_flow_train_kernels(dev):
           "use_kernel='off' gave no gradient for the wide net")
     print("[flow train kernels] hidden 512 refused with use_kernel='auto', "
           "trained through autograd with use_kernel='off'")
-    return {"gather_region_grads": grads_rows, "fused_inr_backward": inr_rows}
+    return {"gather_region_grads": grads_rows, "fused_inr_backward": inr_rows,
+            "gather_region_local_grads": local_rows}
+
+
+def _local_grads_kernels(dev, gen):
+    """K6 local grads against its plain version at 1 x 436 x 1024, C = 3
+    with resample coordinates (the warp's backward) and C = 5 raw (the
+    splat's backward), local dy 32, dx 128, on phase 6's local flow."""
+    from sin_inn_tpu_torch.ops.cuda import gather as K6
+    from sin_inn_tpu_torch.ops.offsets import tile_flow_offsets
+
+    fl = _local_flow(torch.Generator(device=dev).manual_seed(11), dev)
+    off = tile_flow_offsets(fl, 128, 128, CAPY, 0).off_src
+    px = FLOW_H * FLOW_W
+    rows = []
+    for c, coord, tag in ((3, K6.resample_coord(FLOW_H, FLOW_W), "resample"),
+                          (5, K6.RAW, "raw")):
+        a = torch.rand((1, FLOW_H, FLOW_W, c), generator=gen, device=dev)
+        q = torch.randn((1, FLOW_H, FLOW_W, c), generator=gen, device=dev)
+        got = K6.gather_region_local_grads(a, fl, q, off, LDY, DX, coord)
+        ref = K6.gather_region_grads_plain(a, fl, q, LDY, DX, coord,
+                                           off_src=off)
+        torch.cuda.synchronize()
+        err = max(_close(g_, r_, f"gather_region_local_grads C={c} {tag}, "
+                                 f"{name}")
+                  for name, g_, r_ in zip(("out", "dfx", "dfy"), got, ref))
+        check(bool(got[1].any()), "K6 local grads: no flow derivative")
+        nbytes = px * (3 * c + 2 + 2) * 4 + off.numel() * 4
+        flops = px * (24 + 24 * c)
+        kern = lambda: K6.gather_region_local_grads(a, fl, q, off, LDY, DX,
+                                                    coord)
+        rows.append({
+            "shape": [1, FLOW_H, FLOW_W, c], "coord": tag,
+            "max_abs_err": err, "ms": device_ms(kern, 50),
+            "plain_ms": device_ms(lambda: K6.gather_region_grads_plain(
+                a, fl, q, LDY, DX, coord, off_src=off), 10),
+            "library_ms": None, "event_ms": median_ms(kern, 50),
+            "bytes": nbytes, "flop": flops,
+            "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "ops_bound_ms": flops / PEAK_FP32 * 1e3})
+        r = rows[-1]
+        print(f"[flow train kernels] gather_region_local_grads {r['shape']} "
+              f"{tag}: {r['ms']:.4f} ms on the device, {r['event_ms']:.4f} ms "
+              f"between events (plain {r['plain_ms']:.3f} ms; bound bytes "
+              f"{r['bytes_bound_ms']:.4f} / fp32 {r['ops_bound_ms']:.4f} ms) "
+              f"max abs err {r['max_abs_err']:.3e}")
+    return rows
 
 
 def _leaf_norm_err(got, ref) -> float:
@@ -1348,13 +1563,21 @@ def phase_flow_train(dev, card: str, smi_line: str):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         counts = _all_counts()
-        check_counts(counts, f"flow train, {steps} steps",
-                     splat_region=2 * steps, gather_region=2 * steps,
-                     gather_region_grads=4 * steps,
+        check_counts(counts, f"flow train, {steps} steps on the local windows",
+                     splat_region_local=2 * steps,
+                     gather_region_local=2 * steps,
+                     gather_region_local_grads=4 * steps,
                      fused_inr_backward=steps, reduce_weight_grads=steps)
+        keys = FlowConfig.WINDOW_BOUND_KEYS
+        bounds = lambda c: tuple(getattr(c, k) for k in keys)
+        res = cfg.resolve_splat_bounds(FLOW_H, FLOW_W)
+        check(bounds(res) == (DY, DX, LDY, None),
+              f"the defaults resolved to {bounds(res)}")
+        # the refit at the second save tightens the 'auto' bounds to the
+        # seeded net's few-px flows (after the last step of the run)
         eff = out["cfg"]
-        check((eff.splat_max_dy, eff.splat_max_dx) == (DY, DX),
-              f"bounds resolved to {eff.splat_max_dy}, {eff.splat_max_dx}")
+        check(bounds(eff) != bounds(res), f"the window refit did not fire: "
+                                          f"{bounds(eff)}")
         check(out["state"].step == steps and out["start_epoch"] == 0,
               f"flow train: step {out['state'].step}")
         check(all(math.isfinite(v) for v in out["metrics"].values()),
@@ -1362,10 +1585,13 @@ def phase_flow_train(dev, card: str, smi_line: str):
         ck = LP.flow_ckpt_dir(cfg, scene)
         with open(os.path.join(ck, "window_bounds.json")) as f:
             side = json.load(f)
-        check(side["splat_max_dy"] == DY and side["splat_max_dx"] == DX
-              and side["splat_local_dy"] is None
-              and (side["fh"], side["fw"]) == (FLOW_H, FLOW_W),
-              f"sidecar {side}")
+        hist = side.pop("hist")
+        check(side == {"fh": FLOW_H, "fw": FLOW_W, **dict(zip(keys,
+                                                              bounds(eff)))}
+              and set(hist) == {"fy", "fx", "dvy", "dvx"},
+              f"sidecar {side}, hist {hist}")
+        stats["refit"] = {"from": bounds(res), "to": bounds(eff),
+                          "hist": hist}
         check(os.path.getsize(os.path.join(
             ck, f"{scene}_{cfg.name}.metrics.jsonl")) > 0, "no metrics file")
         saved, at = CheckpointStore(ck).restore(map_location=dev)
@@ -1376,49 +1602,72 @@ def phase_flow_train(dev, card: str, smi_line: str):
               f"s with set-up; loss {out['metrics']['loss']:.5f}, psnr "
               f"{out['metrics']['psnr']:.2f} dB, max |flow| "
               f"{out['metrics']['flow_max_x']:.2f} / "
-              f"{out['metrics']['flow_max_y']:.2f} px; launches {counts}")
+              f"{out['metrics']['flow_max_y']:.2f} px, deviation "
+              f"{out['metrics']['flow_dev_x']:.2f} / "
+              f"{out['metrics']['flow_dev_y']:.2f} px; launches {counts}; "
+              f"window refit (dy, dx, local dy, local dx) {bounds(res)} -> "
+              f"{bounds(eff)} from {hist}")
 
-        # resume: one more epoch from the checkpoint, optimizer state kept
+        # resume: one more epoch from the checkpoint, optimizer state kept,
+        # on the refitted bounds of the sidecar
+        _reset_all_counts()
         out2 = LP.run_flow_train(cfg.replace(epochs=FLOW_TRAIN_EPOCHS + 1),
                                  media=media, scene=scene)
+        resume_counts = _all_counts()
+        if eff.splat_local_dy:
+            want = dict(splat_region_local=2 * pairs,
+                        gather_region_local=2 * pairs,
+                        gather_region_local_grads=4 * pairs)
+        else:
+            want = dict(splat_region=2 * pairs, gather_region=2 * pairs,
+                        gather_region_grads=4 * pairs)
+        check_counts(resume_counts, "the resumed epoch, on the refitted "
+                                    "windows", fused_inr_backward=pairs,
+                     reduce_weight_grads=pairs, **want)
+        add_counts(counts, resume_counts)
         st = out2["state"]
         opt_steps = {s["step"] for s in st.optimizer.state.values()}
         check(out2["start_epoch"] == FLOW_TRAIN_EPOCHS
-              and st.step == steps + pairs and opt_steps == {steps + pairs},
+              and st.step == steps + pairs and opt_steps == {steps + pairs}
+              and bounds(out2["cfg"]) == bounds(eff),
               f"resume: from epoch {out2['start_epoch']}, step {st.step}, "
-              f"optimizer steps {opt_steps}")
+              f"optimizer steps {opt_steps}, bounds {bounds(out2['cfg'])}")
         print(f"[flow train] resumed at epoch {out2['start_epoch']} to step "
-              f"{st.step} with the optimizer state")
+              f"{st.step} with the optimizer state, on the bounds "
+              f"{bounds(out2['cfg'])}; launches {resume_counts}")
 
-        # one step's launches, and its gradients against autograd's
+        # one step at the resolved defaults (local windows): its launches,
+        # and its gradients against use_kernel="off" (autograd through the
+        # plain INR and the windowed forms)
         spec, consts = out2["spec"], out2["consts"]
         spec_off = dataclasses.replace(spec, use_kernel="off")
+        res_off = res.replace(use_kernel="off")
         batch = LP._to_device_batch(media.sample(np.arange(2, 3)), dev)
         leaves = [t for _, t in flat_leaves(st.params)]
 
-        def grads_of(sp):
+        def grads_of(sp, c):
             """(loss, gradients, GiB the graph holds for the backward)."""
             for t in leaves:
                 t.grad = None
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated(dev)
-            loss, _ = FT.flow_loss(sp, eff, st.params, consts, batch)
+            loss, _ = FT.flow_loss(sp, c, st.params, consts, batch)
             held = (torch.cuda.memory_allocated(dev) - base) / 2 ** 30
             loss.backward()
             torch.cuda.synchronize()
             return loss.item(), [t.grad.clone() for t in leaves], held
 
         _reset_all_counts()
-        loss_k, g_k, held_k = grads_of(spec)
+        loss_k, g_k, held_k = grads_of(spec, res)
         step_counts = _all_counts()
-        check_counts(step_counts, "one flow train step", splat_region=2,
-                     gather_region=2, gather_region_grads=4,
+        check_counts(step_counts, "one flow train step", splat_region_local=2,
+                     gather_region_local=2, gather_region_local_grads=4,
                      fused_inr_backward=1, reduce_weight_grads=1)
         _reset_all_counts()
-        loss_a, g_a, held_a = grads_of(spec_off)
+        loss_a, g_a, held_a = grads_of(spec_off, res_off)
         off_counts = _all_counts()
-        check_counts(off_counts, "one step with use_kernel='off'",
-                     splat_region=2, gather_region=2, gather_region_grads=4)
+        check_counts(off_counts, "one step with use_kernel='off' (the "
+                                 "windowed forms)")
         gerr = _leaf_norm_err(g_k, g_a)
         check(gerr <= 1e-3 and abs(loss_k - loss_a) <= 1e-5 * abs(loss_a),
               f"kernel route against autograd: gradients normwise {gerr:.3e} "
@@ -1441,12 +1690,29 @@ def phase_flow_train(dev, card: str, smi_line: str):
         for t in leaves:
             t.grad = None
 
+        # one whole step (offsets, monitors, LAMB) with the host forbidden
+        # to wait for the card
+        step = FT.make_flow_train_step(spec, res)
+        step(st, consts, batch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = step(st, consts, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(bool(torch.isfinite(m["loss"])) and "flow_dev_y" in m,
+              f"the step under set_sync_debug_mode: {sorted(m)}")
+        print("[flow train] one local-window step with "
+              "set_sync_debug_mode('error'): nothing waits for the card")
+
         # rates and peak memory of both routes, each on a fresh state
         cached = [LP._to_device_batch(b, dev) for b in media.batches(1)]
-        for tag, sp in (("kernel", spec), ("off", spec_off)):
+        for tag, sp, c in (("kernel", spec, res),
+                           ("static", spec, res.replace(splat_local_dy=None)),
+                           ("off", spec_off, res_off)):
             gen = R.named_fold(R.root_generator(cfg.random_seed), "init")
             _, state, cs = FT.create_flow_state(gen, cfg)
-            step = FT.make_flow_train_step(sp, eff)
+            step = FT.make_flow_train_step(sp, c)
             for i in range(2):
                 step(state, cs, cached[i])
             torch.cuda.synchronize()
@@ -1469,7 +1735,10 @@ def phase_flow_train(dev, card: str, smi_line: str):
                                              for a, b in events),
                 "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
             r = stats[tag]
-            print(f"[flow train] use_kernel={'auto' if tag == 'kernel' else tag}"
+            route = {"kernel": "use_kernel=auto, local windows",
+                     "static": "use_kernel=auto, static windows",
+                     "off": "use_kernel=off"}[tag]
+            print(f"[flow train] {route}"
                   f": {r['pairs_per_sec']:.2f} pairs/s, {r['step_ms']:.2f} "
                   f"ms/step (batch 1, {FLOW_H}x{FLOW_W}, RBF, float32), peak "
                   f"device memory {r['peak_gib']:.2f} GiB, on {card} "
@@ -1724,10 +1993,12 @@ def phase_prog_path(dev, card: str, smi_line: str):
     pairs = FLOW_FRAMES - 1
     n = FLOW_H * FLOW_W
     with tempfile.TemporaryDirectory() as work:
+        # the static windows (local dy off), so that one train path keeps
+        # the static K5, K6 and K6 grads launches and their counts
         cfg = FlowConfig(net="PFF", spatially_adaptive=True, device="cuda",
                          checkpoints_dir=work + "/ck",
                          results_dir=work + "/results", name="pff_spatial",
-                         epochs=FLOW_TRAIN_EPOCHS)
+                         epochs=FLOW_TRAIN_EPOCHS, splat_local_dy="off")
         check(cfg.spatial_res == 50 and cfg.controller_epsilon == 1e-3
               and cfg.batch == 1 and cfg.occl == "wang"
               and cfg.use_kernel == "auto" and cfg.compute_dtype == "float32",
@@ -2084,11 +2355,13 @@ def main() -> int:
             entry["reduce_launches"] = counts["reduce_weight_grads"]
             entry["reduce_ms"] = sum(r["reduce_ms"] for r in rs)
         kernels.append(entry)
-    # K5, K6: launches of the interpolation and the flow train runs; K6
-    # grads (both payload widths summed) and K7 backward (the RBF net, the
-    # path's): launches of the flow train run
+    # K5, K6 (static and local): launches of the interpolation and the flow
+    # train runs; K6 grads (static and local, both payload widths summed) and
+    # K7 backward (the RBF net, the path's): launches of the flow train runs
     flow_shapes = {n: [r] for n, r in flow_rows.items()}
     flow_shapes["gather_region_grads"] = ft_rows["gather_region_grads"]
+    flow_shapes["gather_region_local_grads"] = ft_rows[
+        "gather_region_local_grads"]
     # K7: the rows of the paths' own modes (backward: the RBF net's constant
     # mask and PFF's slabs; forward: PFF's slabs), the others beside them
     slab = lambda rows: [r for r in rows if (r["net"], r["mode"]) ==
@@ -2122,8 +2395,9 @@ def main() -> int:
           f"on {card} ({smi_line})")
     print(f"[flow] interpolation {flow['interp_fps']:.2f} mid-frames/s, "
           f"on {card} ({smi_line})")
-    print(f"[flow train] {ft['kernel']['pairs_per_sec']:.2f} pairs/s "
-          f"(use_kernel='off': {ft['off']['pairs_per_sec']:.2f}), on {card} "
+    print(f"[flow train] {ft['kernel']['pairs_per_sec']:.2f} pairs/s on the "
+          f"local windows (static windows: {ft['static']['pairs_per_sec']:.2f}"
+          f", use_kernel='off': {ft['off']['pairs_per_sec']:.2f}), on {card} "
           f"({smi_line})")
     print(f"[prog path] PFF spatial {prog['kernel']['pairs_per_sec']:.2f} "
           f"pairs/s (use_kernel='off': {prog['off']['pairs_per_sec']:.2f}), "

@@ -5,7 +5,8 @@ reference's ``sr`` flags plus ``--device`` (default ``cuda``; a CUDA request
 without a card fails) and ``--remat``. ``python -m sin_inn_tpu_torch.cli
 flow {train,test,interpolate} ...`` takes the reference's data, net,
 training, occlusion, controller (``--spatially-adaptive``,
-``--spatial-res``) and window-bound flags, ``--use-kernel`` and
+``--spatial-res``) and window flags (the global and local bounds,
+``--window-refit``, the windowed forms' chunks), ``--use-kernel`` and
 ``--device``; ``flow train`` runs the test pass on the trained net when it
 is done, as the reference does. ``sr export`` and ``flow
 {export,summarize,sintel}`` are not ported yet and exit with code 2.
@@ -146,13 +147,34 @@ def _flow_parser(sub):
     ap.add_argument("--splat-max-dy", type=_splat_bound, default="auto",
                     help="splat/warp window row bound |dy| <= N px: 'auto' "
                          "(size-scaled), 'off' (exact scatter), or an int")
+    ap.add_argument("--splat-chunk", type=int, default=2,
+                    help="row chunk of the windowed splat (--use-kernel off)")
     ap.add_argument("--splat-max-dx", type=_splat_bound, default="auto",
                     help="window column bound: 'auto', 'off', or an int")
+    ap.add_argument("--splat-col-chunk", type=int, default=256,
+                    help="column block of the windowed warp (--use-kernel "
+                         "off)")
+    ap.add_argument("--splat-local-dy", type=_splat_bound, default="auto",
+                    help="local-window row bound of the kernels: each tile's "
+                         "window recentres on the tile-mean flow and this "
+                         "bounds the deviation |fy - mean| ('auto' = half "
+                         "the global bound, moved by the GT probe and the "
+                         "refit; 'off' = static windows; or an int)")
+    ap.add_argument("--splat-local-dx", type=_splat_bound, default="auto",
+                    help="local-window column bound: windows also recentre "
+                         "on the 128-quantized tile-mean flow ('auto' = "
+                         "engaged by the GT probe only; 'off'; or an int, "
+                         "which needs --splat-local-dy)")
+    ap.add_argument("--window-refit", default="auto", choices=["auto", "off"],
+                    help="refit the 'auto' window bounds at every save from "
+                         "the measured flow (widen when it nears a window, "
+                         "tighten once settled); 'off' = static bounds")
     ap.add_argument("--flow-dir", default=None,
                     help="precomputed GT flow dir (.flo/.npy)")
     ap.add_argument("--use-kernel", default="auto", choices=["auto", "off"],
-                    help="flow train: the fused CUDA backward of the INR "
-                         "('off': ordinary autograd through the plain INR)")
+                    help="the fused INR and windowed CUDA kernels ('off': "
+                         "ordinary autograd through the plain INR and the "
+                         "windowed forms for the warps and splats)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default), cuda:N or cpu")
 
@@ -172,7 +194,10 @@ def flow_config_from_args(a) -> FlowConfig:
         occl_thresh=a.occl_thresh, num_frequencies=a.num_frequencies,
         hidden_dim=a.hidden_dim, num_layers=a.num_layers,
         compute_dtype=a.compute_dtype, splat_max_dy=a.splat_max_dy,
-        splat_max_dx=a.splat_max_dx, flow_dir=a.flow_dir, device=a.device,
+        splat_chunk=a.splat_chunk, splat_max_dx=a.splat_max_dx,
+        splat_col_chunk=a.splat_col_chunk, splat_local_dy=a.splat_local_dy,
+        splat_local_dx=a.splat_local_dx, window_refit=a.window_refit,
+        flow_dir=a.flow_dir, device=a.device,
     )
 
 
@@ -198,8 +223,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             if eff.test_size != eff.size:
                 # the bounds were resolved at the train frame size: another
                 # test size starts again from the values given
-                eff = eff.replace(splat_max_dy=cfg.splat_max_dy,
-                                  splat_max_dx=cfg.splat_max_dx)
+                eff = eff.replace(**{k: getattr(cfg, k) for k in
+                                     FlowConfig.WINDOW_BOUND_KEYS})
             print(L.run_flow_test(eff, scene=out["scene"], spec=out["spec"],
                                   params=out["state"].params,
                                   consts=out["consts"],

@@ -18,9 +18,12 @@
 that ``flow train``, ``flow test`` and ``flow interpolate`` read, with the
 same ``device`` field and ``use_kernel`` in place of ``use_pallas``. With
 both window bounds set, the splat and the metric warps run the windowed
-kernels (K5, K6) on CUDA tensors and their plain versions on CPU tensors.
-The controller, local-window, window-refit, pseudo-GT producer, checkpoint
-import, profiling and multi-chip fields come with the code that reads them.
+kernels on CUDA tensors and their plain versions on CPU tensors: the local
+ones (K5 local, K6 local) when the local row bound is set, else the static
+ones (K5, K6); ``use_kernel="off"`` takes the windowed forms of
+``ops/warp.py`` and ``ops/splat.py`` instead. The pseudo-GT producer,
+checkpoint import, profiling and multi-chip fields come with the code that
+reads them.
 """
 
 from __future__ import annotations
@@ -161,8 +164,8 @@ class FlowConfig:
     narrowed to the fields ``flow train``, ``flow test`` and ``flow
     interpolate`` read, with the same defaults."""
 
-    WINDOW_BOUND_KEYS: ClassVar[Tuple[str, str]] = ("splat_max_dy",
-                                                    "splat_max_dx")
+    WINDOW_BOUND_KEYS: ClassVar[Tuple[str, ...]] = (
+        "splat_max_dy", "splat_max_dx", "splat_local_dy", "splat_local_dx")
 
     # Data
     input_video: str = "../datasets/sintel/training/final/alley_1"
@@ -213,19 +216,43 @@ class FlowConfig:
     # flows beyond |flow_y| <= splat_max_dy - 1, |flow_x| <= splat_max_dx - 1
     # are dropped. 'auto' = size-scaled (resolve_splat_bounds), None/'off' =
     # the exact scatter and the exact warp, an int pins the bound. Both
-    # bounds set route the splat and the warps to the windowed kernels
-    # (K5, K6).
+    # bounds set route the splat and the warps to the windowed kernels;
+    # dy alone windows the splat's rows (splat_windowed) and keeps the warp
+    # exact.
     splat_max_dy: "Optional[int] | str" = "auto"
+    splat_chunk: int = 2          # row chunk of the windowed splat
     splat_max_dx: "Optional[int] | str" = "auto"
+    splat_col_chunk: int = 256    # column block of the windowed warp
+    resample_chunk: int = 8       # row chunk of the windowed warp
+    # Local-window row bound of the kernels: each 128 x 128 tile's window is
+    # recentred vertically on the tile's mean flow (ops/offsets.py), so this
+    # bounds only the deviation |flow_y - tile mean| (64 -> 32 rows of half
+    # window at Sintel size). 'auto' = half the resolved global dy, moved by
+    # the train loop's GT-flow probe and window refit; engaged only with
+    # both global bounds and when smaller than dy; an int pins; None/'off' =
+    # the static windows. The global dy caps the offsets.
+    splat_local_dy: "Optional[int] | str" = "auto"
+    # Local-window column bound: the windows also recentre horizontally on
+    # the 128-quantized tile mean. 'auto' = off unless the GT probe engages
+    # it; an int pins (needs the row-local path and a narrower window).
+    splat_local_dx: "Optional[int] | str" = "auto"
+    # Refit at every save of the 'auto' bounds from the measured flow and
+    # deviation: widen as soon as the flow nears a window, tighten once it
+    # has settled (from epoch max(epochs // 5, 2), against the running
+    # maximum). 'auto' = on when any bound is 'auto'; 'off' = static.
+    window_refit: str = "auto"
 
     # Runtime
     results_dir: str = "results"
     checkpoints_dir: str = "checkpoints"
     compute_dtype: str = "float32"
-    # the fused INR kernels: 'auto' | 'off' ('off' takes ordinary autograd
-    # through the plain INR, with a dense per-point mask under the spatial
-    # controller; the warps and splats stay on K5/K6 either way). On the card 'auto' raises for widths the kernel
-    # cannot take; it never gives way to 'off' by itself. The two routes
+    # the fused and windowed kernels: 'auto' | 'off' ('off' takes ordinary
+    # autograd through the plain INR, with a dense per-point mask under the
+    # spatial controller, and the windowed forms resample2d_windowed and
+    # softsplat_windowed_with_coverage for the warps and splats, as the
+    # reference's use_pallas='off'). On the card 'auto' raises for widths
+    # the kernel cannot take; it never gives way to 'off' by itself. The two
+    # routes
     # agree to rounding in float32 only: in bfloat16 the fused forward rounds
     # the products' operands and accumulates in fp32, the plain one casts the
     # activations
@@ -250,6 +277,9 @@ class FlowConfig:
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                              f"got {self.compute_dtype!r}")
+        if self.window_refit not in ("auto", "off"):
+            raise ValueError(f"window_refit must be 'auto' or 'off', got "
+                             f"{self.window_refit!r}")
         if (self._bound_off(self.splat_max_dy)
                 and isinstance(self.splat_max_dx, int)
                 and self.splat_max_dx > 0):
@@ -263,19 +293,23 @@ class FlowConfig:
 
     @property
     def bounds_resolved(self) -> bool:
-        """No window bound is left on 'auto' or 'off'."""
+        """No window bound, global or local, is left on 'auto' or 'off'."""
         return not any(isinstance(getattr(self, k), str)
                        for k in self.WINDOW_BOUND_KEYS)
 
     def resolve_splat_bounds(self, h: int, w: int) -> "FlowConfig":
         """Materialize the window bounds for a known frame size: ints, or
-        None for the exact routes.
+        None for the exact routes and the static windows.
 
         'auto' picks ceil(dim/8) rounded up to a multiple of 16 (Sintel
         436x1024 -> dy=64, dx=128) and takes the exact scatter for frames
-        under 128 px, unless splat_max_dx was pinned to an int. Idempotent
-        for resolved bounds. (The reference also resolves its local-window
-        bounds here; the port has no local windows yet.)"""
+        under 128 px, unless splat_max_dx was pinned to an int. The local
+        row bound 'auto' is half the global dy rounded up to 8 (32 at
+        Sintel size), engaged only with both global bounds and when smaller
+        than dy; the local column bound 'auto' resolves off (only the GT
+        probe engages it), a pinned one engages only on the row-local path
+        and when it narrows the window at 128-column granularity.
+        Idempotent for resolved bounds."""
         def auto(dim):
             eighth = -(-dim // 8)                       # ceil(dim / 8)
             return max(16, (eighth + 15) // 16 * 16)    # to multiple of 16
@@ -292,7 +326,24 @@ class FlowConfig:
             dx = None
         if dy is None:
             dx = None
-        return self.replace(splat_max_dy=dy, splat_max_dx=dx)
+
+        ldy = self.splat_local_dy
+        if ldy == "auto":
+            ldy = None if dy is None else max(8, -(-(dy // 2) // 8) * 8)
+        elif self._bound_off(ldy):
+            ldy = None
+        if ldy is not None and (dy is None or dx is None or ldy >= dy):
+            ldy = None
+
+        ldx = self.splat_local_dx
+        if ldx == "auto" or self._bound_off(ldx):
+            ldx = None
+        if ldx is not None and (
+                ldy is None
+                or -(-(128 + 2 * ldx) // 128) >= -(-(128 + 2 * dx) // 128)):
+            ldx = None
+        return self.replace(splat_max_dy=dy, splat_max_dx=dx,
+                            splat_local_dy=ldy, splat_local_dx=ldx)
 
     @property
     def effective_val_iter(self) -> int:

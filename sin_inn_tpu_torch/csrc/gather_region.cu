@@ -34,6 +34,21 @@
 // XLA forms it) and the tap sums use round-to-nearest intrinsics with no
 // other contraction, so the kernel repeats the plain version's arithmetic
 // operation for operation.
+//
+// The local-window forms (either entry given an `off_src` pointer) replace
+// the same TPU kernel as `_gather_region_call_local` runs it (local=True), in
+// both modes: the window
+// of pixel (y, x) is shifted by (ox, oy) = off_src[b, y / 128, x / 128], the
+// rounded mean flow of the pixel's own 128 x 128 tile (ops/offsets.py), to
+// rows [c0 - dy + oy, c0 + dy + 8 + oy) and columns [j 128 - dx + ox,
+// j 128 + 128 + dx + ox), with dy, dx the local bounds padded as
+// `_pad_geometry` pads them. The resample coordinates shift taps by up to
+// about 1.5 px from the raw flow the offsets come from; that is the
+// function, as on the TPU. Each thread reads its tile's offset pair with
+// one 8-byte __ldg (32 tiles, 256 B, at Sintel size), so the bytes are the
+// static kernels' plus 256 B: 14.3 MB (forward, C = 3, 0.0043 ms at
+// 3.35 TB/s), 23.2 MB (grads, C = 3, 0.0069 ms), 33.9 MB (grads, C = 5,
+// 0.0101 ms).
 
 #include <cuda_runtime.h>
 
@@ -48,9 +63,36 @@ __device__ __forceinline__ float hat(float d) {
   return fmaxf(__fsub_rn(1.0f, fabsf(d)), 0.0f);
 }
 
+// The tap window of output pixel (y, x) of image b, clipped to the image:
+// rows [r_lo, r_hi), columns [k_lo, k_hi). With kLocal it is shifted by the
+// offset of the pixel's tile, off[b, y / 128, x / 128].
+template <bool kLocal>
+__device__ __forceinline__ void tap_window(const float* __restrict__ off,
+                                           int b, int y, int x, int h, int w,
+                                           int dy, int dx, float& r_lo,
+                                           float& r_hi, float& k_lo,
+                                           float& k_hi) {
+  int ox = 0, oy = 0;
+  if (kLocal) {
+    const int hb = (h + kTile - 1) / kTile, wb = (w + kTile - 1) / kTile;
+    const float2 o = __ldg(reinterpret_cast<const float2*>(off)
+                           + ((long long)b * hb + y / kTile) * wb + x / kTile);
+    ox = (int)o.x;
+    oy = (int)o.y;
+  }
+  const int c0 = y / kChunk * kChunk + oy;
+  r_lo = (float)max(c0 - dy, 0);
+  r_hi = (float)min(c0 + dy + kChunk, h);     // exclusive
+  const int j0 = x / kTile * kTile + ox;
+  k_lo = (float)max(j0 - dx, 0);
+  k_hi = (float)min(j0 + kTile + dx, w);      // exclusive
+}
+
 // One output pixel (row = b h + y of the n h image rows, column x).
+template <bool kLocal>
 __device__ __forceinline__ void gather_pixel(const float* __restrict__ a,
                                              const float* __restrict__ flow,
+                                             const float* __restrict__ off,
                                              float* __restrict__ out, int row,
                                              int x, int h, int w, int c,
                                              int dy, int dx, float sx,
@@ -64,12 +106,9 @@ __device__ __forceinline__ void gather_pixel(const float* __restrict__ a,
   const float py = __fmaf_rn(__fadd_rn((float)y, fy), sy, shy);
 
   // the window of taps this pixel may read, clipped to the image
-  const int c0 = y / kChunk * kChunk;
-  const float r_lo = (float)max(c0 - dy, 0);
-  const float r_hi = (float)min(c0 + dy + kChunk, h);     // exclusive
-  const int j0 = x / kTile * kTile;
-  const float k_lo = (float)max(j0 - dx, 0);
-  const float k_hi = (float)min(j0 + kTile + dx, w);      // exclusive
+  float r_lo, r_hi, k_lo, k_hi;
+  tap_window<kLocal>(off, row / h, y, x, h, w, dy, dx, r_lo, r_hi, k_lo,
+                     k_hi);
 
   const float r0 = floorf(py), k0 = floorf(px);
   const float r1 = r0 + 1.0f, k1 = k0 + 1.0f;
@@ -97,15 +136,18 @@ __device__ __forceinline__ void gather_pixel(const float* __restrict__ a,
 
 // Grid: x over the columns, y over the n h image rows (strided when there
 // are more rows than grid rows), so no thread divides a 64-bit index.
+template <bool kLocal>
 __global__ void gather_region_kernel(const float* __restrict__ a,
                                      const float* __restrict__ flow,
+                                     const float* __restrict__ off,
                                      float* __restrict__ out, int rows, int h,
                                      int w, int c, int dy, int dx, float sx,
                                      float shx, float sy, float shy) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x >= w) return;
   for (int row = blockIdx.y; row < rows; row += gridDim.y)
-    gather_pixel(a, flow, out, row, x, h, w, c, dy, dx, sx, shx, sy, shy);
+    gather_pixel<kLocal>(a, flow, off, out, row, x, h, w, c, dy, dx, sx, shx,
+                         sy, shy);
 }
 
 // d/dp of hat(p - k): -sign(d) on |d| < 1, and 0 at d = 0 and beyond, as the
@@ -126,11 +168,12 @@ __device__ __forceinline__ float dhat(float d) {
 // values' gradient). Bytes bound it as they bound the forward: at C = 5 it
 // reads 12 and writes 7 floats per pixel, 33.9 MB at 436 x 1024, 0.010 ms at
 // 3.35 TB/s. One thread per pixel again; dfx and dfy leave as one float2.
+template <bool kLocal>
 __device__ __forceinline__ void gather_grads_pixel(
     const float* __restrict__ a, const float* __restrict__ flow,
-    const float* __restrict__ payload, float* __restrict__ out,
-    float* __restrict__ dp, int row, int x, int h, int w, int c, int dy,
-    int dx, float sx, float shx, float sy, float shy) {
+    const float* __restrict__ payload, const float* __restrict__ off,
+    float* __restrict__ out, float* __restrict__ dp, int row, int x, int h,
+    int w, int c, int dy, int dx, float sx, float shx, float sy, float shy) {
   const int y = row % h;
   const long long img = (long long)(row - y) * w;
   const long long p = (long long)row * w + x;
@@ -139,12 +182,9 @@ __device__ __forceinline__ void gather_grads_pixel(
   const float px = __fmaf_rn(__fadd_rn((float)x, fx), sx, shx);
   const float py = __fmaf_rn(__fadd_rn((float)y, fy), sy, shy);
 
-  const int c0 = y / kChunk * kChunk;
-  const float r_lo = (float)max(c0 - dy, 0);
-  const float r_hi = (float)min(c0 + dy + kChunk, h);     // exclusive
-  const int j0 = x / kTile * kTile;
-  const float k_lo = (float)max(j0 - dx, 0);
-  const float k_hi = (float)min(j0 + kTile + dx, w);      // exclusive
+  float r_lo, r_hi, k_lo, k_hi;
+  tap_window<kLocal>(off, row / h, y, x, h, w, dy, dx, r_lo, r_hi, k_lo,
+                     k_hi);
 
   const float r0 = floorf(py), k0 = floorf(px);
   const float r1 = r0 + 1.0f, k1 = k0 + 1.0f;
@@ -182,16 +222,40 @@ __device__ __forceinline__ void gather_grads_pixel(
   reinterpret_cast<float2*>(dp)[p] = make_float2(dfx, dfy);
 }
 
+template <bool kLocal>
 __global__ void gather_region_grads_kernel(
     const float* __restrict__ a, const float* __restrict__ flow,
-    const float* __restrict__ payload, float* __restrict__ out,
-    float* __restrict__ dp, int rows, int h, int w, int c, int dy, int dx,
-    float sx, float shx, float sy, float shy) {
+    const float* __restrict__ payload, const float* __restrict__ off,
+    float* __restrict__ out, float* __restrict__ dp, int rows, int h, int w,
+    int c, int dy, int dx, float sx, float shx, float sy, float shy) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x >= w) return;
   for (int row = blockIdx.y; row < rows; row += gridDim.y)
-    gather_grads_pixel(a, flow, payload, out, dp, row, x, h, w, c, dy, dx, sx,
-                       shx, sy, shy);
+    gather_grads_pixel<kLocal>(a, flow, payload, off, out, dp, row, x, h, w,
+                               c, dy, dx, sx, shx, sy, shy);
+}
+
+// One launch of either mode (payload null: the forward mode) on `stream`.
+template <bool kLocal>
+int launch(const float* a, const float* flow, const float* payload,
+           const float* off, float* out, float* dp, int n, int h, int w,
+           int c, int dy, int dx, float sx, float shx, float sy, float shy,
+           void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || dy < 0 || dx < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)n * h;
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + kThreads - 1) / kThreads,
+                  (unsigned)(rows < kMaxGridRows ? rows : kMaxGridRows));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (payload == nullptr)
+    gather_region_kernel<kLocal><<<grid, kThreads, 0, st>>>(
+        a, flow, off, out, (int)rows, h, w, c, dy, dx, sx, shx, sy, shy);
+  else
+    gather_region_grads_kernel<kLocal><<<grid, kThreads, 0, st>>>(
+        a, flow, payload, off, out, dp, (int)rows, h, w, c, dy, dx, sx, shx,
+        sy, shy);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -200,41 +264,35 @@ extern "C" {
 
 // One launch on `stream`. a: (n, h, w, c) fp32, flow: (n, h, w, 2) fp32
 // (dx, dy), out: (n, h, w, c) fp32, all contiguous. dy, dx: the padded
-// window half-widths. Returns a cudaError_t.
-int sininn_gather_region(const float* a, const float* flow, float* out,
-                         int n, int h, int w, int c, int dy, int dx, float sx,
-                         float shx, float sy, float shy, void* stream) {
-  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || dy < 0 || dx < 0)
-    return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)n * h;
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((w + kThreads - 1) / kThreads,
-                  (unsigned)(rows < kMaxGridRows ? rows : kMaxGridRows));
-  gather_region_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      a, flow, out, (int)rows, h, w, c, dy, dx, sx, shx, sy, shy);
-  return (int)cudaGetLastError();
+// window half-widths. off_src: null for the static windows, else the local
+// form's (n, ceil(h / 128), ceil(w / 128), 2) fp32 offsets, contiguous,
+// 8-byte aligned and integer-valued (ox, oy), with dy, dx the padded local
+// half-widths. Returns a cudaError_t.
+int sininn_gather_region(const float* a, const float* flow,
+                         const float* off_src, float* out, int n, int h,
+                         int w, int c, int dy, int dx, float sx, float shx,
+                         float sy, float shy, void* stream) {
+  return off_src == nullptr
+             ? launch<false>(a, flow, nullptr, nullptr, out, nullptr, n, h, w,
+                             c, dy, dx, sx, shx, sy, shy, stream)
+             : launch<true>(a, flow, nullptr, off_src, out, nullptr, n, h, w,
+                            c, dy, dx, sx, shx, sy, shy, stream);
 }
 
 // One launch of the gradient mode on `stream`. a, payload: (n, h, w, c) fp32,
 // flow: (n, h, w, 2), out: (n, h, w, c), dp: (n, h, w, 2) = (dfx, dfy), all
-// contiguous. Returns a cudaError_t.
+// contiguous; off_src as above. Returns a cudaError_t.
 int sininn_gather_region_grads(const float* a, const float* flow,
-                               const float* payload, float* out, float* dp,
-                               int n, int h, int w, int c, int dy, int dx,
-                               float sx, float shx, float sy, float shy,
-                               void* stream) {
-  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || dy < 0 || dx < 0)
-    return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)n * h;
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((w + kThreads - 1) / kThreads,
-                  (unsigned)(rows < kMaxGridRows ? rows : kMaxGridRows));
-  gather_region_grads_kernel<<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      a, flow, payload, out, dp, (int)rows, h, w, c, dy, dx, sx, shx, sy,
-      shy);
-  return (int)cudaGetLastError();
+                               const float* payload, const float* off_src,
+                               float* out, float* dp, int n, int h, int w,
+                               int c, int dy, int dx, float sx, float shx,
+                               float sy, float shy, void* stream) {
+  if (payload == nullptr) return (int)cudaErrorInvalidValue;
+  return off_src == nullptr
+             ? launch<false>(a, flow, payload, nullptr, out, dp, n, h, w, c,
+                             dy, dx, sx, shx, sy, shy, stream)
+             : launch<true>(a, flow, payload, off_src, out, dp, n, h, w, c,
+                            dy, dx, sx, shx, sy, shy, stream);
 }
 
 const char* sininn_error_string(int err) {

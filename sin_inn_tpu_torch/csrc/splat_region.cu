@@ -33,6 +33,22 @@
 // not bitwise reproducible (the JAX path is). A deterministic version would
 // accumulate each output tile in shared memory; 128 x 128 x 5 fp32 is
 // 320 KB, over a block's 227 KB, so it needs sub-tiles or channel passes.
+//
+// The local-window form (`sininn_splat_region_local`) replaces the same TPU
+// kernel as `_splat_region_call_local` runs it (local=True): each output
+// tile's window is shifted by (ox, oy) = -off_out[b, i, j], the rounded
+// mean flow of the tile's contributors (ops/offsets.py), and dy, dx are the
+// local bounds: a tap (r, k) in tile (i, j) = (r / 128, k / 128) is kept iff
+// s lies in rows [128 i - dy + oy, ... + SH) and columns [128 j - dx + ox,
+// ... + SW). The window now depends on both coordinates of the tap's tile,
+// so the test is made per tap pair (four per pixel), not per axis. Source
+// pixels outside the image do not exist here, which stands for the TPU
+// kernel's zero padding (`top = loc_dy + cap_y`); the caps only size that
+// padding, so this kernel does not take them. Bytes bound it as they bound
+// the static form, plus one 8-byte offset read per kept tap pair (the 32
+// tiles' 256 B of offsets stay in L1): 21.4 MB at the flow path's shape,
+// 0.0064 ms at 3.35 TB/s. It sums with the same atomics as the static
+// kernel, so it is exactly as (non-)reproducible as that one.
 
 #include <cuda_runtime.h>
 
@@ -53,12 +69,17 @@ __device__ __forceinline__ bool in_window(int s, int t, int d, int span) {
   return s >= lo && s < lo + span;
 }
 
-// One source pixel (row = b h + sy of the n h image rows, column sx).
+// One source pixel (row = b h + sy of the n h image rows, column sx). With
+// kLocal, `off` holds the (n, hb, wb, 2) output-tile offsets and each kept
+// tap pair is tested against its own tile's shifted window.
+template <bool kLocal>
 __device__ __forceinline__ void splat_pixel(const float* __restrict__ values,
                                             const float* __restrict__ flow,
+                                            const float* __restrict__ off,
                                             float* __restrict__ out, int row,
                                             int sx, int h, int w, int c,
-                                            int dy, int dx, int sh, int sw) {
+                                            int dy, int dx, int sh, int sw,
+                                            int hb, int wb) {
   const int sy = row % h;
   const long long img = (long long)(row - sy) * w;
   const long long p = (long long)row * w + sx;
@@ -75,17 +96,31 @@ __device__ __forceinline__ void splat_pixel(const float* __restrict__ values,
     const bool k_ok = k >= 0.0f && k <= (float)(w - 1);
     ir[q] = r_ok ? (int)r : -1;
     ik[q] = k_ok ? (int)k : -1;
-    wr[q] = (r_ok && in_window(sy, ir[q], dy, sh)) ? hat(__fsub_rn(ty, r)) : 0.0f;
-    wk[q] = (k_ok && in_window(sx, ik[q], dx, sw)) ? hat(__fsub_rn(tx, k)) : 0.0f;
+    wr[q] = (r_ok && (kLocal || in_window(sy, ir[q], dy, sh)))
+                ? hat(__fsub_rn(ty, r)) : 0.0f;
+    wk[q] = (k_ok && (kLocal || in_window(sx, ik[q], dx, sw)))
+                ? hat(__fsub_rn(tx, k)) : 0.0f;
   }
 
   const float* v = values + p * c;
+  const float2* toff = nullptr;
+  if (kLocal)
+    toff = reinterpret_cast<const float2*>(off) + (long long)(row / h) * hb * wb;
 #pragma unroll
   for (int qr = 0; qr < 2; ++qr) {
     if (wr[qr] == 0.0f) continue;
 #pragma unroll
     for (int qk = 0; qk < 2; ++qk) {
       if (wk[qk] == 0.0f) continue;
+      if (kLocal) {
+        // the window of the tile holding this tap, shifted by -off_out
+        const float2 shift =
+            __ldg(toff + (ir[qr] / kTile) * wb + ik[qk] / kTile);
+        const int ox = (int)(-shift.x), oy = (int)(-shift.y);
+        if (!in_window(sy - oy, ir[qr], dy, sh)
+            || !in_window(sx - ox, ik[qk], dx, sw))
+          continue;
+      }
       float* o = out + (img + (long long)ir[qr] * w + ik[qk]) * c;
       for (int ch = 0; ch < c; ++ch)
         atomicAdd(o + ch, __fmul_rn(__fmul_rn(v[ch], wr[qr]), wk[qk]));
@@ -95,15 +130,36 @@ __device__ __forceinline__ void splat_pixel(const float* __restrict__ values,
 
 // Grid: x over the columns, y over the n h image rows (strided when there
 // are more rows than grid rows), so no thread divides a 64-bit index.
+template <bool kLocal>
 __global__ void splat_region_kernel(const float* __restrict__ values,
                                     const float* __restrict__ flow,
+                                    const float* __restrict__ off,
                                     float* __restrict__ out, int rows, int h,
                                     int w, int c, int dy, int dx, int sh,
-                                    int sw) {
+                                    int sw, int hb, int wb) {
   const int sx = blockIdx.x * blockDim.x + threadIdx.x;
   if (sx >= w) return;
   for (int row = blockIdx.y; row < rows; row += gridDim.y)
-    splat_pixel(values, flow, out, row, sx, h, w, c, dy, dx, sh, sw);
+    splat_pixel<kLocal>(values, flow, off, out, row, sx, h, w, c, dy, dx, sh,
+                        sw, hb, wb);
+}
+
+template <bool kLocal>
+int launch(const float* values, const float* flow, const float* off,
+           float* out, int n, int h, int w, int c, int dy, int dx, int sh,
+           int sw, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || dy < 0 || dx < 0 || sh <= 0
+      || sw <= 0 || (kLocal && off == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)n * h;
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + kThreads - 1) / kThreads,
+                  (unsigned)(rows < kMaxGridRows ? rows : kMaxGridRows));
+  splat_region_kernel<kLocal><<<grid, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      values, flow, off, out, (int)rows, h, w, c, dy, dx, sh, sw,
+      (h + kTile - 1) / kTile, (w + kTile - 1) / kTile);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -117,17 +173,19 @@ extern "C" {
 int sininn_splat_region(const float* values, const float* flow, float* out,
                         int n, int h, int w, int c, int dy, int dx, int sh,
                         int sw, void* stream) {
-  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || dy < 0 || dx < 0 || sh <= 0
-      || sw <= 0)
-    return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)n * h;
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((w + kThreads - 1) / kThreads,
-                  (unsigned)(rows < kMaxGridRows ? rows : kMaxGridRows));
-  splat_region_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      values, flow, out, (int)rows, h, w, c, dy, dx, sh, sw);
-  return (int)cudaGetLastError();
+  return launch<false>(values, flow, nullptr, out, n, h, w, c, dy, dx, sh,
+                       sw, stream);
+}
+
+// The local-window form: off_out is (n, ceil(h / 128), ceil(w / 128), 2)
+// fp32, contiguous and 8-byte aligned, integer-valued (ox, oy); dy, dx are
+// the local bounds and sh, sw the window they give. Returns a cudaError_t.
+int sininn_splat_region_local(const float* values, const float* flow,
+                              const float* off_out, float* out, int n, int h,
+                              int w, int c, int dy, int dx, int sh, int sw,
+                              void* stream) {
+  return launch<true>(values, flow, off_out, out, n, h, w, c, dy, dx, sh, sw,
+                      stream);
 }
 
 const char* sininn_error_string(int err) {

@@ -27,9 +27,21 @@ keeps a tap by the window of the tile that holds the TAP, the backward by
 the window around the SOURCE pixel. The two agree for flows within the
 bounds and may differ for taps beyond them.
 
+``splat_region_local`` (K5 local) replaces the same TPU kernel as
+``_splat_region_call_local`` runs it, and
+``softsplat_region_local_with_coverage`` is the softmax splat on it. Each
+output tile (i, j) shifts its window by (ox, oy) = -off_out[n, i, j]
+(``ops/offsets.py``): a tap (r, k) in tile (i, j) is kept iff s lies in
+rows [128 i - dy + oy, ... + SH) and
+columns [128 j - dx + ox, ... + SW), with dy, dx the local bounds and SH, SW
+the window they give. The rule depends on both coordinates of the tap's
+tile, so the plain version forms it per tap pair. Its backward is one launch
+of K6 local in gradient mode with ``off_src`` and raw coordinates.
+
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel
 or raises, a CPU tensor takes the plain versions, in the forward and in the
-backward alike. ``splat_region.launches`` counts K5 launches.
+backward alike. ``splat_region.launches`` and ``splat_region_local.launches``
+count K5 and K5 local launches.
 """
 
 from __future__ import annotations
@@ -42,7 +54,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from sin_inn_tpu_torch.ops.cuda import _build
-from sin_inn_tpu_torch.ops.cuda.gather import RAW, gather_region_grads
+from sin_inn_tpu_torch.ops.cuda.gather import (RAW, aligned_offsets,
+                                               check_offsets,
+                                               gather_region_grads,
+                                               gather_region_local_grads)
 from sin_inn_tpu_torch.ops.splat import softmax_coverage_via, splat_scatter
 
 _B = 128     # output-tile rows and columns
@@ -54,13 +69,46 @@ def window_shape(max_dy: int, max_dx: int) -> Tuple[int, int]:
             -(-(_B + 2 * max_dx) // 128) * 128)
 
 
+def _in_window(s, t, d: int, span: int, shift=0):
+    """Whether source coordinate s lies in the window of the tile holding
+    tap coordinate t, shifted by ``shift``."""
+    lo = t // _B * _B - d + shift
+    return (s >= lo) & (s < lo + span)
+
+
 def splat_region_plain(values: torch.Tensor, flow: torch.Tensor,
                        max_dy: int, max_dx: int) -> torch.Tensor:
     """Plain PyTorch version of K5: the exact scatter with the window rule.
     values: (N, H, W, C) fp32, flow: (N, H, W, 2) (dx, dy). Returns
     (N, H, W, C)."""
-    return splat_scatter(values, flow,
-                         (_B, max_dy, max_dx) + window_shape(max_dy, max_dx))
+    _, h, w, _ = values.shape
+    sh, sw = window_shape(max_dy, max_dx)
+    ys = torch.arange(h, device=values.device)[None, :, None]
+    xs = torch.arange(w, device=values.device)[None, None, :]
+    return splat_scatter(values, flow, lambda r, k: (
+        _in_window(ys, r, max_dy, sh) & _in_window(xs, k, max_dx, sw)))
+
+
+def splat_region_local_plain(values: torch.Tensor, flow: torch.Tensor,
+                             off_out: torch.Tensor, loc_dy: int,
+                             loc_dx: int) -> torch.Tensor:
+    """Plain PyTorch version of K5 local: the exact scatter, each tap pair
+    kept by the window of the tile holding it, shifted by -off_out of that
+    tile. off_out: (N, HB, WB, 2) integer-valued fp32."""
+    n, h, w, _ = values.shape
+    sh, sw = window_shape(loc_dy, loc_dx)
+    dev = values.device
+    ys = torch.arange(h, device=dev)[None, :, None]
+    xs = torch.arange(w, device=dev)[None, None, :]
+    nidx = torch.arange(n, device=dev)[:, None, None]
+    shift = (-off_out).long()
+
+    def keep(r, k):
+        o = shift[nidx, r // _B, k // _B]
+        return (_in_window(ys, r, loc_dy, sh, o[..., 1])
+                & _in_window(xs, k, loc_dx, sw, o[..., 0]))
+
+    return splat_scatter(values, flow, keep)
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,6 +117,8 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sininn_splat_region.argtypes = [ptr, ptr, ptr] + [i32] * 8 + [ptr]
     lib.sininn_splat_region.restype = i32
+    lib.sininn_splat_region_local.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.sininn_splat_region_local.restype = i32
     lib.sininn_error_string.argtypes = [i32]
     lib.sininn_error_string.restype = ctypes.c_char_p
     return lib
@@ -91,18 +141,25 @@ def _check(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
 
 
 def _launch(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
-            max_dx: int) -> torch.Tensor:
+            max_dx: int, off_out=None) -> torch.Tensor:
+    """One launch of K5, or of K5 local when ``off_out`` is given."""
     if not (values.is_contiguous() and flow.is_contiguous()):
         raise ValueError("splat kernel needs contiguous NHWC tensors")
     n, h, w, c = values.shape
     sh, sw = window_shape(max_dy, max_dx)
     out = torch.zeros_like(values)
     lib = _lib()
+    stream = torch.cuda.current_stream(values.device).cuda_stream
     with torch.cuda.device(values.device):
-        err = lib.sininn_splat_region(
-            values.data_ptr(), flow.data_ptr(), out.data_ptr(), n, h, w, c,
-            max_dy, max_dx, sh, sw,
-            torch.cuda.current_stream(values.device).cuda_stream)
+        if off_out is None:
+            err = lib.sininn_splat_region(
+                values.data_ptr(), flow.data_ptr(), out.data_ptr(), n, h, w,
+                c, max_dy, max_dx, sh, sw, stream)
+        else:
+            off_out = aligned_offsets(off_out)
+            err = lib.sininn_splat_region_local(
+                values.data_ptr(), flow.data_ptr(), off_out.data_ptr(),
+                out.data_ptr(), n, h, w, c, max_dy, max_dx, sh, sw, stream)
     if err != 0:
         raise RuntimeError("splat_region kernel launch failed: "
                            + lib.sininn_error_string(err).decode())
@@ -160,8 +217,72 @@ def softsplat_region_with_coverage(inp: torch.Tensor, flow: torch.Tensor,
         inp, flow, metric)
 
 
-KERNELS = (splat_region,)
-splat_region.launches = 0
+def splat_local_forward(values: torch.Tensor, flow: torch.Tensor,
+                        off_out: torch.Tensor, loc_dy: int,
+                        loc_dx: int) -> torch.Tensor:
+    """K5 local on detached tensors: the kernel on the card (counted), the
+    plain version on the CPU."""
+    _check(values, flow, loc_dy, loc_dx)
+    check_offsets(off_out, values)
+    if values.device.type == "cpu":
+        return splat_region_local_plain(values, flow, off_out, loc_dy, loc_dx)
+    if values.numel() == 0:
+        return torch.zeros_like(values)
+    out = _launch(values, flow, loc_dy, loc_dx, off_out)
+    splat_region_local.launches += 1
+    return out
+
+
+class SplatRegionLocal(torch.autograd.Function):
+    """K5 local forward; backward = one K6 local gradient-mode launch with
+    the source-tile offsets and raw coordinates. ``apply(values, flow,
+    off_out, off_src, loc_dy, loc_dx)``; the offsets get no gradient."""
+
+    @staticmethod
+    def forward(ctx, values, flow, off_out, off_src, loc_dy, loc_dx):
+        ctx.bounds = (loc_dy, loc_dx)
+        ctx.save_for_backward(values, flow, off_src)
+        return splat_local_forward(values, flow, off_out, loc_dy, loc_dx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        values, flow, off_src = ctx.saved_tensors
+        d_values, dfx, dfy = gather_region_local_grads(
+            g.contiguous(), flow, values, off_src, *ctx.bounds, RAW)
+        return (d_values, torch.stack([dfx, dfy], dim=-1), None, None, None,
+                None)
+
+
+def splat_region_local(values: torch.Tensor, flow: torch.Tensor,
+                       off_out: torch.Tensor, off_src: torch.Tensor,
+                       loc_dy: int, loc_dx: int) -> torch.Tensor:
+    """K5 local: the local-window splat of ``values`` (N, H, W, C) along
+    ``flow`` (N, H, W, 2), with the offsets of ``ops.offsets.
+    tile_flow_offsets(flow, ...)``. Differentiable in values and flow."""
+    _check(values, flow, loc_dy, loc_dx)
+    check_offsets(off_out, values)
+    check_offsets(off_src, values)
+    return SplatRegionLocal.apply(values, flow, off_out, off_src, loc_dy,
+                                  loc_dx)
+
+
+def softsplat_region_local_with_coverage(inp: torch.Tensor,
+                                         flow: torch.Tensor,
+                                         metric: torch.Tensor, loc_dy: int,
+                                         loc_dx: int, off_out: torch.Tensor,
+                                         off_src: torch.Tensor):
+    """Softmax splat and coverage on K5 local. Returns (softmax_out,
+    coverage)."""
+    return softmax_coverage_via(
+        lambda cat, fl: splat_region_local(cat, fl, off_out, off_src, loc_dy,
+                                           loc_dx),
+        inp, flow, metric)
+
+
+KERNELS = (splat_region, splat_region_local)
+for _k in KERNELS:
+    _k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:

@@ -81,8 +81,10 @@ def census_loss(im: torch.Tensor, im_warp: torch.Tensor, mask: torch.Tensor,
             acc = acc + d / (0.1 + d)
     dist_mean = acc / (p * p)
     _, h, w, _ = im.shape
-    valid = torch.zeros((1, h, w), dtype=im.dtype, device=im.device)
-    valid[:, md:h - md, md:w - md] = 1.0
+    # the interior, built on the device: a slice assignment of a Python
+    # number would copy it from the host and wait for the card
+    valid = F.pad(torch.ones((1, h - 2 * md, w - 2 * md), dtype=im.dtype,
+                             device=im.device), (md, md, md, md))
     return (dist_mean * valid).mean() / mask.sum() * mask.numel() * weight
 
 

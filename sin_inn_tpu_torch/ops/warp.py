@@ -7,15 +7,17 @@ Counterpart of ``sin_inn_tpu/ops/warp.py`` (``sample_bilinear``,
 kernel. ``sample_bilinear`` masks each of the four taps on its own, as the
 reference does: a tap outside the image contributes zero ('zeros') or reads
 the clamped edge ('border'). ``resample2d`` and ``flow_warp`` are the exact,
-unwindowed warps; the windowed one is the gather kernel
-(``ops/cuda/gather.py``). The windowed XLA form ``resample2d_windowed`` is
-not ported.
+unwindowed warps; ``resample2d_windowed`` is the reference's windowed form
+(dense matmuls on the TPU, XLA there, so plain PyTorch here, differentiated
+by autograd), and the windowed kernels are in ``ops/cuda/gather.py``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 
@@ -28,10 +30,20 @@ def _gather_2d(img: torch.Tensor, ix: torch.Tensor,
     return out.reshape(n, ix.shape[1], ix.shape[2], c)
 
 
+def scale_shift(t: torch.Tensor, s: float, sh: float) -> torch.Tensor:
+    """t s + sh rounded once to fp32, as a fused multiply-add rounds it (the
+    reference's XLA forms and the gather kernel's ``__fmaf_rn``): the fp32
+    product is exact in fp64. Differentiable."""
+    return (t.double() * float(np.float32(s)) + sh).float()
+
+
 def sample_bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                    padding: str = "zeros") -> torch.Tensor:
+                    padding: str = "zeros",
+                    keep: Optional[Callable] = None) -> torch.Tensor:
     """Bilinear sample of img (N, H, W, C) at continuous pixel coordinates
-    x, y (N, Ho, Wo). padding: 'zeros' or 'border'."""
+    x, y (N, Ho, Wo). padding: 'zeros' or 'border'. ``keep(xi, yi)`` (with
+    'zeros') also drops each tap whose (float) column and row it does not
+    keep."""
     if padding not in ("zeros", "border"):
         raise ValueError(f"padding must be 'zeros' or 'border', got "
                          f"{padding!r}")
@@ -47,6 +59,8 @@ def sample_bilinear(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         val = _gather_2d(img, xi_c, yi_c)
         if padding == "zeros":
             valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+            if keep is not None:
+                valid = valid & keep(xi, yi)
             weight = weight * valid.to(img.dtype)
         return val * weight[..., None]
 
@@ -89,6 +103,39 @@ def resample2d(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     grid = torch.stack([(xs + flow[..., 0]) / (w - 1) * 2.0 - 1.0,
                         (ys + flow[..., 1]) / (h - 1) * 2.0 - 1.0], dim=-1)
     return grid_sample(img, grid, align_corners=False, padding="zeros")
+
+
+def resample2d_windowed(img: torch.Tensor, flow: torch.Tensor, max_dy: int,
+                        chunk: int = 8, max_dx: Optional[int] = None,
+                        col_chunk: int = 128) -> torch.Tensor:
+    """The reference's windowed ``resample2d`` (with its fused backward): the
+    exact warp at p = (x + f) size / (size - 1) - 0.5, but a tap row counts
+    only if it lies in [s - max_dy, s - max_dy + 2 max_dy + chunk + 1),
+    s = chunk floor(y / chunk) the output pixel's row chunk, and with
+    ``max_dx`` a tap column only if it lies in [b - max_dx, b - max_dx +
+    2 max_dx + cw + 1), b = cw floor(x / cw), cw = min(col_chunk, W). Exact
+    for |py - y| <= max_dy - 1 (and |px - x| <= max_dx - 1). Autograd gives
+    the reference's hand-derived flow gradient (one-hot differences of the
+    kept taps) and the image gradient (the scatter of the cotangent)."""
+    n, h, w, _ = flow.shape
+    dev = img.device
+    ys = torch.arange(h, dtype=img.dtype, device=dev)[None, :, None]
+    xs = torch.arange(w, dtype=img.dtype, device=dev)[None, None, :]
+    px = scale_shift(xs + flow[..., 0], w / (w - 1), -0.5)
+    py = scale_shift(ys + flow[..., 1], h / (h - 1), -0.5)
+    r_lo = (torch.arange(h, device=dev) // chunk * chunk - max_dy
+            ).to(img.dtype)[None, :, None]
+    r_span = 2 * max_dy + chunk + 1
+    if max_dx is None:
+        keep = lambda xi, yi: (yi >= r_lo) & (yi < r_lo + r_span)
+    else:
+        cw = min(col_chunk, w)
+        k_lo = (torch.arange(w, device=dev) // cw * cw - max_dx
+                ).to(img.dtype)[None, None, :]
+        k_span = 2 * max_dx + cw + 1
+        keep = lambda xi, yi: ((yi >= r_lo) & (yi < r_lo + r_span)
+                               & (xi >= k_lo) & (xi < k_lo + k_span))
+    return sample_bilinear(img, px, py, padding="zeros", keep=keep)
 
 
 def flow_warp(img: torch.Tensor, flow: torch.Tensor,

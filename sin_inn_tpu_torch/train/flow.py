@@ -1,28 +1,27 @@
 """Training, inference and frame interpolation of the flow INR.
 
-Counterpart of ``sin_inn_tpu/train/flow.py`` on the static (global)
-windows: ``pose_grid``, ``flow_forward`` (with the controller's mask for a
-progressive net), ``_splat_ops`` (the static routes), the training side
-(``FlowTrainState``, ``build_flow_model``, ``photometric_flow_loss``,
-``flow_loss``, ``create_flow_state``, ``make_flow_train_step`` with the
-controller's transition), ``flow_infer`` (the function ``make_flow_infer``
-jits), ``frame_interp`` (the function ``make_frame_interp`` jits, with the
-same arithmetic) and ``epe``. PyTorch runs eagerly, so the step is a plain
+Counterpart of ``sin_inn_tpu/train/flow.py``: ``pose_grid``,
+``flow_forward`` (with the controller's mask for a progressive net),
+``_splat_ops`` and ``_flow_offsets`` (the routes of the warps and splats),
+the training side (``FlowTrainState``, ``build_flow_model``,
+``photometric_flow_loss`` with the window monitors, ``flow_loss``,
+``create_flow_state``, ``make_flow_train_step`` with the controller's
+transition), ``flow_infer`` (the function ``make_flow_infer`` jits),
+``frame_interp`` (the function ``make_frame_interp`` jits, with the same
+arithmetic) and ``epe``. PyTorch runs eagerly, so the step is a plain
 closure.
 
-One train step on the kernel route runs, as the TPU package's step does
-with its local windows off: the INR forward (plain PyTorch for a constant
-mask, the fused kernel K7 forward under the spatial controller, whose mask
-reaches it as row slabs) and its backward as the fused kernel (K7
-backward), two windowed warps (K6) and two windowed splats (K5) forward, and
-the gather kernel's gradient mode four times backward (the two warps' flow
-gradients, the two splats' backward). The frames need no gradient, so the
-backward launches no K5. The controller's transition follows the optimizer
-step and reads nothing back from the device.
-
-The local-window kernels are not ported yet: a trained net whose window
-sidecar names local windows is refused where the sidecar is read
-(``train/loop.py`` ``_load_window_bounds``).
+One train step at the defaults runs, as the TPU package's step does: the
+INR forward (plain PyTorch for a constant mask, the fused kernel K7 forward
+under the spatial controller, whose mask reaches it as row slabs) and its
+backward as the fused kernel (K7 backward), the window offsets of both
+flows (``ops/offsets.py``, plain PyTorch on the device), two local-window
+warps (K6 local) and two local-window splats (K5 local) forward, and K6
+local's gradient mode four times backward (the two warps' flow gradients,
+the two splats' backward). The frames need no gradient, so the backward
+launches no K5 local. The controller's transition follows the optimizer
+step and reads nothing back from the device; nor do the offsets and the
+window monitors, which stay on the device.
 """
 
 from __future__ import annotations
@@ -39,13 +38,18 @@ from sin_inn_tpu_torch.models.inr import (INRSpec, build_inr, flat_leaves,
                                           fused_spatial_mask_format,
                                           inr_apply)
 from sin_inn_tpu_torch.ops import losses as L
-from sin_inn_tpu_torch.ops.cuda.gather import resample2d_region
-from sin_inn_tpu_torch.ops.cuda.splat import softsplat_region_with_coverage
+from sin_inn_tpu_torch.ops.cuda.gather import (resample2d_region,
+                                               resample2d_region_local)
+from sin_inn_tpu_torch.ops.cuda.splat import (
+    softsplat_region_local_with_coverage, softsplat_region_with_coverage)
 from sin_inn_tpu_torch.ops.occlusion import occlusion_brox
+from sin_inn_tpu_torch.ops.offsets import tile_flow_offsets
 from sin_inn_tpu_torch.ops.photometric import (bilateral_smooth, census_loss,
                                                masked_l1, ssim_loss)
-from sin_inn_tpu_torch.ops.splat import softsplat, softsplat_with_coverage
-from sin_inn_tpu_torch.ops.warp import resample2d
+from sin_inn_tpu_torch.ops.splat import (softsplat,
+                                         softsplat_windowed_with_coverage,
+                                         softsplat_with_coverage)
+from sin_inn_tpu_torch.ops.warp import resample2d, resample2d_windowed
 from sin_inn_tpu_torch.train.optim import lamb
 
 
@@ -159,28 +163,68 @@ def flow_forward(spec: INRSpec, params, consts, times: torch.Tensor, h: int,
     return flows[..., :2].contiguous(), flows[..., 2:].contiguous()
 
 
-def _splat_ops(cfg: FlowConfig) -> Tuple[Callable, Callable]:
-    """(warp, splat_with_coverage) for a config with resolved bounds.
+_TILE = 128    # the local-window kernels' tile rows and columns
 
-    Both bounds set: the windowed gather (K6) and splat (K5), which run
-    their kernels on CUDA tensors and their plain versions on CPU tensors.
-    No bounds: the exact resample2d and scatter. The row-only window (dy
-    without dx) needs ``softsplat_windowed_with_coverage``, which is not
-    ported, and raises."""
+
+def _splat_ops(cfg: FlowConfig) -> Tuple[Callable, Callable, Optional[Tuple]]:
+    """(warp, splat_with_coverage, local_spec) for a config with resolved
+    bounds. Both closures take a trailing ``offs``: the ``TileOffsets`` of
+    their flow (:func:`_flow_offsets`) when ``local_spec`` is not None,
+    ignored otherwise.
+
+    - both bounds, ``use_kernel="auto"`` and the local row bound: the
+      local-window kernels (K6 local, K5 local), local_spec = (ldy, ldx,
+      capy, capx) with capy = dy rounded up to 8 and, without a local column
+      bound, ldx = dx and capx = 0 (no column offsets);
+    - both bounds and ``auto``: the static windowed kernels (K6, K5);
+    - both bounds and ``off``: the windowed forms, ``resample2d_windowed``
+      and the row-windowed ``softsplat_windowed_with_coverage``;
+    - dy alone: the exact warp and the row-windowed splat;
+    - no bounds: the exact warp and scatter.
+    The kernels run their plain versions on CPU tensors."""
     if not cfg.bounds_resolved:
         raise ValueError("_splat_ops needs resolved window bounds "
                          "(FlowConfig.resolve_splat_bounds)")
     dy, dx = cfg.splat_max_dy, cfg.splat_max_dx
-    if dy and dx:
-        warp = lambda im, fl: resample2d_region(im, fl, dy, dx)
-        splat_cov = lambda f, fl, m: softsplat_region_with_coverage(
+    kernels = cfg.use_kernel == "auto"
+    if dy and dx and kernels and cfg.splat_local_dy:
+        ldy = cfg.splat_local_dy
+        capy = -(-dy // 8) * 8
+        if cfg.splat_local_dx:
+            ldx, capx = cfg.splat_local_dx, -(-dx // 128) * 128
+        else:
+            ldx, capx = dx, 0
+        warp = lambda im, fl, offs: resample2d_region_local(
+            im, fl, offs.off_src, ldy, ldx, capy, capx)
+        splat_cov = lambda f, fl, m, offs: (
+            softsplat_region_local_with_coverage(
+                f, fl, m, ldy, ldx, offs.off_out, offs.off_src))
+        return warp, splat_cov, (ldy, ldx, capy, capx)
+    if dy and dx and kernels:
+        warp = lambda im, fl, offs=None: resample2d_region(im, fl, dy, dx)
+        splat_cov = lambda f, fl, m, offs=None: softsplat_region_with_coverage(
             f, fl, m, dy, dx)
-        return warp, splat_cov
+        return warp, splat_cov, None
+    if dy and dx:
+        warp = lambda im, fl, offs=None: resample2d_windowed(
+            im, fl, dy, cfg.resample_chunk, dx, cfg.splat_col_chunk)
+    else:
+        warp = lambda im, fl, offs=None: resample2d(im, fl)
     if dy:
-        raise NotImplementedError(
-            "a row-only splat window (splat_max_dy without splat_max_dx) "
-            "needs softsplat_windowed_with_coverage, which is not ported")
-    return resample2d, softsplat_with_coverage
+        splat_cov = lambda f, fl, m, offs=None: (
+            softsplat_windowed_with_coverage(f, fl, m, dy, cfg.splat_chunk))
+    else:
+        splat_cov = lambda f, fl, m, offs=None: softsplat_with_coverage(
+            f, fl, m)
+    return warp, splat_cov, None
+
+
+def _flow_offsets(flow: torch.Tensor, local_spec):
+    """The window offsets of one flow (None without a local spec)."""
+    if local_spec is None:
+        return None
+    _, _, capy, capx = local_spec
+    return tile_flow_offsets(flow, _TILE, _TILE, capy, capx)
 
 
 def photometric_flow_loss(cfg: FlowConfig, frame1: torch.Tensor,
@@ -193,17 +237,19 @@ def photometric_flow_loss(cfg: FlowConfig, frame1: torch.Tensor,
     b, h, w, _ = frame1.shape
     if not cfg.bounds_resolved:
         cfg = cfg.resolve_splat_bounds(h, w)
-    warp, splat_cov = _splat_ops(cfg)
-    warped2 = warp(frame1, flow21)
+    warp, splat_cov, local = _splat_ops(cfg)
+    offs21 = _flow_offsets(flow21, local)
+    offs12 = _flow_offsets(flow12, local)
+    warped2 = warp(frame1, flow21, offs21)
     metric = (frame2 - warped2).abs().mean(-1, keepdim=True)
-    warped1 = warp(frame2, flow12)
+    warped1 = warp(frame2, flow12, offs12)
     metric2 = (frame1 - warped1).abs().mean(-1, keepdim=True)
 
     if cfg.occl == "wang":
         # the range map (a splat of ones along the same flow) shares one
         # pass with the softmax splat
-        softmax1, cover1 = splat_cov(frame2, flow21, -20.0 * metric)
-        softmax2, cover2 = splat_cov(frame1, flow12, -20.0 * metric2)
+        softmax1, cover1 = splat_cov(frame2, flow21, -20.0 * metric, offs21)
+        softmax2, cover2 = splat_cov(frame1, flow12, -20.0 * metric2, offs12)
         mask1 = (cover1 > cfg.occl_thresh).to(frame1.dtype)
         mask2 = (cover2 > cfg.occl_thresh).to(frame1.dtype)
     else:
@@ -246,6 +292,14 @@ def photometric_flow_loss(cfg: FlowConfig, frame1: torch.Tensor,
             af = torch.maximum(flow12.abs(), flow21.abs())
             aux["flow_max_x"] = af[..., 0].max()
             aux["flow_max_y"] = af[..., 1].max()
+        if local is not None:
+            # local-window monitor: the drop criterion is the deviation from
+            # the tile offsets (both criteria, both directions)
+            dev = torch.maximum(
+                torch.maximum(offs12.dev_src, offs12.dev_out),
+                torch.maximum(offs21.dev_src, offs21.dev_out))
+            aux["flow_dev_x"] = dev[0]
+            aux["flow_dev_y"] = dev[1]
         # the per-point photometric error map (the spatial controller's
         # signal in the reference)
         err = (((softmax1 - frame1).abs() * mask1).mean(-1)
@@ -356,9 +410,18 @@ def frame_interp(spec: INRSpec, cfg: FlowConfig, params, consts, t0,
     -20 L1 photometric softmax metric of each direction, each endpoint
     splatted along its alpha-scaled flow, the two blended (1 - alpha,
     alpha) where covered, the cross-fade where neither covers. alpha = 0
-    and 1 reproduce the endpoint frames. Returns (H, W, 3)."""
+    and 1 reproduce the endpoint frames. Returns (H, W, 3).
+
+    A config whose local bound is still 'auto' (no training evidence: the
+    entry points apply the training run's bounds from its sidecar first)
+    serves on the static windows; each splat flow gets its own offsets."""
     h, w = frames2.shape[1:3]
-    warp, splat_cov = _splat_ops(cfg.resolve_splat_bounds(h, w))
+    if not cfg.bounds_resolved:
+        if cfg.splat_local_dy == "auto":
+            cfg = cfg.replace(splat_local_dy="off", splat_local_dx="off")
+        cfg = cfg.resolve_splat_bounds(h, w)
+    warp, splat_cov, local = _splat_ops(cfg)
+    offs = lambda fl: _flow_offsets(fl, local)
     with torch.no_grad():
         t0 = torch.as_tensor(t0, dtype=torch.float32,
                              device=frames2.device).reshape(1)
@@ -367,10 +430,13 @@ def frame_interp(spec: INRSpec, cfg: FlowConfig, params, consts, t0,
         frame0, frame1 = frames2[0:1], frames2[1:2]
         flow01, flow10 = f12[0:1], f21[0:1]
         alpha = float(alpha)
-        m0 = (frame0 - warp(frame1, flow01)).abs().mean(-1, keepdim=True)
-        m1 = (frame1 - warp(frame0, flow10)).abs().mean(-1, keepdim=True)
-        s0, c0 = splat_cov(frame0, alpha * flow01, -20.0 * m0)
-        s1, c1 = splat_cov(frame1, (1.0 - alpha) * flow10, -20.0 * m1)
+        m0 = (frame0 - warp(frame1, flow01, offs(flow01))
+              ).abs().mean(-1, keepdim=True)
+        m1 = (frame1 - warp(frame0, flow10, offs(flow10))
+              ).abs().mean(-1, keepdim=True)
+        f0, f1 = alpha * flow01, (1.0 - alpha) * flow10
+        s0, c0 = splat_cov(frame0, f0, -20.0 * m0, offs(f0))
+        s1, c1 = splat_cov(frame1, f1, -20.0 * m1, offs(f1))
         w0 = (1.0 - alpha) * (c0 > 0.0).to(frames2.dtype)
         w1 = alpha * (c1 > 0.0).to(frames2.dtype)
         den = w0 + w1

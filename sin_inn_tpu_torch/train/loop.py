@@ -4,17 +4,16 @@
 Counterpart of ``sin_inn_tpu/train/loop.py`` on one device: for SR,
 ``sr_dirs``, ``_sr_create_and_restore``, ``run_sr_train`` and
 ``run_sr_test``; for flow, ``flow_ckpt_dir``, ``_flow_create_and_restore``,
-the window-bound sidecar (``_save_window_bounds``, and
-``_load_window_bounds``, which also holds the reference's
-``_inference_bounds`` rule), ``run_flow_train``, ``run_flow_test`` and
+the window bounds (``_q16``, ``_q8p``, the sidecar ``_save_window_bounds``,
+``_load_window_bounds``, ``_load_window_hist``, ``_inference_bounds``, the
+GT-flow probe ``_resolve_and_probe_splat_bounds`` and the mid-training
+refit ``_refit_window_bounds``), ``run_flow_train``, ``run_flow_test`` and
 ``run_flow_interpolate``. The frame loops are factored out as in-memory
 cores (:func:`sr_test_frames`, :func:`flow_test_outputs`,
 :func:`interpolate_frames`) that return numpy arrays and uint8 frames
-without touching imageio or ffmpeg. ``run_flow_train`` trains on the static
-global windows: the GT-flow probe of the window bounds, their mid-training
-refit and the pseudo-GT producers are not ported, nor are the mesh, tuner,
-profiler and ``--import-torch`` branches, ``sr export`` and ``flow
-{export,summarize,sintel}``.
+without touching imageio or ffmpeg. The pseudo-GT producers are not ported,
+nor are the mesh, tuner, profiler and ``--import-torch`` branches, ``sr
+export`` and ``flow {export,summarize,sintel}``.
 """
 
 from __future__ import annotations
@@ -42,6 +41,7 @@ from sin_inn_tpu_torch.io.video_io import VideoWriter
 from sin_inn_tpu_torch.models import controllers as C
 from sin_inn_tpu_torch.models.inr import flat_leaves
 from sin_inn_tpu_torch.ops.occlusion import OCCLUSIONS
+from sin_inn_tpu_torch.ops.offsets import tile_deviation_fine, tile_flow_offsets
 from sin_inn_tpu_torch.train import flow as FT
 from sin_inn_tpu_torch.train import sr as SR
 
@@ -344,52 +344,213 @@ def _flow_train_create_and_restore(cfg: FlowConfig, init_gen, scene: str):
     return spec, state, restored["consts"], store, int(step)
 
 
-_LOCAL_BOUND_KEYS = ("splat_local_dy", "splat_local_dx")
+def _q16(v) -> int:
+    """A global window bound from a measured max |flow|: 1.5x, rounded up to
+    16 px, at least 16. Shared by the GT probe and the refit."""
+    return max(16, int(-(-(1.5 * float(v)) // 16) * 16))
 
 
-def _save_window_bounds(directory: str, cfg: FlowConfig, fh: int,
-                        fw: int) -> None:
-    """Write the run's effective window bounds beside its checkpoints
-    (``window_bounds.json``), so that a resume and a later ``flow test`` or
-    ``flow interpolate`` at the same frame size use the windows the net was
-    trained on. The local bounds are written as null: this run trained on
-    the global windows."""
+def _q8p(v) -> int:
+    """A local row bound from a measured per-tile deviation: 1.5x + 3 px
+    (the resample coordinates' shift), rounded up to 8, at least 8. Shared
+    by the GT probe and the refit."""
+    return max(8, int(-(-(1.5 * float(v) + 3.0) // 8) * 8))
+
+
+def _save_window_bounds(directory: str, cfg: FlowConfig, fh: int, fw: int,
+                        hist: Optional[Dict] = None) -> None:
+    """Write the run's effective window bounds, global and local, beside its
+    checkpoints (``window_bounds.json``), with ``hist``, the refit monitor's
+    running maxima, so that a resume and a later ``flow test`` or ``flow
+    interpolate`` at the same frame size use the windows the net was
+    trained on, and a resume keeps the history its refit decides by."""
     import json
     with open(path.join(directory, "window_bounds.json"), "w") as f:
         json.dump({"fh": fh, "fw": fw,
                    **{k: getattr(cfg, k) for k in FlowConfig.WINDOW_BOUND_KEYS},
-                   **{k: None for k in _LOCAL_BOUND_KEYS}, "hist": {}}, f)
+                   "hist": hist or {}}, f)
+
+
+def _read_window_sidecar(directory: str, fh: int, fw: int) -> Optional[Dict]:
+    """The sidecar's contents, or None when it is absent, unreadable or of
+    another frame size (bounds are pixels at the train frame size)."""
+    import json
+    try:
+        with open(path.join(directory, "window_bounds.json")) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return None
+    return data if (data.get("fh"), data.get("fw")) == (fh, fw) else None
+
+
+def _load_window_hist(directory: str, fh: int, fw: int) -> Dict:
+    """The sidecar's refit-monitor maxima ({} without a valid sidecar)."""
+    data = _read_window_sidecar(directory, fh, fw) or {}
+    return {k: float(v) for k, v in data.get("hist", {}).items()
+            if v is not None}
 
 
 def _load_window_bounds(cfg: FlowConfig, directory: str, fh: int,
                         fw: int) -> Tuple[FlowConfig, bool]:
-    """Apply the training run's effective window bounds
-    (``window_bounds.json`` beside the checkpoints) to every bound still on
-    'auto'; an explicit value given now wins. Bounds are pixels at the
-    train frame size, so another size ignores them. A run that trained on
-    local windows (a non-null local bound in the sidecar) is refused: the
-    static windows would compute another function. Without a sidecar no
-    local window engages, as in the reference's ``_inference_bounds``.
-    Returns (cfg, sidecar_found_and_valid)."""
-    import json
-    p = path.join(directory, "window_bounds.json")
-    if not path.exists(p):
+    """Apply the training run's effective window bounds (the sidecar beside
+    the checkpoints) to every bound still on 'auto'; an explicit value
+    given now wins. Returns (cfg, sidecar_found_and_valid)."""
+    data = _read_window_sidecar(directory, fh, fw)
+    if data is None:
         return cfg, False
-    try:
-        with open(p) as f:
-            data = json.load(f)
-    except (OSError, ValueError):
-        return cfg, False
-    if (data.get("fh"), data.get("fw")) != (fh, fw):
-        return cfg, False
-    local = {k: data[k] for k in _LOCAL_BOUND_KEYS if data.get(k)}
-    if local:
-        raise NotImplementedError(
-            f"{p} names local windows {local}: slice B2 (the local-window "
-            "kernels are not ported yet)")
     upd = {k: data[k] for k in FlowConfig.WINDOW_BOUND_KEYS
            if k in data and getattr(cfg, k) == "auto"}
     return (cfg.replace(**upd) if upd else cfg), True
+
+
+def _inference_bounds(cfg: FlowConfig) -> FlowConfig:
+    """Serving has no monitor and no refit: a local bound still on 'auto'
+    (no training evidence applied) resolves off, so that no local window
+    engages without deviation evidence. Global 'auto' bounds keep their
+    size-scaled defaults."""
+    upd = {k: "off" for k in ("splat_local_dy", "splat_local_dx")
+           if getattr(cfg, k) == "auto"}
+    return cfg.replace(**upd) if upd else cfg
+
+
+def _resolve_and_probe_splat_bounds(cfg: FlowConfig, media, fh: int,
+                                    fw: int) -> FlowConfig:
+    """Resolve the 'auto' window bounds for the frame size, then, when the
+    media has GT flow, re-derive every bound left on 'auto' from it:
+
+    - the global bounds to ``_q16`` of the largest |flow| (tighter for slow
+      scenes, wider for fast ones); at half the frame or beyond, the exact
+      warp and scatter, unless a global axis is pinned (a pin asks for the
+      windowed path);
+    - the local row bound to ``_q8p`` of the per-tile deviation against the
+      quantized offsets (kept only if smaller than dy);
+    - the local column bound, which only this probe engages: 64 px of
+      offset quantization plus 1.5x the unquantized deviation + 3 px,
+      rounded up to 64, kept only if it narrows the window at 128-column
+      granularity."""
+    was_auto_dy = cfg.splat_max_dy == "auto"
+    was_auto_dx = cfg.splat_max_dx == "auto"
+    was_auto_ldy = cfg.splat_local_dy == "auto"
+    was_auto_ldx = cfg.splat_local_dx == "auto"
+    # the local values as given: the probe may widen the globals to where a
+    # pinned local bound engages, so they are resolved again from these
+    raw_ldy, raw_ldx = cfg.splat_local_dy, cfg.splat_local_dx
+    cfg = cfg.resolve_splat_bounds(fh, fw)
+    have_gt = media is not None and media.gt_available
+    log = logging.getLogger(__name__)
+    if ((was_auto_dy or was_auto_dx) and have_gt
+            and isinstance(cfg.splat_max_dy, int)):
+        probe_dx = _q16(np.abs(media.flow[..., 0]).max())
+        probe_dy = _q16(np.abs(media.flow[..., 1]).max())
+        dy = probe_dy if was_auto_dy else cfg.splat_max_dy
+        dx = (probe_dx if was_auto_dx and cfg.splat_max_dx is not None
+              else cfg.splat_max_dx)
+        if (was_auto_dy and dy >= fh // 2) or (was_auto_dx and dx is not None
+                                               and dx >= fw // 2):
+            if was_auto_dy and (was_auto_dx or dx is None):
+                log.warning(
+                    "GT flow probe (|dy| window %s, |dx| window %s) reaches "
+                    "half the %dx%d frame: windowing buys nothing; taking "
+                    "the exact scatter splat and warp.", dy, dx, fh, fw)
+                dy = dx = None
+                raw_ldy = raw_ldx = None
+            else:
+                log.warning(
+                    "GT flow probe widened the auto window bound past half "
+                    "the %dx%d frame (|dy| %s, |dx| %s) but the other axis "
+                    "is pinned: keeping the windowed path.", fh, fw, dy, dx)
+        cfg = cfg.replace(splat_max_dy=dy, splat_max_dx=dx,
+                          splat_local_dy=raw_ldy, splat_local_dx=raw_ldx)
+        cfg = cfg.resolve_splat_bounds(fh, fw)
+    if was_auto_ldy and cfg.splat_local_dy is not None and have_gt:
+        dy = cfg.splat_max_dy
+        capy = -(-dy // 8) * 8
+        offs = tile_flow_offsets(torch.from_numpy(media.flow), 128, 128,
+                                 capy, 0)
+        dev_y = float(torch.maximum(offs.dev_src[1], offs.dev_out[1]))
+        ldy = _q8p(dev_y)
+        cfg = cfg.replace(splat_local_dy=ldy if ldy < dy else None)
+    if (was_auto_ldx and have_gt and isinstance(cfg.splat_local_dy, int)
+            and isinstance(cfg.splat_max_dx, int)):
+        dx = cfg.splat_max_dx
+        dev_x = float(tile_deviation_fine(torch.from_numpy(media.flow),
+                                          128, 128)[0])
+        ldx = 64 + max(0, int(-(-(1.5 * dev_x + 3.0) // 64) * 64))
+        if -(-(128 + 2 * ldx) // 128) < -(-(128 + 2 * dx) // 128):
+            cfg = cfg.replace(splat_local_dx=ldx)
+    return cfg
+
+
+def _refit_window_bounds(cfg: FlowConfig, auto: Dict, fh: int, fw: int,
+                         since: Dict, hist: Dict,
+                         allow_tighten: bool) -> Optional[FlowConfig]:
+    """The window bounds refitted from the monitor's measured flow, or None
+    when nothing changes. ``auto`` marks the bounds left on 'auto' (only
+    those move); ``since`` and ``hist`` are running maxima of the monitor
+    {fy, fx: max |flow|; dvy, dvx: max deviation from the tile offsets, in
+    local mode only} since the last refit and since the run began.
+
+    - An axis widens as soon as its stat nears the bound (|flow| > bound - 1,
+      deviation > bound - 3); a global bound widened to half the frame falls
+      back to the exact warp and scatter unless a global axis is pinned.
+    - With ``allow_tighten`` an axis tightens to the history's bound when
+      that frees at least one quantum (16 px global, 8 local rows, 64 local
+      columns), so a bound never tightens below flows already seen.
+    - A local row bound no smaller than the global dy drops local mode; a
+      dropped one re-engages from the deviation history (with one extra
+      quantum) once dy has room for it. The local column bound moves but is
+      never engaged here (that is the GT probe's)."""
+    dy, dx = cfg.splat_max_dy, cfg.splat_max_dx
+    if not dy:
+        return None
+    ldy, ldx = cfg.splat_local_dy, cfg.splat_local_dx
+    to64p = lambda v: max(128, int(-(-(1.5 * v + 3.0) // 64) * 64))
+    new: Dict = {}
+    if auto["dy"]:
+        if since["fy"] > dy - 1:
+            new["splat_max_dy"] = max(_q16(since["fy"]), dy + 16)
+        elif allow_tighten and _q16(hist["fy"]) <= dy - 16:
+            new["splat_max_dy"] = _q16(hist["fy"])
+    if auto["dx"] and dx is not None:
+        if since["fx"] > dx - 1:
+            new["splat_max_dx"] = max(_q16(since["fx"]), dx + 16)
+        elif allow_tighten and _q16(hist["fx"]) <= dx - 16:
+            new["splat_max_dx"] = _q16(hist["fx"])
+    ndy = new.get("splat_max_dy", dy)
+    ndx = new.get("splat_max_dx", dx)
+    if (auto["dy"] and ndy >= fh // 2) or (
+            auto["dx"] and ndx is not None and ndx >= fw // 2):
+        if auto["dy"] and (auto["dx"] or ndx is None):
+            return cfg.replace(splat_max_dy=None, splat_max_dx=None,
+                               splat_local_dy=None, splat_local_dx=None)
+    if ldy is not None:
+        if auto["ldy"] and since.get("dvy") is not None:
+            if since["dvy"] > ldy - 3:
+                new["splat_local_dy"] = max(_q8p(since["dvy"]), ldy + 8)
+            elif allow_tighten and _q8p(hist["dvy"]) <= ldy - 8:
+                new["splat_local_dy"] = _q8p(hist["dvy"])
+        nldy = new.get("splat_local_dy", ldy)
+        if nldy is not None and nldy >= ndy:
+            new["splat_local_dy"] = None
+            new["splat_local_dx"] = None
+        elif (ldx is not None and auto["ldx"] and ndx is not None
+              and since.get("dvx") is not None):
+            if since["dvx"] > ldx - 3:
+                new["splat_local_dx"] = max(to64p(since["dvx"]), ldx + 64)
+            elif allow_tighten and to64p(hist["dvx"]) <= ldx - 64:
+                new["splat_local_dx"] = to64p(hist["dvx"])
+            nldx = new.get("splat_local_dx", ldx)
+            if (nldx is not None and -(-(128 + 2 * nldx) // 128)
+                    >= -(-(128 + 2 * ndx) // 128)):
+                new["splat_local_dx"] = None
+    elif (auto["ldy"] and ndx is not None
+          and hist.get("dvy") is not None):
+        cand = _q8p(hist["dvy"]) + 8
+        if cand <= ndy - 8:
+            new["splat_local_dy"] = cand
+    if not new or all(getattr(cfg, k) == v for k, v in new.items()):
+        return None
+    return cfg.replace(**new)
 
 
 def _to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict:
@@ -398,22 +559,60 @@ def _to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict:
             for k, v in batch.items()}
 
 
+def _warn_if_outgrown(cfg: FlowConfig, m: Dict, epoch: int) -> bool:
+    """Warn once the flow nears the windows whose far taps are dropped: in
+    local mode the deviation from the tile offsets against the local bounds
+    (with a 3 px margin for the resample coordinates' shift), else |flow|
+    against the global ones. Returns whether it warned."""
+    log = logging.getLogger(__name__)
+    dy, dx = cfg.splat_max_dy, cfg.splat_max_dx
+    if "flow_dev_y" in m and cfg.splat_local_dy:
+        dvy, dvx = float(m["flow_dev_y"]), float(m["flow_dev_x"])
+        ldy = cfg.splat_local_dy
+        ldx = cfg.splat_local_dx or dx
+        if dvy > ldy - 3 or dvx > ldx - 3:
+            log.warning(
+                "flow deviation from the tile means (dy %.1f px; dx %.1f px) "
+                "approaches the local window bounds (local dy=%s, x=%s) at "
+                "epoch %d: taps beyond the window are being dropped. Raise "
+                "--splat-local-dy/--splat-local-dx (or pass 'off' for the "
+                "global windows) / --splat-max-dx.", dvy, dvx, ldy, ldx,
+                epoch)
+            return True
+        return False
+    fy, fx = float(m["flow_max_y"]), float(m["flow_max_x"])
+    if fy > dy - 1 or (dx is not None and fx > dx - 1):
+        log.warning(
+            "flow magnitude (|fy| %.1f, |fx| %.1f px) exceeds the splat "
+            "window bounds (dy=%s, dx=%s) at epoch %d: taps beyond the "
+            "window are being dropped. Raise --splat-max-dy/--splat-max-dx "
+            "or pass 'off' for the exact scatter.", fy, fx, dy, dx, epoch)
+        return True
+    return False
+
+
 def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
                    use_wandb: bool = False, val_media=None,
                    keep_writer: bool = False) -> Dict:
     """``flow train`` on one device: fit the config's INR to the video's
     flow with the photometric loss and LAMB.
 
-    The frame-pair batches are placed on the device once and replayed every
-    epoch in a seeded permutation. At the ``val_iter`` cadence (off by
-    default) and at the last epoch the step's metrics and pairs/s are
-    logged, with the validation EPE when the val media has GT flow (summed
-    on the device, one scalar read). A checkpoint (``{"params", "consts",
-    "opt", "step"}``, and ``"ctrl_state"`` for a progressive net, whose
-    controller a resume continues) and the window-bound sidecar are written
-    every ``epochs // 100`` epochs, at the last epoch and on SIGTERM/SIGINT; a
-    rerun resumes from the latest one. When the flow outgrows the windows
-    (whose far taps are dropped) the loop warns once."""
+    The window bounds are resolved for the frame size and, with GT flow,
+    probed from it (``_resolve_and_probe_splat_bounds``); a resume keeps
+    the bounds its run had reached (the sidecar). The frame-pair batches are
+    placed on the device once and replayed every epoch in a seeded
+    permutation. At the ``val_iter`` cadence (off by default) and at the
+    last epoch the step's metrics and pairs/s are logged, with the
+    validation EPE when the val media has GT flow (summed on the device, one
+    scalar read). A checkpoint (``{"params", "consts", "opt", "step"}``,
+    and ``"ctrl_state"`` for a progressive net, whose controller a resume
+    continues) and the window-bound sidecar are written every ``epochs //
+    100`` epochs, at the last epoch and on SIGTERM/SIGINT; a rerun resumes
+    from the latest one. The window monitor of every step is kept on the
+    device as a running maximum and read at each save, where the refit
+    (``window_refit``) may move the 'auto' bounds and rebuild the step;
+    when the flow outgrows the windows (whose far taps are dropped) the
+    loop warns once."""
     device = resolve_device(cfg.device)
     if media is None:
         media, val_media, scene = flow_media.get_video(
@@ -421,11 +620,19 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
             flow_dir=cfg.flow_dir)
     fh, fw = media.video.shape[1:3]
     ckpt_dir = flow_ckpt_dir(cfg, scene)
+    # the bounds left on 'auto': only these may move, in the probe and in
+    # the refit
+    auto_bounds = {"dy": cfg.splat_max_dy == "auto",
+                   "dx": cfg.splat_max_dx == "auto",
+                   "ldy": cfg.splat_local_dy == "auto",
+                   "ldx": cfg.splat_local_dx == "auto"}
     # a resumed run keeps the bounds it trained on (bounds pinned now win);
-    # a fresh run in a reused directory resolves its own
+    # a fresh run in a reused directory probes its own
     if CheckpointStore(ckpt_dir).latest_step() is not None:
         cfg, _ = _load_window_bounds(cfg, ckpt_dir, fh, fw)
-    cfg = cfg.resolve_splat_bounds(fh, fw)
+    cfg = _resolve_and_probe_splat_bounds(cfg, media, fh, fw)
+    refit_on = (cfg.window_refit != "off" and any(auto_bounds.values())
+                and bool(cfg.splat_max_dy))
     root = R.root_generator(cfg.random_seed)
     spec, state, consts, store, start_epoch = _flow_train_create_and_restore(
         cfg, R.named_fold(root, "init"), scene)
@@ -448,12 +655,28 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
     cached = [_to_device_batch(b, device) for b in media.batches(cfg.batch)]
     stop = GracefulStop().install()
     window_warned = False
+    # the refit monitor: the running maximum of [fy, fx(, dvy, dvx)] over
+    # every step since the last save, on the device (read at a save); the
+    # all-time maxima as host floats, restored on a resume
+    mon_since = None
+    mon_hist: Dict = (_load_window_hist(ckpt_dir, fh, fw)
+                      if start_epoch > 0 else {})
     try:
         for epoch in range(start_epoch, cfg.epochs):
+            mon_epoch = []
             for bi in rng.permutation(len(cached)):
                 batch = cached[bi]
                 m = step(state, consts, batch)
                 pairs_done += int(batch["frame1"].shape[0])
+                if refit_on and "flow_max_y" in m:
+                    mon_epoch.append(torch.stack(
+                        [m["flow_max_y"], m["flow_max_x"]]
+                        + ([m["flow_dev_y"], m["flow_dev_x"]]
+                           if "flow_dev_y" in m else [])))
+            if mon_epoch:
+                vec = torch.stack(mon_epoch).amax(dim=0)
+                mon_since = (vec if mon_since is None
+                             else torch.maximum(mon_since, vec))
             if ((epoch + 1) % cfg.effective_val_iter == 0
                     or epoch == cfg.epochs - 1):
                 last = {k: float(v) for k, v in m.items()}
@@ -477,19 +700,40 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
                 store.save(epoch + 1, flow_state_dict(
                     state.params, consts, state.step,
                     state.optimizer.state_dict(), state.ctrl_state))
-                _save_window_bounds(store.directory, cfg, fh, fw)
+            if saved and refit_on and mon_since is not None:
+                v = mon_since.tolist()
+                mon_since = None
+                since = {"fy": v[0], "fx": v[1],
+                         "dvy": v[2] if len(v) > 2 else None,
+                         "dvx": v[3] if len(v) > 3 else None}
+                for k, x in since.items():
+                    if x is not None:
+                        mon_hist[k] = max(mon_hist.get(k, 0.0), x)
+                new_cfg = _refit_window_bounds(
+                    cfg, auto_bounds, fh, fw, since, mon_hist,
+                    allow_tighten=(epoch + 1) >= max(cfg.epochs // 5, 2))
+                if new_cfg is not None:
+                    logging.getLogger(__name__).warning(
+                        "window refit at epoch %d (measured max |fy| %.1f "
+                        "|fx| %.1f dev_y %s dev_x %s): dy %s->%s dx %s->%s "
+                        "local dy %s->%s dx %s->%s; rebuilding the train "
+                        "step.", epoch + 1, since["fy"], since["fx"],
+                        since["dvy"], since["dvx"], cfg.splat_max_dy,
+                        new_cfg.splat_max_dy, cfg.splat_max_dx,
+                        new_cfg.splat_max_dx, cfg.splat_local_dy,
+                        new_cfg.splat_local_dy, cfg.splat_local_dx,
+                        new_cfg.splat_local_dx)
+                    cfg = new_cfg
+                    step = FT.make_flow_train_step(spec, cfg)
+                    window_warned = False
+                    refit_on = (cfg.window_refit != "off"
+                                and bool(cfg.splat_max_dy))
+            if saved or stop:
+                # the bounds after any refit, with the monitor's history
+                _save_window_bounds(store.directory, cfg, fh, fw, mon_hist)
             if (saved and cfg.splat_max_dy and "flow_max_y" in m
                     and not window_warned):
-                fy, fx = float(m["flow_max_y"]), float(m["flow_max_x"])
-                dy, dx = cfg.splat_max_dy, cfg.splat_max_dx
-                if fy > dy - 1 or (dx is not None and fx > dx - 1):
-                    window_warned = True
-                    logging.getLogger(__name__).warning(
-                        "flow magnitude (|fy| %.1f, |fx| %.1f px) exceeds "
-                        "the splat window bounds (dy=%s, dx=%s) at epoch %d: "
-                        "taps beyond the window are being dropped. Raise "
-                        "--splat-max-dy/--splat-max-dx or pass 'off' for "
-                        "the exact scatter.", fy, fx, dy, dx, epoch + 1)
+                window_warned = _warn_if_outgrown(cfg, m, epoch + 1)
             if stop:
                 break
     finally:
@@ -498,7 +742,7 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
             writer.close()
     out = {"state": state, "spec": spec, "consts": consts, "metrics": last,
            "scene": scene, "start_epoch": start_epoch,
-           # the effective config: the resolved window bounds
+           # the effective config: the probed and refitted window bounds
            "cfg": cfg}
     if keep_writer:
         out["writer"] = writer
@@ -547,8 +791,10 @@ def run_flow_test(cfg: FlowConfig, media=None, scene: str = "scene",
         _, media, scene = flow_media.get_video(
             cfg.input_video, cfg.size, cfg.test_size, cfg.end, cfg.step,
             flow_dir=cfg.flow_dir)
+    # the training run's bounds; without them no local window engages
     cfg, _ = _load_window_bounds(cfg, flow_ckpt_dir(cfg, scene),
                                  *media.video.shape[1:3])
+    cfg = _inference_bounds(cfg)
     if params is None:
         init = R.named_fold(R.root_generator(cfg.random_seed), "init")
         spec, params, consts, _, _, ctrl_cfg, ctrl_state = \
@@ -617,6 +863,7 @@ def run_flow_interpolate(cfg: FlowConfig, factor: int = 2, media=None,
             flow_dir=cfg.flow_dir)
     cfg, _ = _load_window_bounds(cfg, flow_ckpt_dir(cfg, scene),
                                  *media.video.shape[1:3])
+    cfg = _inference_bounds(cfg)
     init = R.named_fold(R.root_generator(cfg.random_seed), "init")
     spec, params, consts, _, _, ctrl_cfg, ctrl_state = \
         _flow_create_and_restore(

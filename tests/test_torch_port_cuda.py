@@ -11,7 +11,8 @@ rounding step. Weight and bias gradients of the backward kernels: 1e-3 of
 the largest |plain| of each (sums over all rows in another order). The
 windowed splat (K5) and gather (K6, forward and gradient mode): 1e-5 +
 1e-5 |plain| (K5 sums with atomics in a run-dependent order; K6 repeats the
-plain arithmetic). The fused INR backward (K7): each weight and bias
+plain arithmetic); their local-window forms (K5 local, K6 local) the same.
+The fused INR backward (K7): each weight and bias
 gradient within 1e-3 of the largest |plain| of it, bitwise repeatable, in
 every mask mode and with the coordinate rows of a progressive net; the fused
 INR forward (K7 forward): 1e-4 + 1e-4 |plain| in fp32 (sums over up to 515
@@ -212,8 +213,10 @@ def test_windowed_kernels_match_plain(dev, shape, c, bounds, amp):
     torch.cuda.synchronize()
     assert ((got - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
     assert K6.launch_counts() == {"gather_region": 2,
-                                  "gather_region_grads": 0}
-    assert K5.launch_counts() == {"splat_region": 1}
+                                  "gather_region_grads": 0,
+                                  "gather_region_local": 0,
+                                  "gather_region_local_grads": 0}
+    assert K5.launch_counts() == {"splat_region": 1, "splat_region_local": 0}
 
 
 def test_softsplat_region_kernel_matches_plain(dev):
@@ -267,7 +270,9 @@ def test_gather_grads_kernel_matches_plain(dev, shape, c, bounds, amp):
         if not amp and coord == K6.RAW:
             assert not got[1].any() and not got[2].any()
     assert K6.launch_counts() == {"gather_region": 0,
-                                  "gather_region_grads": 2}
+                                  "gather_region_grads": 2,
+                                  "gather_region_local": 0,
+                                  "gather_region_local_grads": 0}
 
 
 def test_windowed_functions_backward_on_the_card(dev):
@@ -292,8 +297,11 @@ def test_windowed_functions_backward_on_the_card(dev):
             torch.cuda.synchronize()
             # forward K6 + K5; backward 2 K6 grads and the image's K5 splat
             assert K6.launch_counts() == {"gather_region": 1,
-                                          "gather_region_grads": 2}
-            assert K5.launch_counts() == {"splat_region": 2}
+                                          "gather_region_grads": 2,
+                                          "gather_region_local": 0,
+                                          "gather_region_local_grads": 0}
+            assert K5.launch_counts() == {"splat_region": 2,
+                                          "splat_region_local": 0}
     for g, r in zip(grads["cuda"], grads["cpu"]):
         assert ((g - r).abs() <= 1e-4 + 1e-4 * r.abs()).all()
 
@@ -373,8 +381,10 @@ def test_inr_apply_refuses_widths_the_kernel_cannot_take(dev):
 
 
 def test_flow_train_step_kernel_route_matches_autograd(dev):
-    """One train step's parameter gradients at a small frame: the fused
-    route (K7 backward) against ``use_kernel="off"``, same K5/K6."""
+    """One train step's parameter gradients at a small frame: the kernel
+    route (K7 backward, K5 local and K6 local at local dy 8) against
+    ``use_kernel="off"`` (autograd through the plain INR and the windowed
+    forms, no kernel)."""
     import dataclasses
 
     from sin_inn_tpu_torch.core.config import FlowConfig
@@ -390,23 +400,111 @@ def test_flow_train_step_kernel_route_matches_autograd(dev):
              "times": torch.tensor([0.0], device=dev), "scale": 40.0}
     leaves = [t for _, t in flat_leaves(state.params)]
     grads = []
-    for sp in (spec, dataclasses.replace(spec, use_kernel="off")):
+    for kind in ("auto", "off"):
+        sp = dataclasses.replace(spec, use_kernel=kind)
         for t in leaves:
             t.grad = None
         for mod in (K5, K6, K7):
             mod.reset_launch_counts()
-        loss, _ = FT.flow_loss(sp, cfg, state.params, consts, batch)
+        loss, aux = FT.flow_loss(sp, cfg.replace(use_kernel=kind),
+                                 state.params, consts, batch)
         loss.backward()
         torch.cuda.synchronize()
         grads.append([t.grad.clone() for t in leaves])
-        assert K5.launch_counts() == {"splat_region": 2}
-        assert K6.launch_counts() == {"gather_region": 2,
-                                      "gather_region_grads": 4}
-        assert K7.launch_counts() == {
-            "fused_inr_forward": 0,
-            "fused_inr_backward": int(sp.use_kernel == "auto")}
+        on = int(kind == "auto")
+        assert ("flow_dev_y" in aux) == bool(on)
+        assert K5.launch_counts() == {"splat_region": 0,
+                                      "splat_region_local": 2 * on}
+        assert K6.launch_counts() == {"gather_region": 0,
+                                      "gather_region_grads": 0,
+                                      "gather_region_local": 2 * on,
+                                      "gather_region_local_grads": 4 * on}
+        assert K7.launch_counts() == {"fused_inr_forward": 0,
+                                      "fused_inr_backward": on}
     for a, b in zip(*grads):
         assert (a - b).norm() <= 1e-3 * b.norm()
+
+
+@pytest.mark.parametrize("shape,c,bounds,caps,detail", [
+    ((1, 136, 160), 3, (8, 18), (24, 0), 2.0),      # in the local window
+    ((1, 200, 300), 5, (8, 64), (24, 0), 12.0),     # beyond it
+    ((1, 436, 1024), 5, (32, 128), (64, 0), 30.0),  # the flow path's shape
+    ((2, 136, 300), 3, (16, 64), (64, 128), 2.0),   # column offsets
+])
+def test_local_window_kernels_match_plain(dev, shape, c, bounds, caps,
+                                          detail):
+    """K5 local, K6 local and K6 local grads against their plain versions
+    on the same offsets, with launch counts."""
+    from sin_inn_tpu_torch.ops.offsets import tile_flow_offsets
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n, h, w = shape
+    fl = _flow(gen, n, h, w, detail, dev)
+    fl = fl + torch.tensor([110.0 if caps[1] else -15.0, 20.0], device=dev)
+    offs = tile_flow_offsets(fl, 128, 128, *caps)
+    a = torch.rand((n, h, w, c), generator=gen, device=dev)
+    q = torch.randn((n, h, w, c), generator=gen, device=dev)
+    K5.reset_launch_counts()
+    K6.reset_launch_counts()
+    close = lambda g, r: bool(((g - r).abs() <= 1e-5 + 1e-5 * r.abs()).all())
+    got = K5.splat_region_local(a, fl, offs.off_out, offs.off_src, *bounds)
+    ref = K5.splat_region_local_plain(a, fl, offs.off_out, *bounds)
+    torch.cuda.synchronize()
+    assert close(got, ref)
+    for coord in (K6.resample_coord(h, w), K6.RAW):
+        got = K6.gather_region_local(a, fl, offs.off_src, *bounds, *caps,
+                                     coord)
+        ref = K6.gather_region_plain(a, fl, *bounds, coord,
+                                     off_src=offs.off_src)
+        assert close(got, ref)
+        got = K6.gather_region_local_grads(a, fl, q, offs.off_src, *bounds,
+                                           coord)
+        ref = K6.gather_region_grads_plain(a, fl, q, *bounds, coord,
+                                           off_src=offs.off_src)
+        torch.cuda.synchronize()
+        assert all(close(g, r) for g, r in zip(got, ref))
+    assert K5.launch_counts() == {"splat_region": 0, "splat_region_local": 1}
+    assert K6.launch_counts() == {"gather_region": 0,
+                                  "gather_region_grads": 0,
+                                  "gather_region_local": 2,
+                                  "gather_region_local_grads": 2}
+
+
+def test_local_window_functions_backward_on_the_card(dev):
+    """The local Functions' backward on CUDA tensors against the CPU's plain
+    versions: K6 local grads for the flows, K5 local (with the effective
+    displacement's own offsets) for the image."""
+    from sin_inn_tpu_torch.ops.offsets import tile_flow_offsets
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    n, h, w = 1, 136, 200
+    img = torch.rand((n, h, w, 3), generator=gen, device=dev)
+    v = torch.rand((n, h, w, 5), generator=gen, device=dev)
+    fl = _flow(gen, n, h, w, 4.0, dev) + torch.tensor([0.0, 20.0],
+                                                      device=dev)
+    wgt = torch.randn((n, h, w, 5), generator=gen, device=dev)
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        K5.reset_launch_counts()
+        K6.reset_launch_counts()
+        i_, v_, f_ = (t.to(d).clone().requires_grad_() for t in (img, v, fl))
+        offs = tile_flow_offsets(f_, 128, 128, 24, 0)
+        loss = ((K6.resample2d_region_local(i_, f_, offs.off_src, 8, 16, 24,
+                                            0) * wgt[..., :3].to(d)).sum()
+                + (K5.splat_region_local(v_, f_, offs.off_out, offs.off_src,
+                                         8, 16) * wgt.to(d)).sum())
+        loss.backward()
+        grads[d.type] = [t.grad.cpu() for t in (i_, v_, f_)]
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert K6.launch_counts() == {"gather_region": 0,
+                                          "gather_region_grads": 0,
+                                          "gather_region_local": 1,
+                                          "gather_region_local_grads": 2}
+            assert K5.launch_counts() == {"splat_region": 0,
+                                          "splat_region_local": 2}
+    for g, r in zip(grads["cuda"], grads["cpu"]):
+        assert ((g - r).abs() <= 1e-4 + 1e-4 * r.abs()).all()
 
 
 # ---------------------------------------------------------------------------

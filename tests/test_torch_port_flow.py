@@ -109,8 +109,11 @@ def test_frame_interp_matches_jax(models, video, alpha):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
     # the CPU route takes the plain versions: no kernel launches
     assert TG.launch_counts() == {"gather_region": 0,
-                                  "gather_region_grads": 0}
-    assert TK5.launch_counts() == {"splat_region": 0}
+                                  "gather_region_grads": 0,
+                                  "gather_region_local": 0,
+                                  "gather_region_local_grads": 0}
+    assert TK5.launch_counts() == {"splat_region": 0,
+                                   "splat_region_local": 0}
 
 
 def test_frame_interp_endpoints_exact(models, video):
@@ -213,9 +216,11 @@ def test_run_flow_test_and_interpolate(tmp_path, video):
         TL.interpolate_frames(cfg, media, spec, params, consts, 1)
 
 
-def test_flow_serving_refuses_a_local_window_sidecar(tmp_path, video):
-    """A net trained on local windows is not served on the static ones,
-    which compute another function."""
+def test_flow_serving_applies_a_local_window_sidecar(tmp_path, video,
+                                                     monkeypatch):
+    """A net trained on local windows is served on the local windows it was
+    trained on (the sidecar's bounds), not refused and not on the static
+    ones, which compute another function."""
     cfg = _cfg(tmp_path)
     _save_checkpoint(cfg, "clip")
     with open(os.path.join(TL.flow_ckpt_dir(cfg, "clip"),
@@ -223,9 +228,13 @@ def test_flow_serving_refuses_a_local_window_sidecar(tmp_path, video):
         json.dump({"fh": H, "fw": W, "splat_max_dy": 16, "splat_max_dx": 16,
                    "splat_local_dy": 8, "splat_local_dx": None}, f)
     media = TM.FlowMedia(video)
-    for run in (TL.run_flow_test, TL.run_flow_interpolate):
-        with pytest.raises(NotImplementedError, match="local windows"):
-            run(cfg, media=media, scene="clip")
+    seen = []
+    real = TF._splat_ops
+    monkeypatch.setattr(TF, "_splat_ops",
+                        lambda c: seen.append(c.splat_local_dy) or real(c))
+    assert TL.run_flow_test(cfg, media=media, scene="clip")["num_frames"] == 3
+    out = TL.run_flow_interpolate(cfg, media=media, scene="clip")
+    assert out["num_frames"] == 7 and seen == [8] * 3
 
 
 def test_flow_media_reads_frames_and_flo(tmp_path, video):

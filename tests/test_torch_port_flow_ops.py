@@ -292,8 +292,11 @@ def test_region_wrappers_refuse_what_they_cannot_do():
     with pytest.raises(ValueError):
         TG.resample2d_region(v.detach(), fl[..., :1], 8, 8)
     assert TG.launch_counts() == {"gather_region": 0,
-                                  "gather_region_grads": 0}
-    assert TK5.launch_counts() == {"splat_region": 0}
+                                  "gather_region_grads": 0,
+                                  "gather_region_local": 0,
+                                  "gather_region_local_grads": 0}
+    assert TK5.launch_counts() == {"splat_region": 0,
+                                   "splat_region_local": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -328,8 +331,7 @@ def _sidecar(d, **bounds):
 
 def test_window_sidecar_and_inference_bounds_match_jax(tmp_path):
     """A sidecar without local windows: the port's bounds are JAX's after
-    its ``_inference_bounds``. With local windows: JAX engages them, the
-    port (no local kernels yet) refuses rather than run static windows."""
+    its ``_inference_bounds``. With local windows: both engage them."""
     d = str(tmp_path)
     _sidecar(tmp_path, splat_local_dy=None)
     for kw, size in ((dict(), (436, 1024)), (dict(), (200, 300)),
@@ -340,6 +342,7 @@ def test_window_sidecar_and_inference_bounds_match_jax(tmp_path):
         assert found == jfound
         ri = JL._inference_bounds(ref)
         assert ri.splat_local_dy in (None, "off")
+        got = TL._inference_bounds(got)
         for k in FlowConfig.WINDOW_BOUND_KEYS:
             assert getattr(got, k) == getattr(ri, k), (kw, k)
     assert TL._load_window_bounds(FlowConfig(), str(tmp_path / "none"),
@@ -348,32 +351,48 @@ def test_window_sidecar_and_inference_bounds_match_jax(tmp_path):
     _sidecar(tmp_path, splat_local_dy=24)
     ref, _ = JL._load_window_bounds(JaxFlowConfig(), d, 436, 1024)
     assert JL._inference_bounds(ref).splat_local_dy == 24
-    with pytest.raises(NotImplementedError, match="slice B2"):
-        TL._load_window_bounds(FlowConfig(), d, 436, 1024)
+    got, found = TL._load_window_bounds(FlowConfig(), d, 436, 1024)
+    assert found and TL._inference_bounds(got).splat_local_dy == 24
     # another frame size ignores the sidecar, in both
     assert TL._load_window_bounds(FlowConfig(), d, 200, 300)[1] is False
 
 
 def test_splat_ops_routes():
     cpu = dict(device="cpu")
-    warp, splat = TF._splat_ops(FlowConfig(**cpu).resolve_splat_bounds(24, 40))
-    assert warp is TW.resample2d and splat is TS.softsplat_with_coverage
+    warp, splat, local = TF._splat_ops(
+        FlowConfig(**cpu).resolve_splat_bounds(24, 40))
+    assert local is None
+    img, fl = torch.rand(1, 24, 40, 3), torch.rand(1, 24, 40, 2)
+    torch.testing.assert_close(warp(img, fl), TW.resample2d(img, fl))
     cfg = FlowConfig(splat_max_dy=8, splat_max_dx=8,
                      **cpu).resolve_splat_bounds(24, 40)
-    warp, _ = TF._splat_ops(cfg)
-    img, fl = torch.rand(1, 24, 40, 3), torch.rand(1, 24, 40, 2)
+    warp, _, local = TF._splat_ops(cfg)
+    assert local is None      # local 'auto' (8) is no narrower than dy 8
     torch.testing.assert_close(warp(img, fl), TG.resample2d_region(img, fl,
                                                                    8, 8))
-    # Sintel size resolves to the windowed kernels at dy=64, dx=128
+    # Sintel size resolves to the local-window kernels at dy=64, dx=128,
+    # local dy 32; with the local bound off, to the static ones
     sintel = FlowConfig(**cpu).resolve_splat_bounds(436, 1024)
-    assert (sintel.splat_max_dy, sintel.splat_max_dx) == (64, 128)
-    warp, _ = TF._splat_ops(sintel)
+    assert (sintel.splat_max_dy, sintel.splat_max_dx,
+            sintel.splat_local_dy) == (64, 128, 32)
+    warp, _, local = TF._splat_ops(sintel)
+    assert local == (32, 128, 64, 0)
+    offs = TF._flow_offsets(fl, local)
+    torch.testing.assert_close(warp(img, fl, offs), TG.resample2d_region_local(
+        img, fl, offs.off_src, 32, 128, 64, 0))
+    warp, _, local = TF._splat_ops(sintel.replace(splat_local_dy=None))
+    assert local is None
     torch.testing.assert_close(warp(img, fl), TG.resample2d_region(img, fl,
                                                                    64, 128))
-    with pytest.raises(NotImplementedError,
-                       match="softsplat_windowed_with_coverage"):
-        TF._splat_ops(FlowConfig(splat_max_dy=16, splat_max_dx="off",
-                                 **cpu).resolve_splat_bounds(436, 1024))
+    # the row-only window: the exact warp and the row-windowed splat
+    rows = FlowConfig(splat_max_dy=16, splat_max_dx="off",
+                      **cpu).resolve_splat_bounds(436, 1024)
+    warp, splat, local = TF._splat_ops(rows)
+    metric = -torch.rand(1, 24, 40, 1)
+    torch.testing.assert_close(warp(img, fl), TW.resample2d(img, fl))
+    torch.testing.assert_close(
+        splat(img, fl, metric), TS.softsplat_windowed_with_coverage(
+            img, fl, metric, 16, 2))
     with pytest.raises(ValueError):
         TF._splat_ops(FlowConfig(**cpu))
     with pytest.raises(ValueError):

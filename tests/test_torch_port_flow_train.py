@@ -389,9 +389,11 @@ def test_run_flow_train_writes_checkpoints_metrics_and_sidecar(tmp_path):
     assert [r["step"] for r in recs] == [0, 1]
     with open(os.path.join(ck, "window_bounds.json")) as f:
         side = json.load(f)
+    # the refit monitor's maxima ride along (the local bounds never engaged)
+    assert set(side.pop("hist")) == {"fy", "fx"}
     assert side == {"fh": 24, "fw": 40, "splat_max_dy": 8,
                     "splat_max_dx": 8, "splat_local_dy": None,
-                    "splat_local_dx": None, "hist": {}}
+                    "splat_local_dx": None}
     saved, at = CheckpointStore(ck).restore()
     assert at == 2 and set(saved) == {"params", "consts", "opt", "step"}
     assert saved["step"] == 6
@@ -468,9 +470,12 @@ def test_flow_config_training_fields():
     assert cfg.replace(val_iter=7).effective_val_iter == 7
     with pytest.raises(ValueError, match="edge_func"):
         FlowConfig(edge_func="box")
-    for gone in ("splat_local_dy", "window_refit", "flow_producer",
-                 "import_torch", "mesh_data"):
+    for gone in ("flow_producer", "import_torch", "mesh_data"):
         assert not hasattr(cfg, gone)
+    # the local-window and refit fields came with the local windows
+    for f in ("splat_local_dy", "splat_local_dx", "window_refit",
+              "splat_chunk", "splat_col_chunk", "resample_chunk"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
     # the controllers' fields came with the progressive nets
     for f in ("spatially_adaptive", "spatial_res", "controller_epsilon"):
         assert getattr(cfg, f) == getattr(jcfg, f), f

@@ -3,6 +3,7 @@
 
     python3 tools/profile_torch_port.py [--train | --flow | --flow-train]
                                         [--net NET] [--spatially-adaptive]
+                                        [--splat-local-dy B]
                                         [--batches N] [--out DIR]
 
 Builds the kernels, makes a seeded flagship SRF state (SRConfig defaults:
@@ -19,16 +20,21 @@ HR 352x640, then on ``cuda`` in the ``float32`` mode:
   defaults): one ``flow test`` pair (the INR query and the Wang occlusion
   map) and one interpolated mid-frame (``frame_interp`` at alpha 0.5);
 * ``--flow-train``: one ``flow train`` step at Sintel size (batch 1, the
-  ``RBF`` net, Wang occlusion, bounds dy 64, dx 128; loss, backward, LAMB) on
-  the kernel route and with ``use_kernel="off"``, each with its peak memory
-  and the memory held between the forward and the backward;
+  ``RBF`` net, Wang occlusion, bounds dy 64, dx 128, local dy 32; loss,
+  backward, LAMB) on the kernel route and with ``use_kernel="off"`` (the
+  windowed forms), each with its peak memory and the memory held between
+  the forward and the backward, and the window offsets of one flow
+  (``tile_flow_offsets``) on their own; ``--splat-local-dy`` passes
+  through to the config (``off``: the static windows), so that two runs in
+  one command set the local and the static routes side by side;
 * ``--net`` and ``--spatially-adaptive`` choose the INR and its controller
   for ``--flow`` and ``--flow-train`` (default ``RBF``; ``--net PFF
   --spatially-adaptive`` is the progressive path, whose train step carries
   the controller's transition and whose serving starts from a seeded
   controller state that is not the initial one);
 * traces one step of each with ``torch.profiler`` and prints the device
-  time by kernel and the device's busy share of the step's wall time.
+  time by kernel, the number of kernel launches and the device's busy share
+  of the step's wall time.
 
 Writes the profiler tables to DIR (default ``torch_port_profile``).
 """
@@ -84,12 +90,14 @@ def _profile(name, fn, out_dir):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events)
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=25)
     with open(os.path.join(out_dir, f"{name}_kernels.txt"), "w") as f:
         f.write(table)
     print(f"[profile] {name}: wall {wall_ms:.3f} ms, device busy "
-          f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}% of wall)")
+          f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}% of wall) "
+          f"in {launches} kernel launches")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
@@ -164,18 +172,27 @@ def _flow_train(a, dev) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     h, w = 436, 1024
     cfg = FlowConfig(device="cuda", net=a.net,
-                     spatially_adaptive=a.spatially_adaptive
+                     spatially_adaptive=a.spatially_adaptive,
+                     splat_local_dy=a.splat_local_dy
                      ).resolve_splat_bounds(h, w)
+    print(f"[bounds] dy {cfg.splat_max_dy}, dx {cfg.splat_max_dx}, local dy "
+          f"{cfg.splat_local_dy}, local dx {cfg.splat_local_dx}")
     pair = torch.from_numpy(np.ascontiguousarray(
         moving_texture_video(2, h, w))).to(dev)
     batch = {"frame1": pair[0:1], "frame2": pair[1:2],
              "times": torch.tensor([-1.0], device=dev), "scale": w / 5.0}
     spec, _, _ = FT.create_flow_state(R.root_generator(0), cfg)
-    for tag, sp in (("flow_train_step", spec),
-                    ("flow_train_step_off",
-                     dataclasses.replace(spec, use_kernel="off"))):
+    _, _, local = FT._splat_ops(cfg)
+    if local is not None:
+        flow = 8.0 * torch.randn((1, h, w, 2), device=dev)
+        _profile("tile_flow_offsets",
+                 lambda: FT._flow_offsets(flow, local), a.out)
+    for tag, sp, c in (("flow_train_step", spec, cfg),
+                       ("flow_train_step_off",
+                        dataclasses.replace(spec, use_kernel="off"),
+                        cfg.replace(use_kernel="off"))):
         _, state, consts = FT.create_flow_state(R.root_generator(0), cfg)
-        step = FT.make_flow_train_step(sp, cfg)
+        step = FT.make_flow_train_step(sp, c)
         fn = lambda: step(state, consts, batch)
         for mod in (K5, K6, K7):
             mod.reset_launch_counts()
@@ -188,7 +205,7 @@ def _flow_train(a, dev) -> int:
         # is built, less what is allocated with no graph alive
         state.optimizer.zero_grad(set_to_none=True)
         base = torch.cuda.memory_allocated(dev)
-        loss, _ = FT.flow_loss(sp, cfg, state.params, consts, batch,
+        loss, _ = FT.flow_loss(sp, c, state.params, consts, batch,
                                state.ctrl_cfg, state.ctrl_state)
         held = (torch.cuda.memory_allocated(dev) - base) / 2 ** 30
         del loss
@@ -219,6 +236,10 @@ def main() -> int:
     ap.add_argument("--spatially-adaptive", action="store_true",
                     help="--flow, --flow-train: a progressive net's spatial "
                          "controller instead of the linear one")
+    ap.add_argument("--splat-local-dy", default="auto",
+                    type=lambda v: v if v in ("auto", "off") else int(v),
+                    help="--flow-train: the local-window row bound ('auto' "
+                         "= 32 at 436x1024, 'off' = the static windows)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: needs a CUDA device", file=sys.stderr)
