@@ -129,6 +129,38 @@ nothing of JAX or of the JAX package. Phases:
     mid-frame from the spatial checkpoint (K7 forward 1 a pair, the peak
     memory under one (N, 512) tensor over what is held); the card against
     the CPU on a small crop (flows within 1e-3 px).
+12. K8, the GLOW coupling with 3x3-conv subnets, through its module
+    (``ops/cuda/coupling3x3.py``; no entry point reaches it, as in the JAX
+    package): the seeded flagship SRF at batch 8 walked layer by layer, so
+    each of its four 3x3 couplings (two per octave, C = 48 and 192) gets its
+    real input. The path: ``fused_glow3_forward``, ``fused_glow3_inverse``
+    and the banded op's forward and backward on each coupling, with exact
+    launch counts (2 K8 forward per coupling direction, 2 K8 backward and 2
+    reductions per banded backward). Then, TF32 off: every half launch,
+    both flags, within 1e-4 + 1e-4 |plain| of its plain version; the whole
+    coupling both ways within the same of the cuDNN route; inverse(forward)
+    within 1e-4; K8 backward's dx_in and dx_aff within 1e-4 + 1e-4 |plain|
+    and each weight and bias leaf within 1e-3 of its largest |plain|, both
+    flags, bitwise the same over two calls; the gradients through
+    ``make_fused_coupling3_banded`` and ``make_fused_coupling3`` within a
+    normwise 1e-3 of autograd of the cuDNN route. A conv1 pre-activation
+    within 1e-5 of 0 may be gated either way by two fp32 implementations:
+    the terms it gates (``relu_gate_slack``) are added to the dx_in, dW1 and
+    db1 limits, elementwise and normwise. Times (CUDA events) of
+    one half at each octave: K8 forward at batch 8 and 40, K8 backward at
+    batch 8, their plain versions, and the cuDNN route of the same half in
+    the port's ``float32`` mode (TF32) and with TF32 off. A whole ``sr
+    train`` step at the flagship launches no K8.
+13. IRN and the checkpoint exchange: ``run_sr_train`` at the IRN flagship
+    (``SRConfig`` defaults with ``architecture="IRN"``, batch 8, HR
+    352x640, a 204-frame synthetic video) for 4 steps and a resume to 6;
+    train frames/s and ms/step over 10 steps after 2 warm-ups, peak memory;
+    ``sr test`` frames/s; the card against the CPU on a crop (1e-3); no
+    kernel launch anywhere on the IRN path. Then ``run_sr_export`` of phase
+    5's SRF checkpoint and of the IRN checkpoint, each imported with
+    ``--import-torch`` into a fresh experiment: the inverse pass within 1e-5
+    of the exported run's and the first 40 ``sr test`` frames within one
+    level.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each kernel's numbers; the last line is
@@ -137,10 +169,13 @@ with each kernel's numbers; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import statistics
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -172,6 +207,8 @@ REPLACES = {
     "splat_region_local": "sin_inn_tpu/ops/pallas/splat.py:276",
     "gather_region_local": "sin_inn_tpu/ops/pallas/gather.py:334",
     "gather_region_local_grads": "sin_inn_tpu/ops/pallas/gather.py:334",
+    "K8 fwd": "sin_inn_tpu/ops/pallas/coupling3x3.py:231",
+    "K8 bwd": "sin_inn_tpu/ops/pallas/coupling3x3.py:381",
 }
 SOURCES = {
     "fused_glow_forward_1x1": "sin_inn_tpu_torch/csrc/coupling_1x1.cu",
@@ -187,6 +224,8 @@ SOURCES = {
     "splat_region_local": "sin_inn_tpu_torch/csrc/splat_region.cu",
     "gather_region_local": "sin_inn_tpu_torch/csrc/gather_region.cu",
     "gather_region_local_grads": "sin_inn_tpu_torch/csrc/gather_region.cu",
+    "K8 fwd": "sin_inn_tpu_torch/csrc/coupling_3x3.cu",
+    "K8 bwd": "sin_inn_tpu_torch/csrc/coupling_3x3_bwd.cu",
 }
 COUPLING = ("fused_glow_forward_1x1", "fused_glow_inverse_1x1",
             "fused_glow_backward_1x1", "fused_glow_inverse_backward_1x1")
@@ -654,9 +693,10 @@ def _leaf_grads(params):
     return [t.grad.detach().clone() for t in flat_params(params)]
 
 
-def phase_train(dev, card: str, smi_line: str):
+def phase_train(dev, card: str, smi_line: str, work: str):
     """SRF flagship training on cuda: run_sr_train, resume, launch counts,
-    gradient agreement with the cuDNN route, and train frames/s."""
+    gradient agreement with the cuDNN route, and train frames/s. The run's
+    checkpoints stay in ``work`` for phase 13's export."""
     import os.path as path
 
     from sin_inn_tpu_torch.core.checkpoint import CheckpointStore
@@ -671,7 +711,7 @@ def phase_train(dev, card: str, smi_line: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     counts = {}
     stats = {}
-    with tempfile.TemporaryDirectory() as work:
+    with contextlib.nullcontext(work):
         cfg = SRConfig(scene="chip_smoke_train", device="cuda",
                        compute_dtype="float32", working_dir=work,
                        batch_size=TRAIN_BATCH, epochs=2, print_iter=1,
@@ -825,6 +865,7 @@ def phase_train(dev, card: str, smi_line: str):
               f"{stats['ms_per_step']:.2f} ms/step (batch {TRAIN_BATCH}, "
               f"HR {HR_H}x{HR_W}, float32), peak device memory "
               f"{stats['peak_gib']:.2f} GiB, on {card} ({smi_line})")
+        stats["cfg"] = cfg.replace(epochs=3)
     return counts, stats
 
 
@@ -1048,11 +1089,12 @@ def _local_flow_kernels(dev, img, cat):
 
 def _kernel_modules():
     from sin_inn_tpu_torch.ops.cuda import coupling as K
+    from sin_inn_tpu_torch.ops.cuda import coupling3x3 as K8
     from sin_inn_tpu_torch.ops.cuda import gather as K6
     from sin_inn_tpu_torch.ops.cuda import inr as K7
     from sin_inn_tpu_torch.ops.cuda import splat as K5
 
-    return K, K5, K6, K7
+    return K, K5, K6, K7, K8
 
 
 def _all_counts():
@@ -2305,28 +2347,540 @@ def phase_prog_path(dev, card: str, smi_line: str):
     return counts, stats
 
 
+def k8_cost(m: int, cin: int, caff: int, hid: int, backward: bool = False):
+    """FLOP and bytes of one K8 half launch over m pixels: two SAME 3x3
+    convolutions a pixel (Cin -> hid -> 2 Caff); x_in and x_aff read once,
+    y written once, each weight and bias read once. The backward recomputes
+    both, adds the two transposed convolutions and the two weight products
+    (three times the forward's FLOP), reads g besides and writes dx_in,
+    dx_aff and each weight gradient once."""
+    flops = 2 * m * 9 * hid * (cin + 2 * caff)
+    weights = 9 * cin * hid + hid + 9 * hid * 2 * caff + 2 * caff
+    if backward:
+        return 3 * flops, 4 * (m * (2 * cin + 3 * caff) + 2 * weights)
+    return flops, 4 * (m * (cin + 2 * caff) + weights)
+
+
+def _half_conv_route(sub, x_in, x_aff, clamp: float, inverse: bool, compute):
+    """One half coupling through the convolution route (cuDNN)."""
+    from sin_inn_tpu_torch.ops import coupling as C
+    from sin_inn_tpu_torch.ops import subnet as S
+
+    r = S.conv_subnet_apply(sub, x_in, compute=compute)
+    caff = x_aff.shape[-1]
+    le = C.glow_log_e(r[..., :caff], clamp)
+    t = r[..., caff:]
+    return ((x_aff - t) * torch.exp(-le) if inverse
+            else torch.exp(le) * x_aff + t)
+
+
+def _trainable(p):
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in K.param_leaves(p)]
+    return K.params_from_leaves(leaves), leaves
+
+
+def _coupling_gate_slack(p, inp, g, clamp: float, len1: int,
+                         inverse: bool):
+    """``relu_gate_slack`` of each half of a whole coupling's backward at
+    ``inp`` for the cotangent g, aligned with [d inp] + the leaves
+    (``K.LEAVES``): each subnet's conv1 weight and bias get their half's
+    slack; d inp gets the dx_in slack of the half that takes that part of
+    inp, and the other half's dx_in slack times e^clamp (the largest scale
+    the affine step puts on it), to first order; the other leaves 0."""
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+    from sin_inn_tpu_torch.ops.cuda import coupling3x3 as K8
+
+    a, b = inp[..., :len1], inp[..., len1:]
+    ga, gb = g[..., :len1], g[..., len1:]
+    with torch.no_grad():
+        if inverse:     # x2 = half(s1, y1, y2); x1 = half(s2, x2, y1)
+            x2 = K8.half_coupling_3x3_plain(p["s1"], a, b, clamp, True)
+            last = ("s2", x2, a, ga)
+        else:           # y1 = half(s2, x2, x1); y2 = half(s1, y1, x2)
+            y1 = K8.half_coupling_3x3_plain(p["s2"], b, a, clamp)
+            last = ("s1", y1, b, gb)
+        _, dx_in, _ = K8.half_coupling_3x3_backward_plain(
+            p[last[0]], *last[1:], clamp, inverse)
+        first = (("s1", a, b, gb + dx_in) if inverse
+                 else ("s2", b, a, ga + dx_in))
+        slack, sdx = {}, {}
+        for sub, x_in, x_aff, cot in (last, first):
+            sdx[sub], sw, sb = K8.relu_gate_slack(p[sub], x_in, x_aff, cot,
+                                                  clamp, inverse)
+            slack[(sub, "conv1", "w")], slack[(sub, "conv1", "b")] = sw, sb
+        scaled = sdx[last[0]] * math.exp(clamp)
+        dinp = (torch.cat([sdx[first[0]], scaled], -1) if inverse
+                else torch.cat([scaled, sdx[first[0]]], -1))
+    return [dinp] + [slack.get(leaf, 0.0) for leaf in K.LEAVES]
+
+
+def _normwise_worst(got, ref, slack=None, names=None):
+    """The worst of (||a - b|| - ||slack||) / ||b|| over the leaves (the
+    slack: each leaf's relu gate slack, or 0), and that leaf's name."""
+    slack = slack or [0.0] * len(ref)
+    names = names or [str(i) for i in range(len(ref))]
+    return max((((a - b).norm().item()
+                 - (s.norm().item() if torch.is_tensor(s) else 0.0))
+                / max(b.norm().item(), 1e-30), n)
+               for a, b, s, n in zip(got, ref, slack, names))
+
+
+def phase_k8(dev, card: str, smi_line: str):
+    """K8 on the seeded SRF flagship's four 3x3 couplings at batch 8."""
+    from functools import partial
+
+    from sin_inn_tpu_torch.core import rng as R
+    from sin_inn_tpu_torch.core.config import SRConfig
+    from sin_inn_tpu_torch.models.inn import (build_inn_spec, init_inn,
+                                              inn_apply, params_to)
+    from sin_inn_tpu_torch.ops import coupling as C
+    from sin_inn_tpu_torch.ops import subnet as S
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+    from sin_inn_tpu_torch.ops.cuda import coupling3x3 as K8
+    from sin_inn_tpu_torch.train import sr as SR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SRConfig(device="cuda", batch_size=TRAIN_BATCH)
+    spec, _ = build_inn_spec(cfg)
+    init = R.named_fold(R.root_generator(cfg.random_seed), "init")
+    params = params_to(init_inn(init, spec), dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    # each 3x3 coupling's real input: the spec walked layer by layer
+    couplings = []
+    x = torch.rand((TRAIN_BATCH, HR_H, HR_W, 3), generator=gen, device=dev)
+    with torch.no_grad():
+        for layer, p in zip(spec, params):
+            if layer.kind == "glow" and layer.kernel == 3:
+                couplings.append((layer, p, x))
+            x = inn_apply([layer], [p], x)
+    check([tuple(xin.shape) for _, _, xin in couplings] ==
+          [(TRAIN_BATCH, HR_H // 4, HR_W // 4, 48)] * 2 +
+          [(TRAIN_BATCH, HR_H // 8, HR_W // 8, 192)] * 2,
+          "the flagship's 3x3 couplings are not at their octave shapes")
+
+    # the path: whole couplings forward and inverse, and the banded op's
+    # forward and backward, on each coupling; launch counts
+    _reset_all_counts()
+    runs = []
+    for layer, p, xin in couplings:
+        clamp, len1 = layer.clamp, layer.split_len1
+        with torch.no_grad():
+            y = K8.fused_glow3_forward(p, xin, clamp, len1)
+            back = K8.fused_glow3_inverse(p, y, clamp, len1)
+        q, leaves = _trainable(p)
+        xg = xin.clone().requires_grad_(True)
+        out = K8.make_fused_coupling3_banded(clamp, len1)[0](q, xg)
+        g = torch.randn(out.shape, generator=gen, device=dev)
+        out.backward(g)
+        runs.append((y, back, out.detach(), g,
+                     [xg.grad] + [t.grad for t in leaves]))
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    n = len(couplings)
+    check_counts(counts, f"K8 path over {n} couplings (2 K8 forward per "
+                         "direction, 2 K8 backward per banded backward)",
+                 half_coupling_3x3=6 * n, half_coupling_3x3_backward=2 * n,
+                 reduce_weight_grads=2 * n)
+
+    subnet_hi = partial(S.conv_subnet_apply, compute="highest")
+    errs = {"fwd": 0.0, "whole": 0.0, "trip": 0.0, "dx": 0.0, "leaf": 0.0,
+            "autograd": (0.0, ""), "slack": 0.0}
+
+    def within(got, ref, what, slack=0.0):
+        """max abs err; it must hold 1e-4 + 1e-4 |ref| + slack (the relu
+        gate slack of K8.relu_gate_slack for dx_in, else 0)."""
+        e = (got - ref).abs()
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+        check(bool((e <= 1e-4 + 1e-4 * ref.abs() + slack).all()),
+              f"{what}: max abs err {e.max().item():.3e} exceeds "
+              f"1e-4 + 1e-4|ref| + gate slack")
+        return e.max().item()
+
+    def leaves_within(d, ref, slack, tag):
+        """Each weight and bias gradient within 1e-3 of its largest |plain|
+        plus conv1's relu gate slack."""
+        for cv in ("conv1", "conv2"):
+            for k in ("w", "b"):
+                a, b = d[cv][k], ref[cv][k]
+                sl = slack.get((cv, k), 0.0)
+                e = ((a - b).abs() - sl).max().item()
+                lim = 1e-3 * b.abs().max().item()
+                check(a.shape == b.shape and e <= lim,
+                      f"{tag} {cv}.{k}: {e:.3e} beyond the gate slack > "
+                      f"{lim:.3e}")
+                errs["leaf"] = max(errs["leaf"], e / max(
+                    b.abs().max().item(), 1e-30))
+
+    def conv_grads(p, inp, g, inverse):
+        q, leaves = _trainable(p)
+        xx = inp.clone().requires_grad_(True)
+        out = (C.glow_coupling_inverse(q, xx, subnet_hi, clamp, len1)
+               if inverse else
+               C.glow_coupling_forward(q, xx, subnet_hi, clamp, len1)[0])
+        out.backward(g)
+        return [xx.grad] + [t.grad for t in leaves]
+
+    for ci, ((layer, p, xin), (y, back, out_b, g, grads_b)) in enumerate(
+            zip(couplings, runs)):
+        clamp, len1 = layer.clamp, layer.split_len1
+        what = f"coupling {ci} (C={xin.shape[-1]})"
+        with torch.no_grad():
+            x1, x2 = xin[..., :len1], xin[..., len1:]
+            y1, y2 = y[..., :len1], y[..., len1:]
+            x2b = back[..., len1:]
+            halves = [("s2", x2, x1), ("s1", y1, x2)]
+            inv_halves = [("s1", y1, y2), ("s2", x2b, y1)]
+            for inverse, hs in ((False, halves), (True, inv_halves)):
+                for sub, x_in, x_aff in hs:
+                    got = K8.half_coupling_3x3(p[sub], x_in, x_aff, clamp,
+                                               inverse)
+                    ref = K8.half_coupling_3x3_plain(p[sub], x_in, x_aff,
+                                                     clamp, inverse)
+                    errs["fwd"] = max(errs["fwd"], within(
+                        got, ref, f"{what} half {sub} inverse={inverse}"))
+            ref_y = C.glow_coupling_forward(p, xin, subnet_hi, clamp,
+                                            len1)[0]
+            ref_x = C.glow_coupling_inverse(p, y, subnet_hi, clamp, len1)
+            errs["whole"] = max(errs["whole"],
+                                within(y, ref_y, f"{what} forward"),
+                                within(back, ref_x, f"{what} inverse"))
+            trip = (back - xin).abs().max().item()
+            check(trip <= 1e-4, f"{what}: inverse(forward(x)) {trip:.3e}")
+            errs["trip"] = max(errs["trip"], trip)
+            check(torch.equal(out_b, y), f"{what}: the banded op's forward "
+                                         "differs from fused_glow3_forward")
+        # K8 backward against the plain backward, both flags, bitwise
+        # repeatable
+        for inverse, hs in ((False, halves), (True, inv_halves)):
+            for sub, x_in, x_aff in hs:
+                gh = torch.randn(x_aff.shape, generator=gen, device=dev)
+                d1 = K8.half_coupling_3x3_backward(p[sub], x_in, x_aff, gh,
+                                                   clamp, inverse)
+                d2 = K8.half_coupling_3x3_backward(p[sub], x_in, x_aff, gh,
+                                                   clamp, inverse)
+                rd = K8.half_coupling_3x3_backward_plain(
+                    p[sub], x_in, x_aff, gh, clamp, inverse)
+                torch.cuda.synchronize()
+                tag = f"{what} K8 backward {sub} inverse={inverse}"
+                sdx, sw1, sb1 = K8.relu_gate_slack(p[sub], x_in, x_aff, gh,
+                                                   clamp, inverse)
+                errs["slack"] = max(errs["slack"], sdx.max().item())
+                errs["dx"] = max(
+                    errs["dx"],
+                    within(d1[1], rd[1], f"{tag} dx_in", sdx),
+                    within(d1[2], rd[2], f"{tag} dx_aff"))
+                leaves_within(d1[0], rd[0], {("conv1", "w"): sw1,
+                                             ("conv1", "b"): sb1}, tag)
+                for cv in ("conv1", "conv2"):
+                    for k in ("w", "b"):
+                        check(torch.equal(d1[0][cv][k], d2[0][cv][k]),
+                              f"{tag} {cv}.{k}: not bitwise repeatable")
+                check(all(torch.equal(a, b) for a, b in zip(d1[1:], d2[1:])),
+                      f"{tag}: dx not bitwise repeatable")
+                del d1, d2, rd, sdx, sw1, sb1
+        # gradients through both autograd ops against the conv route
+        names = ["input"] + [".".join(leaf) for leaf in K.LEAVES]
+        errs["autograd"] = max(errs["autograd"], _normwise_worst(
+            grads_b, conv_grads(p, xin, g, False),
+            _coupling_gate_slack(p, xin, g, clamp, len1, False), names))
+        for inverse in (False, True):
+            inp = y if inverse else xin
+            ref = conv_grads(p, inp, g, inverse)
+            slack = _coupling_gate_slack(p, inp, g, clamp, len1, inverse)
+            for op in (K8.make_fused_coupling3_banded(clamp, len1),
+                       K8.make_fused_coupling3(clamp, len1, "highest")):
+                q, leaves = _trainable(p)
+                xx = inp.clone().requires_grad_(True)
+                op[int(inverse)](q, xx).backward(g)
+                worst = _normwise_worst([xx.grad] + [t.grad for t in leaves],
+                                        ref, slack, names)
+                check(worst[0] <= 1e-3, f"{what} autograd op inverse="
+                                        f"{inverse}: gradient of {worst[1]}"
+                                        f" {worst[0]:.3e} > 1e-3")
+                errs["autograd"] = max(errs["autograd"], worst)
+    print(f"[k8] errors: half launches vs plain {errs['fwd']:.3e}, whole "
+          f"coupling vs cuDNN (TF32 off) {errs['whole']:.3e}, round trip "
+          f"{errs['trip']:.3e}, backward dx {errs['dx']:.3e} (largest relu "
+          f"gate slack of dx_in {errs['slack']:.3e}: conv1 pre-activations "
+          f"within 1e-5 of 0), worst leaf beyond its slack {errs['leaf']:.3e}"
+          f" of its max, autograd ops vs conv route {errs['autograd'][0]:.3e} "
+          f"(normwise, beyond the slack; worst leaf {errs['autograd'][1]})")
+
+    # times per half at both octaves: the first coupling of each, half s2
+    rows = {"K8 fwd": [], "K8 bwd": []}
+    serve_rows = []
+    for layer, p, xin in (couplings[0], couplings[2]):
+        clamp, len1 = layer.clamp, layer.split_len1
+        sub = p["s2"]
+        x_in8 = xin[..., len1:].contiguous()
+        x_aff8 = xin[..., :len1].contiguous()
+        cin, caff, hid = x_in8.shape[-1], x_aff8.shape[-1], HIDDEN
+        for b in (TRAIN_BATCH, BATCH):
+            x_in = x_in8.repeat(b // TRAIN_BATCH, 1, 1, 1)
+            x_aff = x_aff8.repeat(b // TRAIN_BATCH, 1, 1, 1)
+            m = x_in.numel() // cin
+            flops, nbytes = k8_cost(m, cin, caff, hid)
+            reps = 10 if b == TRAIN_BATCH else 5
+            with torch.no_grad():
+                got = K8.half_coupling_3x3(sub, x_in, x_aff, clamp)
+                ref = K8.half_coupling_3x3_plain(sub, x_in, x_aff, clamp)
+                err = within(got, ref, f"K8 forward batch {b} Cin={cin}")
+                del got, ref
+                row = {
+                    "shape": [b, x_in.shape[1], x_in.shape[2], cin, caff],
+                    "M": m, "max_abs_err": err,
+                    "ms": median_ms(lambda: K8.half_coupling_3x3(
+                        sub, x_in, x_aff, clamp), reps),
+                    "plain_ms": median_ms(lambda: K8.half_coupling_3x3_plain(
+                        sub, x_in, x_aff, clamp), reps),
+                    "cudnn_tf32_ms": median_ms(lambda: _half_conv_route(
+                        sub, x_in, x_aff, clamp, False, None), reps),
+                    "cudnn_fp32_ms": median_ms(lambda: _half_conv_route(
+                        sub, x_in, x_aff, clamp, False, "highest"), reps),
+                    "flop": flops, "bytes": nbytes,
+                    "ops_bound_ms": flops / PEAK_FP32 * 1e3,
+                    "tf32_bound_ms": flops / PEAK_TF32 * 1e3,
+                    "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+                    "library_ms": None,
+                }
+            (rows["K8 fwd"] if b == TRAIN_BATCH else serve_rows).append(row)
+            del x_in, x_aff
+        gh = torch.randn(x_aff8.shape, generator=gen, device=dev)
+        m = x_in8.numel() // cin
+        flops, nbytes = k8_cost(m, cin, caff, hid, backward=True)
+        d = K8.half_coupling_3x3_backward(sub, x_in8, x_aff8, gh, clamp)
+        rd = K8.half_coupling_3x3_backward_plain(sub, x_in8, x_aff8, gh,
+                                                 clamp)
+        sdx, _, _ = K8.relu_gate_slack(sub, x_in8, x_aff8, gh, clamp)
+        err = max(within(d[1], rd[1], f"K8 backward Cin={cin} dx_in", sdx),
+                  within(d[2], rd[2], f"K8 backward Cin={cin} dx_aff"))
+        del d, rd, sdx
+
+        def conv_vjp(compute):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in K8.sub_leaves(sub)]
+            q = K8.sub_from_leaves(leaves)
+            xi = x_in8.clone().requires_grad_(True)
+            xa = x_aff8.clone().requires_grad_(True)
+            out = _half_conv_route(q, xi, xa, clamp, False, compute)
+            return torch.autograd.grad(out, [xi, xa, *leaves], gh)
+
+        rows["K8 bwd"].append({
+            "shape": [TRAIN_BATCH, x_in8.shape[1], x_in8.shape[2], cin, caff],
+            "M": m, "max_abs_err": err,
+            "ms": median_ms(lambda: K8.half_coupling_3x3_backward(
+                sub, x_in8, x_aff8, gh, clamp), 5),
+            "plain_ms": median_ms(lambda: K8.half_coupling_3x3_backward_plain(
+                sub, x_in8, x_aff8, gh, clamp), 5),
+            "cudnn_tf32_ms": median_ms(lambda: conv_vjp(None), 5),
+            "cudnn_fp32_ms": median_ms(lambda: conv_vjp("highest"), 5),
+            "partials_mb": math.ceil(m / K8._CHUNK) * (
+                (9 * cin + 1) * hid + (9 * hid + 1) * 2 * caff) * 4 / 1e6,
+            "flop": flops, "bytes": nbytes,
+            "ops_bound_ms": flops / PEAK_FP32 * 1e3,
+            "tf32_bound_ms": flops / PEAK_TF32 * 1e3,
+            "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "library_ms": None,
+        })
+    for name, rs in (("K8 fwd", rows["K8 fwd"] + serve_rows),
+                     ("K8 bwd", rows["K8 bwd"])):
+        for r in rs:
+            print(f"[k8] {name} {r['shape']}: {r['ms']:.3f} ms (plain "
+                  f"{r['plain_ms']:.3f}; cuDNN route TF32 "
+                  f"{r['cudnn_tf32_ms']:.3f} / fp32 {r['cudnn_fp32_ms']:.3f};"
+                  f" bounds fp32 {r['ops_bound_ms']:.3f} / tf32 "
+                  f"{r['tf32_bound_ms']:.4f} / bytes "
+                  f"{r['bytes_bound_ms']:.4f} ms) max abs err "
+                  f"{r['max_abs_err']:.3e}, on {card} ({smi_line})")
+
+    # a whole sr train step at the flagship launches no K8
+    state = SR.train_state(params, cfg)
+    batch = {"hr": torch.randint(0, 256, (TRAIN_BATCH, HR_H, HR_W, 3),
+                                 generator=gen, device=dev,
+                                 dtype=torch.uint8),
+             "lr": torch.randint(0, 256, (TRAIN_BATCH, HR_H // 8, HR_W // 8,
+                                          cfg.lr_dims), generator=gen,
+                                 device=dev, dtype=torch.uint8)}
+    step = SR.make_train_step(spec, cfg)
+    _reset_all_counts()
+    aux = step(state, batch, None, gen)
+    torch.cuda.synchronize()
+    check(math.isfinite(aux["loss"].item()), "sr train step: non-finite loss")
+    check_counts(_all_counts(), "one sr train step (no K8)",
+                 fused_glow_forward_1x1=4, fused_glow_inverse_1x1=4,
+                 fused_glow_backward_1x1=4, fused_glow_inverse_backward_1x1=4,
+                 reduce_weight_grads=8)
+    print(f"[k8] launches on the path: {counts}; one sr train step: no K8")
+    return rows, serve_rows, counts
+
+
+def phase_irn_exchange(dev, card: str, smi_line: str, srf_cfg):
+    """IRN flagship training, serving and the card against the CPU; the
+    checkpoint exchange of the SRF (phase 5's) and IRN runs."""
+    from sin_inn_tpu_torch.core import rng as R
+    from sin_inn_tpu_torch.core.checkpoint import CheckpointStore
+    from sin_inn_tpu_torch.core.config import SRConfig
+    from sin_inn_tpu_torch.data.sr_video import make_datasets
+    from sin_inn_tpu_torch.data.synthetic import synthetic_sr_video
+    from sin_inn_tpu_torch.models.inn import (build_inn_spec, inn_apply,
+                                              params_to)
+    from os.path import join as path_join
+
+    from sin_inn_tpu_torch.train import loop as LP
+    from sin_inn_tpu_torch.train import sr as SR
+
+    stats = {}
+    with tempfile.TemporaryDirectory() as work:
+        cfg = SRConfig(architecture="IRN", scene="chip_smoke_irn",
+                       device="cuda", compute_dtype="float32",
+                       working_dir=work, batch_size=TRAIN_BATCH, epochs=2,
+                       print_iter=1, save_iter=1)
+        check(cfg.total_dims == 192 and cfg.octaves == 2
+              and cfg.num_coupling == 4 and cfg.dense_gc == 32
+              and cfg.val_batch_size == BATCH,
+              "SRConfig defaults are not the IRN flagship config")
+        video = synthetic_sr_video(cfg, num_frames=TRAIN_FRAMES, h=HR_H,
+                                   w=HR_W)
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        out = LP.run_sr_train(cfg, video=video)
+        torch.cuda.synchronize()
+        check(out["start_epoch"] == 0 and out["state"].step == 4,
+              f"IRN run_sr_train took {out['state'].step} steps, want 4")
+        check(all(math.isfinite(v) for v in out["metrics"].values()),
+              f"IRN run_sr_train: non-finite metric {out['metrics']}")
+        ckpts = CheckpointStore(path_join(out["exp_dir"], "checkpoints"))
+        check(ckpts.latest_step() == 2, "IRN: latest checkpoint is not 2")
+        print(f"[irn] run_sr_train: 4 steps in "
+              f"{time.perf_counter() - t0:.1f} s; metrics {out['metrics']}")
+        cfg = cfg.replace(epochs=3)
+        again = LP.run_sr_train(cfg, video=video)
+        st, spec = again["state"], again["spec"]
+        check(again["start_epoch"] == 2 and st.step == 6,
+              f"IRN resume: epoch {again['start_epoch']}, step {st.step}")
+        print(f"[irn] resumed at epoch 2: step {st.step}, loss "
+              f"{again['metrics']['loss']:.6g}")
+
+        sup, _, val = make_datasets(video, cfg)
+        batch = sup.device_cache(TRAIN_BATCH, dev)[0]
+        step = SR.make_train_step(spec, cfg)
+        gen = torch.Generator(device=dev).manual_seed(13)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(2):
+            step(st, batch, None, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            aux = step(st, batch, None, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(math.isfinite(aux["loss"].item()), "IRN: non-finite loss")
+        stats.update(train_frames_per_sec=10 * TRAIN_BATCH / dt,
+                     ms_per_step=dt * 100,
+                     peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+        frames = np.stack(list(LP.sr_test_frames(cfg, video, st, spec)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = np.stack(list(LP.sr_test_frames(cfg, video, st, spec)))
+        torch.cuda.synchronize()
+        stats["test_frames_per_sec"] = len(frames) / (time.perf_counter() - t0)
+        check(frames.dtype == np.uint8 and frames.shape[1:] == (HR_H, HR_W, 3)
+              and len(frames) > 0, f"IRN sr test frames {frames.shape}")
+        check_counts(_all_counts(), "the IRN path (train, resume, steps, sr "
+                                    "test): no kernel")
+        print(f"[irn] {stats['train_frames_per_sec']:.2f} train frames/s, "
+              f"{stats['ms_per_step']:.2f} ms/step (batch {TRAIN_BATCH}), "
+              f"peak {stats['peak_gib']:.2f} GiB; sr test {len(frames)} "
+              f"frames, {stats['test_frames_per_sec']:.2f} frames/s; on "
+              f"{card} ({smi_line})")
+
+        # the card against the CPU on a small crop, full fp32 on both sides
+        small = cfg.replace(device="cpu", compute_dtype="float32_highest")
+        spec_hi = build_inn_spec(small)[0]
+        lr8 = val.device_cache(4, dev)[0]["lr"][:2, :8, :8].float() / 255.0
+        z = torch.randn(lr8.shape[:3] + (small.z_dims,),
+                        generator=torch.Generator().manual_seed(7))
+        lr_z = torch.cat([lr8.cpu(), z], dim=-1)
+        with torch.inference_mode():
+            ref = inn_apply(spec_hi, params_to(st.params, "cpu"), lr_z,
+                            rev=True)
+            got = inn_apply(spec_hi, st.params, lr_z.to(dev), rev=True)
+        err = (got.cpu() - ref).abs().max().item()
+        check(err <= 1e-3, f"IRN card vs CPU: {err:.3e} > 1e-3")
+        stats["cpu_err"] = err
+        print(f"[irn] card vs CPU (2x64x64, float32_highest): max abs err "
+              f"{err:.3e}")
+
+        # export each run's checkpoint, import it into a fresh sr test
+        lr = val.device_cache(BATCH, dev)[0]["lr"].float() / 255.0
+        z = torch.randn(lr.shape[:3] + (cfg.z_dims,),
+                        generator=torch.Generator(device=dev).manual_seed(8),
+                        device=dev)
+        for name, run_cfg in (("SRF", srf_cfg), ("IRN", cfg)):
+            t0 = time.perf_counter()
+            ckpt = LP.run_sr_export(run_cfg)
+            init = R.named_fold(R.root_generator(run_cfg.random_seed), "init")
+            spec_a, state_a, _, step_a = LP._sr_create_and_restore(
+                run_cfg, init, require="exported run lost its checkpoint")
+            fresh = run_cfg.replace(working_dir=path_join(work, "fresh"),
+                                    import_torch=ckpt)
+            spec_b, state_b, _, step_b = LP._sr_create_and_restore(
+                fresh, init, require="no checkpoint to test from")
+            check(step_a > 0 and step_b == 0,
+                  f"{name}: restored steps {step_a} / {step_b}")
+            with torch.inference_mode():
+                lr_z = torch.cat([lr, z], dim=-1)
+                a = inn_apply(spec_a, state_a.params, lr_z, rev=True)
+                b = inn_apply(spec_b, state_b.params, lr_z, rev=True)
+            e = (a - b).abs().max().item()
+            check(e <= 1e-5, f"{name}: imported run's output {e:.3e} from "
+                             "the exported run's (limit 1e-5)")
+            fa = np.stack(list(itertools.islice(
+                LP.sr_test_frames(run_cfg, video, state_a, spec_a), BATCH)))
+            fb = np.stack(list(itertools.islice(
+                LP.sr_test_frames(fresh, video, state_b, spec_b), BATCH)))
+            fd = int(np.abs(fa.astype(np.int16) - fb).max())
+            check(fd <= 1, f"{name}: imported sr test frames differ by {fd}")
+            stats[f"{name}_exchange_err"] = e
+            print(f"[exchange] {name}: sr export of step {step_a} -> "
+                  f"--import-torch into a fresh sr test: max abs err "
+                  f"{e:.3e}, frames within {fd} level(s), "
+                  f"{time.perf_counter() - t0:.1f} s")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    # phase 5's checkpoints stay here until phase 13 exports them
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         card, smi_line = phase_card()
         phase_build()
         rows, bf16_err = phase_kernels(dev)
         train_rows, bwd_bf16_err = phase_train_kernels(dev)
         counts, fps = phase_path(dev, card)
-        train_counts, train = phase_train(dev, card, smi_line)
+        train_counts, train = phase_train(dev, card, smi_line, work)
         flow_rows = phase_flow_kernels(dev)
         flow = phase_flow(dev, card, smi_line)
         ft_rows = phase_flow_train_kernels(dev)
         ft_counts, ft = phase_flow_train(dev, card, smi_line)
         prog_rows = phase_prog_kernels(dev)
         prog_counts, prog = phase_prog_path(dev, card, smi_line)
+        k8_rows, k8_serve_rows, k8_counts = phase_k8(dev, card, smi_line)
+        irn = phase_irn_exchange(dev, card, smi_line, train["cfg"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     add_counts(counts, train_counts)
     flow_counts = dict(flow["counts"])
     add_counts(flow_counts, ft_counts)
@@ -2383,6 +2937,25 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None if None in lib else sum(lib), "shapes": rs})
+    # K8: the four 3x3 couplings' module path at batch 8 (launches), each
+    # octave's half timed at batch 8, the batch-40 rows beside them
+    for n, rs in k8_rows.items():
+        bytes_ms = sum(r["bytes_bound_ms"] for r in rs)
+        ops_ms = sum(r["ops_bound_ms"] for r in rs)
+        entry = {
+            "name": n, "route": "cuda", "source": SOURCES[n],
+            "replaces": REPLACES[n],
+            "launches": k8_counts["half_coupling_3x3" if n == "K8 fwd"
+                                  else "half_coupling_3x3_backward"],
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": sum(r["ms"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "shapes": rs}
+        if n == "K8 fwd":
+            entry["serve_shapes"] = k8_serve_rows
+        kernels.append(entry)
     by_name = {k["name"]: k for k in kernels}
     by_name["fused_inr_backward"]["other_nets"] = (
         ft_rows["fused_inr_backward"][1:]
@@ -2403,6 +2976,10 @@ def main() -> int:
           f"pairs/s (use_kernel='off': {prog['off']['pairs_per_sec']:.2f}), "
           f"PFF linear {prog['linear_pairs_per_sec']:.2f} pairs/s, flow test "
           f"{prog['test_fps']:.2f} pairs/s, on {card} ({smi_line})")
+    print(f"[irn] IRN flagship {irn['train_frames_per_sec']:.2f} train "
+          f"frames/s, {irn['ms_per_step']:.2f} ms/step, sr test "
+          f"{irn['test_frames_per_sec']:.2f} frames/s, on {card} "
+          f"({smi_line})")
     print(f"[done] sr test {fps:.2f} frames/s; train "
           f"{train['frames_per_sec']:.2f} frames/s; bf16 err {bf16_err:.3e}"
           f" (K3 {bwd_bf16_err:.3e}); total "

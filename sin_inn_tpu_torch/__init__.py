@@ -4,12 +4,17 @@ Runs on an NVIDIA Hopper card (``sm_90a``). The JAX package ``sin_inn_tpu``
 is the reference this package is tested against; nothing here imports it or
 JAX. Public functions keep the reference's NHWC layout and names.
 
-Ported so far: the SRF ``sr train`` and ``sr test`` entry points and the
-validation step, with the fused 1x1 GLOW coupling forward and inverse and
+Ported so far: the SR entry points ``sr train``, ``sr test`` and ``sr
+export`` and the validation step for the SRF and the IRN, with the
+reference checkpoint exchange (``models/torch_import.py``,
+``--import-torch``) and the fused 1x1 GLOW coupling forward and inverse and
 their backward passes as hand-written CUDA kernels
 (``ops/cuda/coupling.py``, ``csrc/coupling_1x1.cu``,
-``csrc/coupling_1x1_bwd.cu``); and the flow pipeline on the static global
-windows, ``flow train``, ``flow test`` and ``flow interpolate``, for every
+``csrc/coupling_1x1_bwd.cu``); the GLOW coupling with 3x3-conv subnets as
+CUDA kernels reached through its own module (``ops/cuda/coupling3x3.py``,
+``csrc/coupling_3x3.cu``, ``csrc/coupling_3x3_bwd.cu``); and the flow
+pipeline on the global and local windows, ``flow train``, ``flow test`` and
+``flow interpolate``, for every
 INR of the registry, the progressive ones under their linear or spatially
 adaptive controller (``models/controllers.py``), with the windowed splat and
 gather and the fused INR's forward and backward as hand-written CUDA

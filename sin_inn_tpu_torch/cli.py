@@ -1,15 +1,17 @@
 """Command-line interface of the PyTorch port.
 
-``python -m sin_inn_tpu_torch.cli sr {train,test} ...`` takes the
-reference's ``sr`` flags plus ``--device`` (default ``cuda``; a CUDA request
-without a card fails) and ``--remat``. ``python -m sin_inn_tpu_torch.cli
+``python -m sin_inn_tpu_torch.cli sr {train,test,export} ...`` takes the
+reference's ``sr`` flags (``--architecture SRF`` or ``IRN``,
+``--import-torch`` a reference checkpoint, ``--export-out``) plus
+``--device`` (default ``cuda``; a CUDA request without a card fails) and
+``--remat``. ``python -m sin_inn_tpu_torch.cli
 flow {train,test,interpolate} ...`` takes the reference's data, net,
 training, occlusion, controller (``--spatially-adaptive``,
 ``--spatial-res``) and window flags (the global and local bounds,
 ``--window-refit``, the windowed forms' chunks), ``--use-kernel`` and
 ``--device``; ``flow train`` runs the test pass on the trained net when it
-is done, as the reference does. ``sr export`` and ``flow
-{export,summarize,sintel}`` are not ported yet and exit with code 2.
+is done, as the reference does. ``flow {export,summarize,sintel}`` are not
+ported yet and exit with code 2.
 """
 
 from __future__ import annotations
@@ -20,13 +22,15 @@ from typing import List, Optional
 
 from sin_inn_tpu_torch.core.config import COMPUTE_DTYPES, FlowConfig, SRConfig
 
-_NOT_PORTED = {"sr": ("export",),
-               "flow": ("export", "summarize", "sintel")}
+_NOT_PORTED = {"flow": ("export", "summarize", "sintel")}
 
 
 def _sr_parser(sub):
     ap = sub.add_parser("sr", help="INN space-time super-resolution")
     ap.add_argument("operation", choices=["train", "test", "export"])
+    ap.add_argument("--export-out", default=None, metavar="CKPT",
+                    help="sr export: output path for the reference-loadable "
+                         "torch state_dict")
     ap.add_argument("--dataset", default="datasets/adobe240f")
     ap.add_argument("-s", "--scene", default="IMG_0028_binning_4x")
     ap.add_argument("--suffix", default="default")
@@ -38,6 +42,11 @@ def _sr_parser(sub):
     ap.add_argument("--scale", type=int, default=4)
     ap.add_argument("-c", "--num_coupling", type=int, default=4)
     ap.add_argument("-r", "--resume_state", default=None)
+    ap.add_argument("--import-torch", default=None, metavar="CKPT",
+                    help="seed params from a reference torch/Lightning "
+                         "checkpoint (IRN or FrEIA-SRF state_dict); a "
+                         "framework checkpoint on disk takes precedence "
+                         "(train resume and test/export), with a warning")
     ap.add_argument("-w", "--working_dir", default="experiments")
     ap.add_argument("-e", "--epochs", type=int, default=10000)
     ap.add_argument("--save_iter", type=int, default=100)
@@ -88,8 +97,9 @@ def sr_config_from_args(a) -> SRConfig:
         rotation=a.rotation, translation=a.translation,
         tcr_iters=a.tcr_iters, tcr_stop_grad=a.tcr_stop_grad, temp=a.temp,
         working_dir=a.working_dir, resume_state=a.resume_state,
-        val_batch_size=a.val_batch_size, hidden_channels=a.hidden_channels,
-        dense_gc=a.dense_gc, compute_dtype=a.compute_dtype,
+        import_torch=a.import_torch, val_batch_size=a.val_batch_size,
+        hidden_channels=a.hidden_channels, dense_gc=a.dense_gc,
+        compute_dtype=a.compute_dtype,
         use_kernel=a.use_kernel, device=a.device, remat=a.remat,
     )
 
@@ -208,7 +218,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     _flow_parser(sub)
     a = parser.parse_args(argv)
 
-    if a.operation in _NOT_PORTED[a.command]:
+    if a.operation in _NOT_PORTED.get(a.command, ()):
         print(f"{a.command} {a.operation}: not ported yet to "
               "sin_inn_tpu_torch (use python -m sin_inn_tpu.cli)",
               file=sys.stderr)
@@ -239,6 +249,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     if a.operation == "train":
         out = L.run_sr_train(cfg)
         print(out["exp_dir"])
+        return 0
+    if a.operation == "export":
+        print(L.run_sr_export(cfg, out=a.export_out))
         return 0
     print(L.run_sr_test(cfg, save_images=a.save_images))
     return 0

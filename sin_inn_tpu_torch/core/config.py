@@ -8,8 +8,8 @@
 * ``use_kernel`` replaces ``use_pallas``: ``"auto"`` routes every 1x1 GLOW
   coupling through the fused kernels (except in ``float32_highest``),
   ``"off"`` keeps them on plain convolutions.
-* The multi-chip, profiling, auto-tuning and checkpoint-import fields are
-  left out until their slices are ported.
+* The multi-chip, profiling and auto-tuning fields are left out until their
+  slices are ported.
 * ``donate_state`` has no counterpart: the Adam step updates the
   parameters and its moments in place, so no second copy of the state is
   ever made.
@@ -89,6 +89,10 @@ class SRConfig:
     # Runtime
     working_dir: str = "experiments"
     resume_state: Optional[str] = None
+    # seed params from a reference torch / Lightning checkpoint
+    # (models/torch_import.py); a framework checkpoint on disk (resume)
+    # takes precedence over the import
+    import_torch: Optional[str] = None
     # subnet convolution precision (ops/subnet.py states the mapping):
     # 'float32' (TF32 convolutions), 'bfloat16' (bf16 conv inputs, fp32
     # outputs) or 'float32_highest' (full fp32, TF32 off)

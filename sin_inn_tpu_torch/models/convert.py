@@ -38,18 +38,23 @@ def glow_params_from_jax(p: Dict, device="cpu", dtype=torch.float32) -> Dict:
 def params_from_jax(spec: Sequence[LayerSpec], params_np: Sequence,
                     device="cpu", dtype=torch.float32
                     ) -> List[Optional[Dict]]:
-    """JAX params list (HWIO numpy leaves) -> port params (OIHW tensors)."""
+    """JAX params list (HWIO numpy leaves) -> port params (OIHW tensors):
+    a GLOW coupling's {s1, s2} or an InvBlockExp's {F, G, H}, each subnet's
+    convs by name."""
     if len(params_np) != len(spec):
         raise ValueError(f"{len(params_np)} param entries for a spec of "
                          f"{len(spec)} layers")
     out: List[Optional[Dict]] = []
     for layer, p in zip(spec, params_np):
-        if layer.kind != "glow":
+        if layer.kind not in ("glow", "invblock"):
             if p is not None:
                 raise ValueError(f"{layer.kind} layer carries params")
             out.append(None)
             continue
-        out.append(glow_params_from_jax(p, device, dtype))
+        out.append({sub: {conv: _conv_from_jax(cp, device, dtype)
+                          for conv, cp in p[sub].items()}
+                    for sub in (("s1", "s2") if layer.kind == "glow"
+                                else ("F", "G", "H"))})
     return out
 
 

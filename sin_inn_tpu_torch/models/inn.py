@@ -1,16 +1,21 @@
-"""The SRF invertible network (``UncondSRFlow``) in PyTorch, NHWC.
+"""The SRF (``UncondSRFlow``) and IRN (``InvRescaleNet``) invertible
+networks in PyTorch, NHWC.
 
 Counterpart of ``sin_inn_tpu/models/inn.py``: a static layer spec plus a
 params list aligned with it; :func:`inn_apply` walks the spec forward
-(HR -> LR||z) or backward (LR||z -> HR). Conv weights are OIHW.
+(HR -> LR||z) or backward (LR||z -> HR). Conv weights are OIHW. The SRF
+alternates 3x3 and 1x1 GLOW couplings after i-RevNet squeezes; the IRN
+stacks ``InvBlockExp`` couplings (dense-block subnets) after Haar squeezes.
 
 Kernel routing keeps the reference's rule: a 1x1 GLOW coupling goes through
 the fused kernels (``ops/cuda/coupling.py``) unless a log-det is requested or
 the compute mode is ``float32_highest``. It goes through the autograd
 Functions there (K1/K2 forward, K3/K4 backward), under autograd or not.
 Whether that is a CUDA kernel or its plain version is decided by the
-tensor's device, nowhere else. The 3x3 couplings run as cuDNN convolutions.
-IRN waits for its slice.
+tensor's device, nowhere else. The 3x3 couplings run as cuDNN convolutions,
+as the JAX package keeps them on XLA by measurement (K8,
+``ops/cuda/coupling3x3.py``, is reached only through its own module), and
+so do the IRN's dense blocks.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from sin_inn_tpu_torch.core.config import SRConfig
 from sin_inn_tpu_torch.ops import coupling as C
 from sin_inn_tpu_torch.ops import subnet as S
 from sin_inn_tpu_torch.ops.cuda import coupling as K
+from sin_inn_tpu_torch.ops.haar import (haar_log_det, haar_squeeze,
+                                        haar_unsqueeze)
 from sin_inn_tpu_torch.ops.permute import (invert_permutation,
                                            make_permutation, permute_channels)
 from sin_inn_tpu_torch.ops.squeeze import depth_to_space, space_to_depth
@@ -33,11 +40,12 @@ from sin_inn_tpu_torch.ops.squeeze import depth_to_space, space_to_depth
 
 @dataclass(frozen=True)
 class LayerSpec:
-    kind: str                       # squeeze | glow | permute
+    kind: str                 # squeeze | haar | glow | invblock | permute
     clamp: float = 0.0
     split_len1: int = 0
     kernel: int = 0                 # glow subnet conv kernel (3 or 1)
     hidden: int = 256
+    gc: int = 32                    # invblock dense-block growth channels
     perm: Optional[Tuple[int, ...]] = None       # permute only
     perm_inv: Optional[Tuple[int, ...]] = None
     compute: str = "float32"        # subnet compute mode (see ops.subnet)
@@ -70,11 +78,25 @@ def build_srf_spec(cfg: SRConfig, c: int) -> Tuple[List[LayerSpec], int]:
     return spec, c
 
 
+def build_irn_spec(cfg: SRConfig, c: int) -> Tuple[List[LayerSpec], int]:
+    """InvRescaleNet layer stack. Returns (spec, out_channels)."""
+    spec: List[LayerSpec] = [LayerSpec("haar")]
+    c *= 4
+    for _ in range(cfg.octaves):
+        spec.append(LayerSpec("haar"))
+        c *= 4
+        for _ in range(cfg.num_coupling):
+            spec.append(LayerSpec(
+                "invblock", clamp=cfg.clamp_irn,
+                split_len1=min(cfg.lr_dims, c // 2), gc=cfg.dense_gc,
+                compute=cfg.compute_dtype))
+    return spec, c
+
+
 def build_inn_spec(cfg: SRConfig, c: int = 3) -> Tuple[List[LayerSpec], int]:
     if cfg.architecture == "SRF":
         return build_srf_spec(cfg, c)
-    raise NotImplementedError(
-        "the IRN architecture is not ported to sin_inn_tpu_torch yet")
+    return build_irn_spec(cfg, c)
 
 
 def init_inn(gen: torch.Generator, spec: Sequence[LayerSpec], c_in: int = 3,
@@ -83,7 +105,7 @@ def init_inn(gen: torch.Generator, spec: Sequence[LayerSpec], c_in: int = 3,
     params: List[Optional[Dict]] = []
     c = c_in
     for layer in spec:
-        if layer.kind == "squeeze":
+        if layer.kind in ("squeeze", "haar"):
             c *= 4
             params.append(None)
         elif layer.kind == "permute":
@@ -98,6 +120,14 @@ def init_inn(gen: torch.Generator, spec: Sequence[LayerSpec], c_in: int = 3,
                 "s2": S.conv_subnet_init(gen, len2, 2 * len1, layer.kernel,
                                          layer.hidden, dtype),
             })
+        elif layer.kind == "invblock":
+            len1 = layer.split_len1
+            len2 = c - len1
+            params.append({
+                "F": S.dense_block_init(gen, len2, len1, layer.gc, dtype),
+                "G": S.dense_block_init(gen, len1, len2, layer.gc, dtype),
+                "H": S.dense_block_init(gen, len1, len2, layer.gc, dtype),
+            })
         else:
             raise ValueError(layer.kind)
     return params
@@ -108,8 +138,27 @@ def _apply_layer(layer: LayerSpec, p: Optional[Dict], x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     if layer.kind == "squeeze":
         return (depth_to_space(x) if rev else space_to_depth(x)), None
+    if layer.kind == "haar":
+        y = haar_unsqueeze(x) if rev else haar_squeeze(x)
+        if not with_log_det:
+            return y, None
+        n, h, w, c = x.shape
+        ld = haar_log_det(h, w, c)
+        return y, torch.full((n,), -ld if rev else ld, dtype=x.dtype,
+                             device=x.device)
     if layer.kind == "permute":
         return permute_channels(x, layer.perm_inv if rev else layer.perm), None
+    if layer.kind == "invblock":
+        subnet = partial(S.dense_block_apply,
+                         compute=S.compute_mode(layer.compute))
+        if rev:
+            if with_log_det:
+                return C.inv_block_inverse_ld(p, x, subnet, layer.clamp,
+                                              layer.split_len1)
+            return C.inv_block_inverse(p, x, subnet, layer.clamp,
+                                       layer.split_len1), None
+        return C.inv_block_forward(p, x, subnet, layer.clamp,
+                                   layer.split_len1)
     if layer.kind != "glow":
         raise ValueError(layer.kind)
     if layer.use_kernel and layer.kernel == 1 and not with_log_det:
@@ -142,7 +191,7 @@ def inn_apply(spec: Sequence[LayerSpec], params: Sequence[Optional[Dict]],
     if rev:
         pairs = pairs[::-1]
     for layer, p in pairs:
-        if remat and layer.kind == "glow":
+        if remat and layer.kind in ("glow", "invblock"):
             x, ld = checkpoint(_apply_layer, layer, p, x, rev, with_log_det,
                                use_reentrant=False)
         else:
@@ -154,11 +203,19 @@ def inn_apply(spec: Sequence[LayerSpec], params: Sequence[Optional[Dict]],
     return x
 
 
+_GLOW_SUBNETS = (("s1", "s2"), ("conv1", "conv2"))
+_INVBLOCK_SUBNETS = (("F", "G", "H"), tuple(f"conv{i}" for i in range(1, 6)))
+
+
 def flat_params(params: Sequence[Optional[Dict]]) -> List[torch.Tensor]:
     """Every tensor of a params list, in a fixed order (the optimizer's)."""
-    return [p[s][c][k] for p in params if p is not None
-            for s in ("s1", "s2") for c in ("conv1", "conv2")
-            for k in ("w", "b")]
+    out = []
+    for p in params:
+        if p is None:
+            continue
+        subs, convs = _GLOW_SUBNETS if "s1" in p else _INVBLOCK_SUBNETS
+        out += [p[s][c][k] for s in subs for c in convs for k in ("w", "b")]
+    return out
 
 
 def params_to(params: Sequence[Optional[Dict]], device) -> List[Optional[Dict]]:

@@ -1,10 +1,14 @@
-"""GLOW affine coupling with FrEIA-style soft clamping (plain PyTorch).
+"""Invertible couplings (plain PyTorch), NHWC with the channel split on the
+last axis.
 
-Counterpart of the GLOW half of ``sin_inn_tpu/ops/coupling.py``. Scale
-activation: ``e(s) = exp(clamp * 2/pi * atan(s / clamp))``. Tensors are NHWC
-with the channel split on the last axis. ``InvBlockExp`` waits for the IRN
-slice. The fused 1x1 kernels (``ops/cuda/coupling.py``) compute the same
-function.
+Counterpart of ``sin_inn_tpu/ops/coupling.py``:
+
+* the GLOW affine coupling of the SRF, FrEIA-style soft clamping, scale
+  activation ``e(s) = exp(clamp * 2/pi * atan(s / clamp))``; the fused
+  kernels of ``ops/cuda/coupling.py`` (1x1 subnets) and
+  ``ops/cuda/coupling3x3.py`` (3x3 subnets) compute the same function;
+* the IRN's ``InvBlockExp``: ``y1 = x1 + F(x2)``, ``s = clamp (2
+  sigmoid(H(y1)) - 1)``, ``y2 = x2 exp(s) + G(y1)``.
 """
 
 from __future__ import annotations
@@ -73,3 +77,30 @@ def glow_coupling_inverse_ld(params: Dict, y: torch.Tensor, subnet: Subnet,
 
     log_det = -(log_e1.sum(dim=(1, 2, 3)) + log_e2.sum(dim=(1, 2, 3)))
     return torch.cat([x1, x2], dim=-1), log_det
+
+
+def inv_block_forward(params: Dict, x: torch.Tensor, subnet: Subnet,
+                      clamp: float, len1: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """InvBlockExp forward. Returns (y, log_det per sample)."""
+    x1, x2 = x[..., :len1], x[..., len1:]
+    y1 = x1 + subnet(params["F"], x2)
+    s = clamp * (torch.sigmoid(subnet(params["H"], y1)) * 2.0 - 1.0)
+    y2 = x2 * torch.exp(s) + subnet(params["G"], y1)
+    return torch.cat([y1, y2], dim=-1), s.sum(dim=(1, 2, 3))
+
+
+def inv_block_inverse(params: Dict, y: torch.Tensor, subnet: Subnet,
+                      clamp: float, len1: int) -> torch.Tensor:
+    return inv_block_inverse_ld(params, y, subnet, clamp, len1)[0]
+
+
+def inv_block_inverse_ld(params: Dict, y: torch.Tensor, subnet: Subnet,
+                         clamp: float, len1: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """InvBlockExp inverse + its per-sample log|det J| (= -forward log-det)."""
+    y1, y2 = y[..., :len1], y[..., len1:]
+    s = clamp * (torch.sigmoid(subnet(params["H"], y1)) * 2.0 - 1.0)
+    x2 = (y2 - subnet(params["G"], y1)) * torch.exp(-s)
+    x1 = y1 - subnet(params["F"], x2)
+    return torch.cat([x1, x2], dim=-1), -s.sum(dim=(1, 2, 3))

@@ -28,6 +28,8 @@ BUILD_DIR = _PKG / "build"
 
 SOURCES = {"coupling_1x1": "coupling_1x1.cu",
            "coupling_1x1_bwd": "coupling_1x1_bwd.cu",
+           "coupling_3x3": "coupling_3x3.cu",
+           "coupling_3x3_bwd": "coupling_3x3_bwd.cu",
            "gather_region": "gather_region.cu",
            "inr_bwd": "inr_bwd.cu",
            "inr_fwd": "inr_fwd.cu",

@@ -1,10 +1,14 @@
-"""Coupling-block subnets: the plain conv stack of the SRF GLOW couplings.
+"""Coupling-block subnets: the plain conv stack of the SRF GLOW couplings
+and the dense block of the IRN couplings.
 
 Counterpart of ``sin_inn_tpu/ops/subnet.py`` (``conv2d``,
-``conv_subnet_init``, ``conv_subnet_apply``). Activations stay NHWC; weights
+``conv_subnet_init``, ``conv_subnet_apply``, ``dense_block_init`` and
+``dense_block_apply`` in its default form). Activations stay NHWC; weights
 are OIHW, as ``torch.nn.Conv2d`` keeps them. An NHWC-contiguous tensor viewed
 with ``.permute(0, 3, 1, 2)`` already has the ``channels_last`` memory format,
-so cuDNN takes it without a copy. The dense block waits for the IRN slice.
+so cuDNN takes it without a copy. The dense block's measurement forms
+(``fused=True``, ``shift=True``, ``conv2d_shift``), which no entry point
+reaches, are not ported.
 
 Compute modes (``SRConfig.compute_dtype``), mapped from the TPU's:
 
@@ -68,6 +72,21 @@ def _torch_default_conv(gen: torch.Generator, k: int, cin: int, cout: int,
     return {"w": uniform((cout, cin, k, k)), "b": uniform((cout,))}
 
 
+def _xavier_normal_conv(gen: torch.Generator, cin: int, cout: int,
+                        scale: float = 1.0, dtype=torch.float32) -> Dict:
+    """xavier_normal_ 3x3 weight times ``scale``, zero bias."""
+    std = math.sqrt(2.0 / (cin * 9 + cout * 9)) * scale
+    w = torch.randn((cout, cin, 3, 3), generator=gen, dtype=dtype,
+                    device=gen.device) * std
+    return {"w": w, "b": torch.zeros((cout,), dtype=dtype, device=gen.device)}
+
+
+def _zero_conv(cin: int, cout: int, device, dtype=torch.float32) -> Dict:
+    """The dense block's last conv: its init scaled by 0, i.e. zeros."""
+    return {"w": torch.zeros((cout, cin, 3, 3), dtype=dtype, device=device),
+            "b": torch.zeros((cout,), dtype=dtype, device=device)}
+
+
 def conv_subnet_init(gen: torch.Generator, c_in: int, c_out: int, kernel: int,
                      hidden: int = 256, dtype=torch.float32) -> Dict:
     return {
@@ -81,3 +100,27 @@ def conv_subnet_apply(params: Dict, x: torch.Tensor,
     h = conv2d(x, params["conv1"]["w"], params["conv1"]["b"], compute)
     h = torch.relu(h)
     return conv2d(h, params["conv2"]["w"], params["conv2"]["b"], compute)
+
+
+def dense_block_init(gen: torch.Generator, c_in: int, c_out: int,
+                     gc: int = 32, dtype=torch.float32) -> Dict:
+    """Five 3x3 convs: conv1-4 grow the concatenation by ``gc`` channels
+    each (xavier-normal x 0.1), conv5 maps it to ``c_out`` (zeros), so a
+    coupling starts as the identity."""
+    params = {f"conv{i + 1}": _xavier_normal_conv(gen, c_in + i * gc, gc, 0.1,
+                                                  dtype)
+              for i in range(4)}
+    params["conv5"] = _zero_conv(c_in + 4 * gc, c_out, gen.device, dtype)
+    return params
+
+
+def dense_block_apply(params: Dict, x: torch.Tensor,
+                      compute=None) -> torch.Tensor:
+    """DenseBlock forward: four leaky-relu (0.2) convs, each on the
+    concatenation of the input and every earlier output, then conv5."""
+    cat = x
+    for i in range(1, 5):
+        p = params[f"conv{i}"]
+        out = F.leaky_relu(conv2d(cat, p["w"], p["b"], compute), 0.2)
+        cat = torch.cat([cat, out], dim=-1)
+    return conv2d(cat, params["conv5"]["w"], params["conv5"]["b"], compute)

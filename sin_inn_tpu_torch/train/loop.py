@@ -1,9 +1,10 @@
-"""Entry points: SR (``sr train``, ``sr test``) and flow (``flow train``,
-``flow test``, ``flow interpolate``).
+"""Entry points: SR (``sr train``, ``sr test``, ``sr export``) and flow
+(``flow train``, ``flow test``, ``flow interpolate``).
 
 Counterpart of ``sin_inn_tpu/train/loop.py`` on one device: for SR,
-``sr_dirs``, ``_sr_create_and_restore``, ``run_sr_train`` and
-``run_sr_test``; for flow, ``flow_ckpt_dir``, ``_flow_create_and_restore``,
+``sr_dirs``, ``_warn_ckpt_overrides_import``, ``_sr_create_and_restore``
+(with the ``--import-torch`` branch), ``run_sr_train``, ``run_sr_test`` and
+``run_sr_export``; for flow, ``flow_ckpt_dir``, ``_flow_create_and_restore``,
 the window bounds (``_q16``, ``_q8p``, the sidecar ``_save_window_bounds``,
 ``_load_window_bounds``, ``_load_window_hist``, ``_inference_bounds``, the
 GT-flow probe ``_resolve_and_probe_splat_bounds`` and the mid-training
@@ -12,8 +13,8 @@ refit ``_refit_window_bounds``), ``run_flow_train``, ``run_flow_test`` and
 cores (:func:`sr_test_frames`, :func:`flow_test_outputs`,
 :func:`interpolate_frames`) that return numpy arrays and uint8 frames
 without touching imageio or ffmpeg. The pseudo-GT producers are not ported,
-nor are the mesh, tuner, profiler and ``--import-torch`` branches, ``sr
-export`` and ``flow {export,summarize,sintel}``.
+nor are the mesh, tuner and profiler branches, the flow half of
+``--import-torch`` and ``flow {export,summarize,sintel}``.
 """
 
 from __future__ import annotations
@@ -72,16 +73,37 @@ def _check_params(fresh, restored) -> None:
                             f"{tuple(got.shape)}, config needs {tuple(t.shape)}")
 
 
+_log = logging.getLogger(__name__)
+
+
+def _warn_ckpt_overrides_import(cfg: SRConfig, store: CheckpointStore
+                                ) -> SRConfig:
+    """One precedence rule for train, test and export: a framework
+    checkpoint on disk wins over ``--import-torch`` (the import seeds a run,
+    resume continues one), loudly, and the reference file is then not
+    read at all."""
+    step = store.latest_step()
+    if cfg.import_torch and step is not None:
+        _log.warning(
+            "--import-torch %s ignored: framework checkpoint at %s (step %d) "
+            "takes precedence. Delete that checkpoint dir or point "
+            "--resume_state elsewhere to run from the imported weights.",
+            cfg.import_torch, store.directory, step)
+        return cfg.replace(import_torch=None)
+    return cfg
+
+
 def _sr_create_and_restore(cfg: SRConfig, init_gen, require: str = ""):
     """create_train_state + latest-scan restore. Restore source =
     ``resume_state`` when given, else the experiment's own train checkpoint
-    dir; ``require`` (an error message) makes a missing checkpoint fatal.
-    A checkpoint's optimizer state is restored with its params; a
-    params-only checkpoint starts a fresh optimizer. Returns
-    (spec, SRTrainState, store, start_epoch)."""
+    dir; ``require`` (an error message) makes a missing checkpoint fatal
+    unless ``--import-torch`` supplied the weights. A checkpoint's optimizer
+    state is restored with its params; a params-only checkpoint starts a
+    fresh optimizer. Returns (spec, SRTrainState, store, start_epoch)."""
     store = CheckpointStore(
         cfg.resume_state or path.join(sr_dirs(cfg, "train"), "checkpoints"))
-    spec, state = SR.create_train_state(init_gen, cfg)
+    spec, state = SR.create_train_state(
+        init_gen, _warn_ckpt_overrides_import(cfg, store))
     restored, step = store.restore(map_location=resolve_device(cfg.device))
     if restored is not None:
         _check_params(state.params, restored["params"])
@@ -92,7 +114,7 @@ def _sr_create_and_restore(cfg: SRConfig, init_gen, require: str = ""):
         # an explicit resume request never falls back to a fresh state
         raise FileNotFoundError(
             f"--resume_state {cfg.resume_state}: no checkpoint found there")
-    if require:
+    if require and not cfg.import_torch:
         raise FileNotFoundError(require)
     return spec, state, store, 0
 
@@ -228,6 +250,21 @@ def run_sr_test(cfg: SRConfig, video: Optional[SRVideo] = None,
         for f in frames:
             vw.add(f)
     return vw.path
+
+
+def run_sr_export(cfg: SRConfig, out: Optional[str] = None) -> str:
+    """Export the latest SR checkpoint (or the ``--import-torch`` weights
+    when there is none) as a reference-loadable torch state_dict, the
+    reverse of ``--import-torch``. Returns the file's path."""
+    from sin_inn_tpu_torch.models import torch_import as TI
+
+    init_gen = R.named_fold(R.root_generator(cfg.random_seed), "init")
+    spec, state, _, _ = _sr_create_and_restore(
+        cfg, init_gen, require="no checkpoint to export")
+    out = out or path.join(sr_dirs(cfg, "train"),
+                           f"{cfg.architecture}_{cfg.suffix}_export.ckpt")
+    return TI.save_reference_checkpoint(
+        out, TI.export_state_dict(spec, state.params))
 
 
 # ===========================================================================

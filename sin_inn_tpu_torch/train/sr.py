@@ -69,13 +69,19 @@ def _to_float(img: torch.Tensor) -> torch.Tensor:
 
 
 def create_state(gen: torch.Generator, cfg: SRConfig):
-    """Build (spec, state): params drawn from ``gen`` on its own device, then
-    moved to ``cfg.device``. A CPU generator gives the same weights on every
-    device."""
+    """Build (spec, state): params drawn from ``gen`` on its own device, or
+    imported from ``cfg.import_torch`` (a reference checkpoint, checked
+    against the spec), then moved to ``cfg.device``. A CPU generator gives
+    the same weights on every device."""
     spec, _ = build_inn_spec(cfg, c=3)
     device = resolve_device(cfg.device)
-    params = params_to(init_inn(gen, spec, c_in=3), device)
-    return spec, SRState(params=params, step=0)
+    if cfg.import_torch:
+        from sin_inn_tpu_torch.models.torch_import import \
+            load_reference_checkpoint
+        _, params = load_reference_checkpoint(cfg.import_torch, cfg)
+    else:
+        params = init_inn(gen, spec, c_in=3)
+    return spec, SRState(params=params_to(params, device), step=0)
 
 
 def train_state(params, cfg: SRConfig, opt_state=None,

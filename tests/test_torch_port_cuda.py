@@ -632,3 +632,125 @@ def test_fused_inr_function_runs_the_forward_kernel_for_slabs(dev):
     with pytest.raises(ValueError, match="multiple of the 32-point tile"):
         bad, _ = _masks(gen, dev, "slab", 4, 40, 5, 64)
         K7.fused_inr_forward("ff", enc, layers, x[:4 * 40], bad)
+
+
+def _sub3(gen, cin, cout, hidden, dev):
+    return {k: {n: t.to(dev) for n, t in conv.items()}
+            for k, conv in S.conv_subnet_init(gen, cin, cout, 3,
+                                              hidden).items()}
+
+
+@pytest.mark.parametrize("shape,cin,hidden", [
+    ((2, 88, 160, 48), 24, 256),     # the SRF flagship's first octave
+    ((2, 44, 80, 192), 96, 256),     # its second octave
+    ((1, 11, 13, 20), 12, 16),       # ragged tiles in both directions
+])
+def test_k8_matches_plain(dev, shape, cin, hidden):
+    """K8 forward and inverse within 1e-4 + 1e-4 |plain| of the plain
+    version; K8 backward within 1e-4 + 1e-4 |plain| (dx) and 1e-3 of each
+    leaf's largest |plain|, each beside the relu gate slack where a gate is
+    within rounding of 0 (``relu_gate_slack``), bitwise the same over two
+    calls."""
+    from sin_inn_tpu_torch.ops.cuda import coupling3x3 as K8
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = R.root_generator(shape[-1] + hidden)
+    caff = shape[-1] - cin
+    sub = _sub3(gen, cin, 2 * caff, hidden, dev)
+    g_dev = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(shape, generator=g_dev, device=dev)
+    x_in, x_aff = x[..., caff:], x[..., :caff]
+    g = torch.randn(x_aff.shape, generator=g_dev, device=dev)
+    K8.reset_launch_counts()
+    for inverse in (False, True):
+        got = K8.half_coupling_3x3(sub, x_in, x_aff, CLAMP, inverse)
+        ref = K8.half_coupling_3x3_plain(sub, x_in, x_aff, CLAMP, inverse)
+        torch.cuda.synchronize()
+        assert ((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()
+        d1 = K8.half_coupling_3x3_backward(sub, x_in, x_aff, g, CLAMP,
+                                           inverse)
+        d2 = K8.half_coupling_3x3_backward(sub, x_in, x_aff, g, CLAMP,
+                                           inverse)
+        rd = K8.half_coupling_3x3_backward_plain(sub, x_in, x_aff, g, CLAMP,
+                                                 inverse)
+        # a conv1 pre-activation within 1e-5 of 0 may be gated either way:
+        # dx_in and conv1's leaves may move by its term (the slack)
+        sdx, sw1, sb1 = K8.relu_gate_slack(sub, x_in, x_aff, g, CLAMP,
+                                           inverse)
+        torch.cuda.synchronize()
+        for a, b, sl in zip(d1[1:], rd[1:], (sdx, 0.0)):
+            assert ((a - b).abs() <= 1e-4 + 1e-4 * b.abs() + sl).all()
+        for c in ("conv1", "conv2"):
+            for k in ("w", "b"):
+                a, b = d1[0][c][k], rd[0][c][k]
+                sl = {("conv1", "w"): sw1, ("conv1", "b"): sb1}.get((c, k), 0)
+                assert a.shape == b.shape
+                assert ((a - b).abs() - sl).max() <= 1e-3 * b.abs().max()
+                assert torch.equal(a, d2[0][c][k])
+        assert all(torch.equal(a, b) for a, b in zip(d1[1:], d2[1:]))
+    assert K8.launch_counts() == {"half_coupling_3x3": 2,
+                                  "half_coupling_3x3_backward": 4}
+
+
+def test_k8_autograd_ops_on_the_card(dev):
+    """The banded op (K8 forward and backward) and the recompute op (K8
+    forward, the convolution route's backward) against autograd of the
+    convolution route with TF32 off: normwise 1e-3; round trip 1e-4."""
+    from sin_inn_tpu_torch.ops import coupling as C
+    from sin_inn_tpu_torch.ops.cuda import coupling3x3 as K8
+
+    c, len1, hidden = 48, 24, 256
+    gen = R.root_generator(7)
+    p = {"s1": _sub3(gen, len1, 2 * (c - len1), hidden, dev),
+         "s2": _sub3(gen, c - len1, 2 * len1, hidden, dev)}
+    g_dev = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((2, 22, 40, c), generator=g_dev, device=dev)
+    subnet = lambda q, v: S.conv_subnet_apply(q, v, compute="highest")
+
+    def grads(fn):
+        q = {s: {k: {n: t.clone().requires_grad_(True)
+                     for n, t in conv.items()} for k, conv in sub.items()}
+             for s, sub in p.items()}
+        xx = x.clone().requires_grad_(True)
+        out = fn(q, xx)
+        torch.sin(out).sum().backward()
+        return out.detach(), [xx.grad] + [t.grad for t in K.param_leaves(q)]
+
+    for inverse in (False, True):
+        def conv_route(q, v):
+            if inverse:
+                return C.glow_coupling_inverse(q, v, subnet, CLAMP, len1)
+            return C.glow_coupling_forward(q, v, subnet, CLAMP, len1)[0]
+        ref, rg = grads(conv_route)
+        for ops, counts in (
+                (K8.make_fused_coupling3_banded(CLAMP, len1), (2, 2)),
+                (K8.make_fused_coupling3(CLAMP, len1, "highest"), (2, 0))):
+            K8.reset_launch_counts()
+            out, og = grads(ops[int(inverse)])
+            torch.cuda.synchronize()
+            assert K8.launch_counts() == {
+                "half_coupling_3x3": counts[0],
+                "half_coupling_3x3_backward": counts[1]}
+            assert ((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()
+            for a, b in zip(og, rg):
+                assert (a - b).norm() <= 1e-3 * b.norm()
+    fwd, inv = K8.make_fused_coupling3_banded(CLAMP, len1)
+    with torch.no_grad():
+        assert (inv(p, fwd(p, x)) - x).abs().max() <= 1e-4
+
+
+def test_k8_refuses_what_it_cannot_take(dev):
+    from sin_inn_tpu_torch.ops.cuda import coupling3x3 as K8
+
+    gen = R.root_generator(3)
+    x = torch.randn((1, 8, 8, 16), device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        K8.half_coupling_3x3(_sub3(gen, 10, 12, 16, dev), x[..., :10],
+                             x[..., 10:], CLAMP)
+    with pytest.raises(ValueError, match="float32"):
+        sub = _sub3(gen, 8, 16, 16, dev)
+        K8.half_coupling_3x3(sub, x[..., :8].double(), x[..., 8:].double(),
+                             CLAMP)
+    with pytest.raises(ValueError, match="shared memory"):
+        K8.half_coupling_3x3(_sub3(gen, 8, 16, 4096, dev), x[..., :8],
+                             x[..., 8:], CLAMP)

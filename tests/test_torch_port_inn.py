@@ -70,8 +70,13 @@ def test_srf_spec_matches_jax(kw, compute):
 
 
 def test_irn_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        TI.build_inn_spec(SRConfig(architecture="IRN", device="cpu"))
+    """IRN came with its slice: the spec builds at the flagship widths and
+    matches the JAX package's layer for layer."""
+    jspec, jc = JI.build_inn_spec(JaxSRConfig(architecture="IRN"))
+    tspec, tc = TI.build_inn_spec(SRConfig(architecture="IRN", device="cpu"))
+    assert tc == jc == 192
+    assert [(l.kind, l.clamp, l.split_len1, l.gc) for l in tspec] == \
+        [(l.kind, l.clamp, l.split_len1, l.gc) for l in jspec]
 
 
 def test_kernel_off_routes_no_coupling():

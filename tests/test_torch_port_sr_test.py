@@ -17,7 +17,6 @@ from sin_inn_tpu.data import sr_video as JV
 from sin_inn_tpu.data.synthetic import synthetic_sr_video as jax_synthetic
 from sin_inn_tpu.models import inn as JI
 from sin_inn_tpu.train import sr as JSR
-from sin_inn_tpu_torch import cli
 from sin_inn_tpu_torch.core import rng as R
 from sin_inn_tpu_torch.core.checkpoint import CheckpointStore
 from sin_inn_tpu_torch.core.config import SRConfig
@@ -195,12 +194,6 @@ def test_sr_test_cli_end_to_end(tmp_path, video):
     assert res.returncode == 0, res.stderr
     out = res.stdout.strip().splitlines()[-1]
     assert os.path.isfile(out) and os.path.getsize(out) > 0
-
-
-@pytest.mark.parametrize("operation", ["export"])
-def test_cli_unported_operations_fail(operation, capsys):
-    assert cli.main(["sr", operation, "--device", "cpu"]) != 0
-    assert "not ported yet" in capsys.readouterr().err
 
 
 def test_cuda_request_without_card_raises(monkeypatch, tmp_path, video):

@@ -6,7 +6,9 @@ import numpy as np
 
 def np_params(spec, c=3, seed=11):
     """HWIO params drawn with numpy (torch-default uniform bounds) in the
-    JAX package's layout; both packages get the same arrays."""
+    JAX package's layout; both packages get the same arrays. The IRN's
+    dense blocks get random weights in every conv (conv5 too, which the
+    packages' inits zero), so a coupling is not the identity."""
     rng = np.random.RandomState(seed)
 
     def conv(k, cin, cout):
@@ -15,10 +17,21 @@ def np_params(spec, c=3, seed=11):
                 .astype(np.float32),
                 "b": rng.uniform(-bound, bound, cout).astype(np.float32)}
 
+    def dense(cin, cout, gc):
+        convs = {f"conv{i + 1}": conv(3, cin + i * gc, gc) for i in range(4)}
+        convs["conv5"] = conv(3, cin + 4 * gc, cout)
+        return convs
+
     params = []
     for layer in spec:
-        if layer.kind == "squeeze":
+        if layer.kind in ("squeeze", "haar"):
             c *= 4
+        if layer.kind == "invblock":
+            len1, len2 = layer.split_len1, c - layer.split_len1
+            params.append({"F": dense(len2, len1, layer.gc),
+                           "G": dense(len1, len2, layer.gc),
+                           "H": dense(len1, len2, layer.gc)})
+            continue
         if layer.kind != "glow":
             params.append(None)
             continue
