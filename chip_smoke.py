@@ -18,7 +18,12 @@ nothing of JAX or of the JAX package. Phases:
    against their plain versions with fp32 matmuls (dx within
    1e-4 + 1e-4 |plain|; each weight and bias gradient within 1e-3 of the
    largest |plain| of it, since the sums over 10^5 rows run in another
-   order), one bf16-storage case, and median times;
+   order; both plus ``relu_gate_slack`` over the relu gates the launch set
+   otherwise than the plain version at a pre-activation within 1e-5 of 0:
+   the kernels' 3xTF32 recompute may gate such a one either way, and the
+   gate carries its row's downstream terms), one bf16-storage case, two
+   planted faults of the gradient slots that the checks must reject, and
+   median times;
 4. the path: a 102-frame synthetic 352x640 video, a seeded state saved and
    restored through the checkpoint store, ``sr test`` frames over both
    40-window batches and the eval step over the val split, on ``cuda`` in
@@ -174,6 +179,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import statistics
 import shutil
 import subprocess
@@ -303,14 +309,17 @@ def coupling_cost(m: int, c: int, hidden: int, elem_bytes: int):
     return flops, 2 * m * c * elem_bytes + 4 * weights
 
 
-def backward_cost(m: int, c: int, hidden: int, elem_bytes: int):
-    """FLOP and bytes of one K3 or K4 launch with its reduction: 18 H C
-    FLOP per pixel (recompute, dx chain and weight gradients, 6 H C each);
+def backward_cost(m: int, c: int, hidden: int, elem_bytes: int,
+                  inverse: bool):
+    """FLOP and bytes of one K4 (``inverse``) or K3 launch with its
+    reduction: K4 18 H C FLOP per pixel (recompute, dx chain and weight
+    gradients, 6 H C each), K3 2 H len2 fewer (its chain never reads t1);
     x and g read once, dx written once, each weight read once and each
     weight gradient written once."""
-    flops, _ = coupling_cost(m, c, hidden, elem_bytes)
+    fwd, _ = coupling_cost(m, c, hidden, elem_bytes)
+    flops = 3 * fwd - (0 if inverse else 2 * m * hidden * (c - c // 2))
     weights = (coupling_cost(1, c, hidden, 4)[1] - 2 * c * 4) // 4
-    return 3 * flops, 3 * m * c * elem_bytes + 2 * 4 * weights
+    return flops, 3 * m * c * elem_bytes + 2 * 4 * weights
 
 
 def phase_card():
@@ -334,10 +343,33 @@ def phase_build():
     wall = time.perf_counter() - t0
     for name, b in built.items():
         print(f"[build] {name}: {b.seconds:.1f} s -> {b.path.name}")
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+        for kernel, regs, stack, st, ld in ptxas_report(b.log):
+            print(f"[build]   {regs} registers, {stack} B stack, spill "
+                  f"stores {st} B, loads {ld} B: {kernel[:90]}")
     print(f"[build] all sources: {wall:.1f} s wall")
+
+
+def ptxas_report(log: str):
+    """(kernel, registers, stack bytes, spill stores, spill loads) of each
+    entry function in nvcc's ``-Xptxas -v`` output, demangled where
+    ``c++filt`` is on the path."""
+    rows = []
+    for block in log.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
+        nums = [int(v) for v in spill.groups()] if spill else [-1] * 3
+        rows.append((name, int(regs.group(1)) if regs else -1, *nums))
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        names = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            rows = [(n.replace("(anonymous namespace)::", ""),) + r[1:]
+                    for n, r in zip(names, rows)]
+    return rows
 
 
 def _coupling_params(gen, c: int, dev):
@@ -429,39 +461,101 @@ def phase_kernels(dev):
     return rows, bf16_err
 
 
-def _time_reduction(K, dev, m: int, c: int, len1: int, inverse: bool):
+def _time_reduction(K, dev, m: int, c: int, len1: int):
     """Median ms of the gradient reduction alone at one K3/K4 launch's
-    size (its grid and slot size as the wrapper would take them)."""
-    import ctypes
-
+    size (its chunks and slot size as the wrapper would take them)."""
     lib = K._bwd_lib()
-    blocks = ctypes.c_int(0)
-    err = lib.sininn_coupling_1x1_bwd_blocks(int(inverse), 0, m, c, len1,
-                                             HIDDEN, ctypes.byref(blocks))
-    check(err == 0, f"backward grid query failed ({err})")
+    chunks = lib.sininn_coupling_1x1_bwd_chunks(m, c, len1, HIDDEN)
+    check(chunks > 0, "backward grid query failed")
     slot = lib.sininn_coupling_1x1_bwd_slot_floats(c, len1, HIDDEN)
-    part = torch.zeros((blocks.value, slot), device=dev)
+    part = torch.zeros((chunks, slot), device=dev)
     run = lambda: K.reduce_weight_grads(part)
-    return median_ms(run, 20), blocks.value, slot
+    return median_ms(run, 20), chunks, slot
 
 
-def _grads_close(dp, rp, dx, rx, step: float, what: str) -> float:
-    """Checks the backward tolerances; returns dx's max abs error."""
+def _grad_margins(dp, rp, dx, rx, step: float, slack):
+    """How much of each backward limit is used, each error taken beyond the
+    terms of the relu gates within rounding of 0 (``slack``:
+    ``K.relu_gate_slack``): (dx's max abs error, the largest dx error over
+    1e-4 + step |plain|, and for each leaf of ``K.LEAVES`` (its error over
+    1e-3 of its largest |plain|, its largest slack over that limit)). A
+    limit holds at a use of at most 1."""
     from sin_inn_tpu_torch.ops.cuda import coupling as K
 
-    for (s, c, k), a, b in zip(K.LEAVES, K.param_leaves(dp),
-                               K.param_leaves(rp)):
-        err = (a - b).abs().max().item()
+    sp, sdx = slack
+    leaves = []
+    for a, b, sl in zip(K.param_leaves(dp), K.param_leaves(rp),
+                        K.param_leaves(sp)):
+        check(a.shape == b.shape, f"grad of shape {tuple(a.shape)}, want "
+                                  f"{tuple(b.shape)}")
         lim = 1e-3 * b.abs().max().item()
-        check(a.shape == b.shape and err <= lim,
-              f"{what} grad {s}.{c}.{k}: max abs err {err:.3e} > {lim:.3e}")
+        leaves.append((((a - b).abs() - sl).max().item() / lim,
+                       sl.max().item() / lim))
     dx, rx = dx.float(), rx.float()
     e = (dx - rx).abs()
-    check(bool(torch.isfinite(e).all()), f"{what}: non-finite dx")
-    check(bool((e <= 1e-4 + step * rx.abs()).all()),
-          f"{what}: dx max abs err {e.max().item():.3e} exceeds "
-          f"1e-4 + {step:g}|plain|")
-    return e.max().item()
+    check(bool(torch.isfinite(e).all()), "non-finite dx")
+    dx_use = ((e - sdx) / (1e-4 + step * rx.abs())).max().item()
+    return e.max().item(), dx_use, leaves
+
+
+def _grads_close(dp, rp, dx, rx, step: float, what: str, slack):
+    """Checks the backward tolerances, each plus the terms of the relu
+    gates within rounding of 0 (``slack``: ``K.relu_gate_slack``); returns
+    ``_grad_margins``."""
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+
+    err, dx_use, leaves = _grad_margins(dp, rp, dx, rx, step, slack)
+    for (s, c, k), (use, _) in zip(K.LEAVES, leaves):
+        check(use <= 1.0, f"{what} grad {s}.{c}.{k}: max abs err beyond the "
+                          f"gate slack is {use:.3g} of its limit")
+    check(dx_use <= 1.0, f"{what}: dx max abs err {err:.3e} exceeds 1e-4 + "
+                         f"{step:g}|plain| + gate slack")
+    return err, dx_use, leaves
+
+
+def _gate_report(K, p, x, g, len1: int, inverse: bool, gates) -> dict:
+    """The relu gates a K3 / K4 launch (``gates``: ``K.backward_relu_gates``)
+    set otherwise than the plain version: how many, and the largest
+    |pre-activation| among them."""
+    c = x.shape[-1]
+    _, _, z = K._plain_rows(p, x.reshape(-1, c).float(),
+                            g.reshape(-1, c).float(), CLAMP, len1, inverse)
+    flips = [gi != (zi > 0) for gi, zi in zip(gates, z)]
+    far = max((zi.abs()[f].max().item() if f.any() else 0.0)
+              for zi, f in zip(z, flips))
+    return {"flipped_gates": sum(int(f.sum()) for f in flips),
+            "flip_max_abs_z": far}
+
+
+def _planted_faults(K, n: str, p, x, g, len1: int, reference, slack):
+    """The worst leaf's error beyond the gate slack over its limit, for K3's
+    or K4's result (``n``) with a fault planted in the gradient slots before
+    the reduction: the last chunk's slot zeroed (a chunk dropped), or chunk
+    0's s2.conv1.b negated. The checks must reject each (a use above 1)."""
+    rp, rx = reference
+    at = (x.shape[-1] - len1) * HIDDEN      # b2a follows w2a in a slot
+    faults = {"last chunk dropped": lambda q: q[-1].zero_(),
+              "chunk 0 s2.conv1.b negated":
+                  lambda q: q[0, at:at + HIDDEN].neg_()}
+    real = K.reduce_weight_grads
+    uses = {}
+    for what, edit in faults.items():
+        def planted(partials):
+            edit(partials)
+            return real(partials)
+
+        planted.launches = 0
+        K.reduce_weight_grads = planted
+        try:
+            dp, dx = getattr(K, n)(p, x, g, CLAMP, len1)
+        finally:
+            K.reduce_weight_grads = real
+        _, _, leaves = _grad_margins(dp, rp, dx, rx, 1e-4, slack)
+        uses[what] = max(use for use, _ in leaves)
+        check(uses[what] > 1.0, f"{n}: the checks pass a result with its "
+                                f"{what} (worst leaf {uses[what]:.3g} of "
+                                f"its limit)")
+    return uses
 
 
 def phase_train_kernels(dev):
@@ -505,28 +599,46 @@ def phase_train_kernels(dev):
                     "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
                 })
                 del ref, e
-        bflops, bbytes = backward_cost(m, c, HIDDEN, 4)
         for n, fn, plain in (
                 ("fused_glow_backward_1x1", K.fused_glow_backward_1x1,
                  K.fused_glow_backward_1x1_plain),
                 ("fused_glow_inverse_backward_1x1",
                  K.fused_glow_inverse_backward_1x1,
                  K.fused_glow_inverse_backward_1x1_plain)):
-            dp, dx = fn(p, x, g, CLAMP, len1)
+            inverse = n == BACKWARD[1]
+            bflops, bbytes = backward_cost(m, c, HIDDEN, 4, inverse)
+            (dp, dx), gates = K.backward_relu_gates(p, x, g, CLAMP, len1,
+                                                    inverse)
             rp, rx = plain(p, x, g, CLAMP, len1)
             torch.cuda.synchronize()
-            err = _grads_close(dp, rp, dx, rx, 1e-4, f"{n} C={c}")
+            slack = K.relu_gate_slack(p, x, g, CLAMP, len1, inverse, gates)
+            err, dx_use, leaves = _grads_close(dp, rp, dx, rx, 1e-4,
+                                               f"{n} C={c}", slack)
+            # the bound over every gate within 1e-5 of 0, for comparison
+            _, _, near = _grad_margins(
+                dp, rp, dx, rx, 1e-4,
+                K.relu_gate_slack(p, x, g, CLAMP, len1, inverse))
+            report = _gate_report(K, p, x, g, len1, inverse, gates)
             grad_err = max((a - b).abs().max().item() for a, b in
                            zip(K.param_leaves(dp), K.param_leaves(rp)))
-            del dp, dx, rp, rx
-            red_ms, blocks, slot = _time_reduction(
-                K, dev, m, c, len1, n == BACKWARD[1])
+            del dp, dx, gates
+            faults = _planted_faults(K, n, p, x, g, len1, (rp, rx), slack)
+            del rp, rx, slack
+            red_ms, chunks, slot = _time_reduction(K, dev, m, c, len1)
             rows[n].append({
                 "shape": list(shape), "M": m, "C": c,
                 "max_abs_err": err, "grad_max_abs_err": grad_err,
                 "ms": median_ms(lambda: fn(p, x, g, CLAMP, len1), 10),
-                "reduce_ms": red_ms, "blocks": blocks,
-                "partials_mb": blocks * slot * 4 / 1e6,
+                "reduce_ms": red_ms, "chunks": chunks,
+                "partials_mb": chunks * slot * 4 / 1e6,
+                "scratch_mb": K._bwd_lib()
+                .sininn_coupling_1x1_bwd_scratch_floats(
+                    int(inverse), m, c, len1, HIDDEN) * 4 / 1e6,
+                "dx_limit_use": dx_use,
+                "leaf_limit_use": [u for u, _ in leaves],
+                "slack_over_limit": [sl for _, sl in leaves],
+                "near_slack_over_limit": [sl for _, sl in near],
+                "planted_fault_use": faults, **report,
                 "plain_ms": median_ms(lambda: plain(p, x, g, CLAMP, len1),
                                       5),
                 "flop": bflops, "bytes": bbytes,
@@ -540,16 +652,19 @@ def phase_train_kernels(dev):
     p = _coupling_params(gen_w, c, dev)
     xb = torch.randn(shapes[0], generator=gen_x, device=dev).bfloat16()
     gb = torch.randn(shapes[0], generator=gen_x, device=dev).bfloat16()
-    dp, dx = K.fused_glow_backward_1x1(p, xb, gb, CLAMP, c // 2)
+    (dp, dx), gates = K.backward_relu_gates(p, xb, gb, CLAMP, c // 2)
     rp, rx = K.fused_glow_backward_1x1_plain(p, xb, gb, CLAMP, c // 2)
     check(dx.dtype == torch.bfloat16, f"bf16 K3 returned dx in {dx.dtype}")
     # both round fp32 results to bf16: at most one rounding step apart
-    bf16_err = _grads_close(dp, rp, dx, rx, 2.0 ** -7, "bf16 K3 C=48")
+    bf16_err, _, _ = _grads_close(
+        dp, rp, dx, rx, 2.0 ** -7, "bf16 K3 C=48",
+        K.relu_gate_slack(p, xb, gb, CLAMP, c // 2, gates=gates))
     print(f"[kernels] bf16-storage K3 C=48: dx max abs err {bf16_err:.3e}")
     for n, rs in rows.items():
         for r in rs:
             extra = (f", reduction {r['reduce_ms']:.3f} ms over "
-                     f"{r['blocks']} slots ({r['partials_mb']:.1f} MB), "
+                     f"{r['chunks']} slots ({r['partials_mb']:.1f} MB), "
+                     f"scratch {r['scratch_mb']:.1f} MB, "
                      f"grads max abs err {r['grad_max_abs_err']:.3e}"
                      if "reduce_ms" in r else "")
             print(f"[kernels] batch {TRAIN_BATCH}: {n} C={r['C']} "
@@ -558,6 +673,19 @@ def phase_train_kernels(dev):
                   f"{r['tf32_bound_ms']:.3f} / bytes "
                   f"{r['bytes_bound_ms']:.3f} ms) max abs err "
                   f"{r['max_abs_err']:.3e}{extra}")
+            if "reduce_ms" not in r:
+                continue
+            fmt = lambda v: " ".join(f"{u:.3g}" for u in v)
+            print(f"[kernels]   {r['flipped_gates']} relu gates set "
+                  f"otherwise than the plain version (largest |z| "
+                  f"{r['flip_max_abs_z']:.2e}); limit used, dx "
+                  f"{r['dx_limit_use']:.3g}, leaves "
+                  f"{fmt(r['leaf_limit_use'])}; slack / limit, leaves "
+                  f"{fmt(r['slack_over_limit'])} (over every gate within "
+                  f"1e-5 of 0: {fmt(r['near_slack_over_limit'])}); "
+                  f"planted faults, worst leaf / limit: "
+                  + ", ".join(f"{k} {v:.3g}"
+                              for k, v in r["planted_fault_use"].items()))
     return rows, bf16_err
 
 

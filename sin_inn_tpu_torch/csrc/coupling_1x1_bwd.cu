@@ -1,4 +1,5 @@
-// Backward of the fused GLOW coupling with 1x1-conv subnets, for sm_90a.
+// Backward of the fused GLOW coupling with 1x1-conv subnets, for sm_90a:
+// staged products on the tensor cores in 3xTF32.
 //
 // Replaces the TPU kernels `_coupling_bwd_kernel` (K3, the VJP of the
 // forward) and `_coupling_inv_bwd_kernel` (K4, the VJP of the inverse) of
@@ -6,68 +7,95 @@
 // input), with x = [x1 | x2], len1 + len2 = C, hidden width H, r = [s | t],
 // le(s) = clamp (2/pi) atan(s / clamp), le'(s) = (2/pi) / (1 + (s/clamp)^2):
 //
-//   K3: recompute  h2 = relu(W2a x2 + b2a), r2 = W2b h2 + b2b,
-//                  y1 = exp(le(s2)) x1 + t2, h1 = relu(W1a y1 + b1a),
-//                  r1 = W1b h1 + b1b;
+//   K3: recompute  h2 = relu(x2 W2a + b2a), r2 = h2 W2b + b2b,
+//                  y1 = exp(le(s2)) x1 + t2, h1 = relu(y1 W1a + b1a),
+//                  s1 = h1 W1b[:, :len2] + b1b[:len2];
 //       then the reverse chain of coupling.py:293-310 for dx, and the eight
 //       weight and bias gradients x2'gz2, sum gz2, h2'gr2, sum gr2, y1'gz1,
 //       sum gz1, h1'gr1, sum gr1 over all rows.
 //   K4: the same for the inverse chain (coupling.py:430-466), from y.
 //
-// The recompute repeats the forward's arithmetic in the order of K1 and K2
-// (csrc/coupling_1x1.cu): one fmaf chain over k from zero, the bias added
-// after, atanf and expf, so it reproduces the activations the forward
-// produced. The ReLU mask comes from h (z > 0 exactly where h > 0). Math is
-// fp32; x, g and dx are stored in fp32 or bf16; the gradients are fp32.
+// Every product is a 3xTF32 product on the tensor cores: each fp32 operand a
+// is split into hi = tf32(a) (cvt.rna: to nearest, ties away from zero) and
+// lo = tf32(a - hi), and mma.sync.m16n8k8 (TF32 in, fp32 accumulate) adds
+// a_lo b_hi + a_hi b_lo + a_hi b_hi. The dropped lo lo term and the rounding
+// of lo leave about 2^-21 of each product, near fp32's own 2^-24; one-pass
+// TF32 (2^-11) would not hold dx to 1e-4. The recompute therefore does not
+// repeat K1/K2's fmaf order: a relu gate whose pre-activation lies within
+// rounding of 0 may be set otherwise than in the forward. Math is fp32; x, g
+// and dx are stored in fp32 or bf16; the gradients are fp32.
 //
-// What bounds it on an H100: arithmetic. One launch does 18 H C FLOP per
-// pixel (recompute 6 H C, the dx chain 6 H C, the weight gradients 6 H C).
-// At the SRF training shapes (batch 8, HR 352x640: M = 112,640 x C = 48 and
-// M = 28,160 x C = 192) that is 24.9 GFLOP against about 65 MB of x, g and
-// dx: 0.37 ms at the fp32 peak, 0.05 ms at the TF32 peak, ~0.02 ms of bytes.
+// Stages. One launch of sininn_coupling_1x1_bwd runs, on one stream:
+//   0. pack: the eight OIHW weights and biases into zero-padded row-major
+//      operands of the four row phases (K padded to 8, H to 32, N to 8).
+//   1-4. four row phases, each a two-layer product streamed over the hidden
+//      width: A (rows x K) -> z = A Wa [+ ba] (rows x H) -> relu or the
+//      stored gate -> out = z Wb [+ bb] (rows x N). K3: [x2 -> h2 -> r2],
+//      [y1 -> h1 -> s1], [gr1 -> gz1 -> gz1 W1a'], [gr2 -> gz2 -> gz2 W2a'];
+//      K4 mirrors it. A block holds a tile of 16 W rows (W warps, one 16-row
+//      slab each; W = 8 at every shape the model uses) and its A in shared
+//      memory, and walks the hidden width in chunks of 32: the chunk of Wa
+//      (K x 32) and of Wb (32 x N) comes in by 16-byte cp.async, double
+//      buffered, so each weight byte serves 128 rows. z stays in registers:
+//      the accumulator fragment of the first product is the A fragment of the
+//      second, with the chunk's k order permuted (columns 2t, 2t+1 of an
+//      8-column step taken as k = t, t + 4) and Wb read in the same order.
+//      The elementwise chain (y1, gr, dx) runs in the phases' prologues and
+//      epilogues. Narrow N is padded to the mma's 8 columns, not given to
+//      fewer threads.
+//   5. weight products: [dW | db] of each of the four weights as a split-K
+//      product over chunks of rows, D = U' V with U the H-wide operand (h or
+//      gz) and V the narrow one, on D tiles of 256 x 32 (V at most 32 wide)
+//      or 128 x 64, 8 warps of 32 x 32, 32 rows a stage by double-buffered
+//      cp.async. Each block writes its tile of its chunk's slot once; the
+//      biases are column sums taken in row order by the blocks of the first
+//      tile row or column. A chunk has at least 1,024 rows, and as many as
+//      make chunks x tiles fill the blocks the card holds at once (264 on an
+//      H100: 44 chunks of 2,560 rows at the first SRF octave, batch 8, 13 of
+//      2,176 at the second), so no wave runs part empty.
+//   then the reduction kernel sums the slots in chunk order. No atomics:
+//   the result is bitwise the same on every run on one card.
+// The tensor cores add into an accumulator with truncation, whose bias grows
+// with the number of adds, so every run of at most 12 mma (4 k-steps)
+// starts from 0 and is added to the running sum in fp32.
 //
-// What the design does about it, and about the gradient sum:
-// * The TPU summed the weight gradients across its sequential grid into
-//   constant-indexed output blocks. Here blocks run in parallel and in no
-//   order, so the sum takes two passes. A persistent grid of P blocks (as
-//   many as fit on the SMs at once) walks the 32-row tiles; each block adds
-//   its tiles' products into its own fp32 slot of a scratch buffer of P x S
-//   floats (S = 37,472 at C = 48, 148,352 at C = 192; the wrapper allocates
-//   it). A block's first tile writes its slot, later tiles add to it. No slot
-//   is shared, so there are no atomics. A second kernel sums the P slots in
-//   a fixed order, so the result is the same on every run.
-// * Shared memory: one tile holds the input, the cotangent (which becomes
-//   dx in place), both H-wide hidden layers (each overwritten in place by
-//   its masked gradient gz once h'gr is taken), s and y1 (x2 in K4), and one
-//   [gs | gt] buffer: about 165 KB at C = 192, 91 KB at C = 48.
-// * Products with transposed weights (gr W_b', gz W_a') read the weights in
-//   their (cout, cin) layout, which is the OIHW conv weight as stored, so a
-//   warp still reads consecutive addresses.
-// * Rows past M are zeros in the tile: their cotangent is zero, so they add
-//   nothing to any gradient, and they are never stored.
-// Tensor cores (TF32 wgmma, or 3xTF32 for fp32 accuracy) are later work.
+// Sizes. Scratch (fp32): h1, h2, gz1, gz2 (M x H each, 115 MB each at the
+// first SRF octave, batch 8), the narrow r, y1 / x2, gr and mid-chain arrays
+// (about 10 C floats a row), the relu gates as bits (one 32-bit word per
+// lane, 16-row slab and 32-wide chunk: M H / 2 bytes) and the packed
+// weights. Partials: one slot of S floats a chunk (S = 37,472 at C = 48,
+// 148,352 at C = 192: 6.6 MB and 7.7 MB at the SRF training shapes).
+// Shared memory per row-phase block: 16 W (K + 4) + 2 (40 K + 32 (N + 4))
+// floats (at most 187 KB, at C = 192); weight stage 86 KB.
+//
+// What bounds it on an H100: by its work, the tensor cores and the staged
+// bytes. A K4 launch needs 18 H C FLOP per pixel (24.9 GFLOP at either SRF
+// octave, batch 8), a K3 launch 17 H C (23.5 GFLOP: its chain never reads
+// t1, so the recompute skips that half of the last product), three TF32
+// products each: 71-75 GFLOP of TF32 work, 0.14-0.15 ms at the dense TF32
+// peak; the H-wide intermediates are written once and read once (0.92 GB
+// at C = 48, 0.23 GB at C = 192: 0.28 and 0.07 ms at 3.35 TB/s), plus the
+// narrow arrays. The kernels reach about a tenth of that TF32 peak; the
+// rest is latency between the chunks' loads, splits and products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileRows = 32;    // pixels per tile
-constexpr int kWideRows = 8;     // rows per thread when N is the hidden width
-constexpr int kNarrowRows = 2;   // rows per thread when N is len1 or len2
-constexpr int kCols = 4;         // columns (or channel pairs) per thread
-constexpr int kGradK = 4;        // weight-gradient rows per thread
+constexpr int kThreads = 256;     // row phases: at most 8 warps
+constexpr int kHC = 32;           // hidden chunk of a row phase
+constexpr int kWaLd = kHC + 8;    // shared row stride of a Wa chunk
+constexpr int kMinChunkRows = 1024;  // least rows of a gradient slot
+constexpr int kWThreads = 256;    // weight stage: 8 warps of 32 x 32
+constexpr int kWK = 32;           // rows per weight-stage step
+constexpr int kUld = 256 + 8, kVld = 64 + 8;  // widest tiles' strides
+constexpr int kMaxSmem = 232448;
 
-struct Weights {       // forward order, (cin, cout) row-major
-  const float *w2a, *b2a, *w2b, *b2b, *w1a, *b1a, *w1b, *b1b;
-};
-struct WeightsT {      // (cout, cin) row-major: the OIHW conv weights
-  const float *w2a, *w2b, *w1a, *w1b;
-};
-struct Grads {         // one block's slot of the partial sums
-  float *w2a, *b2a, *w2b, *b2b, *w1a, *b1a, *w1b, *b1b;
-};
+__host__ __device__ __forceinline__ int round_up(int a, int b) {
+  return (a + b - 1) / b * b;
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -87,396 +115,593 @@ __device__ __forceinline__ float log_e_prime(float s, float clamp) {
   return 0.636619772367581343f / (1.f + u * u);
 }
 
-// Odd row strides keep the rows of a tile on different shared-memory banks.
-__host__ __device__ __forceinline__ int padded(int n) { return n | 1; }
+// ---- 3xTF32 on mma.sync.m16n8k8 ----
 
-// epi(r, n, sum_k a[r][k] w[k][n]) for every tile row r and n < N.
-// a: shared memory, row stride lda, k < K. w: (K, N) row-major, global.
-template <int kRows, class Epi>
-__device__ __forceinline__ void matmul_rows(const float* a, int lda, int K,
-                                            const float* __restrict__ w,
-                                            int N, Epi epi) {
-  const int ncg = (N + kCols - 1) / kCols;
-  const int items = (kTileRows / kRows) * ncg;
-  for (int item = threadIdx.x; item < items; item += blockDim.x) {
-    const int cg = item % ncg;
-    const int r0 = (item / ncg) * kRows;
-    // columns cg, cg + ncg, ...: a warp reads consecutive weights at once
-    int col[kCols];
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) col[q] = min(cg + q * ncg, N - 1);
-    float acc[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) acc[i][q] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      float wv[kCols];
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) wv[q] = __ldg(w + (size_t)k * N + col[q]);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float av = a[(r0 + i) * lda + k];
-#pragma unroll
-        for (int q = 0; q < kCols; ++q) acc[i][q] = fmaf(av, wv[q], acc[i][q]);
+__device__ __forceinline__ uint32_t tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(a);
+  lo = tf32(a - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b with a split into (hi, lo) and b = (b0, b1) split here.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&hi)[4],
+                                     const uint32_t (&lo)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(c, lo, bh0, bh1);
+  mma(c, hi, bl0, bl1);
+  mma(c, hi, bh0, bh1);
+}
+
+// ---- 16-byte cp.async ----
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---- stage 0: pack the weights ----
+
+struct PackMat {
+  long long dst;       // floats into the packed buffer
+  int rows, cols;      // real size
+  int rows_pad, cols_pad;
+  const float* src;    // element (i, j) at src[i * sr + j * sc]
+  int sr, sc;
+};
+constexpr int kMaxPack = 12;
+struct PackArgs {
+  PackMat mat[kMaxPack];
+  int count;
+};
+
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(PackArgs p, float* __restrict__ out) {
+  const PackMat& d = p.mat[blockIdx.y];
+  const long long n = (long long)d.rows_pad * d.cols_pad;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    const int i = (int)(e / d.cols_pad), j = (int)(e % d.cols_pad);
+    out[d.dst + e] = (i < d.rows && j < d.cols)
+                         ? __ldg(d.src + (long long)i * d.sr +
+                                 (long long)j * d.sc)
+                         : 0.f;
+  }
+}
+
+// ---- stages 1-4: the row phases ----
+
+struct RowArgs {
+  const void* in;
+  const void* g;
+  void* dx;
+  long long m;
+  int c, len1, len2, hp;   // hp: H padded to kHC
+  float clamp;
+  const float *wa, *ba, *wb, *bb;  // this phase's packed operands
+  int kp, np, n_out;               // padded K, padded N (ld of Wb), real N
+  int npass, nbuf;                 // Wb columns per pass, chunk buffers
+  float *a1, *a2, *ra, *rb, *gr1, *gr2, *gmid;
+  int ld_a2, ld_ra, ld_rb, ld_gmid;   // the copies of A have ld kp
+  float* wide;         // h (phases 0-1) or gz (phases 2-3), ld hp
+  uint32_t* mask;      // relu gates: written in phases 0-1, read in 2-3
+};
+
+// Per-row loop width L of a phase's prologue (A is L wide, or 2 L for gr).
+template <bool kInv, int kPhase>
+__device__ __forceinline__ int phase_len(const RowArgs& a) {
+  // K3: x2, y1, gr1, gr2; K4: y1, x2, gr2, gr1
+  const bool first = (kPhase == 1 || kPhase == 3) != kInv;
+  return first ? a.len1 : a.len2;
+}
+
+// Build the block's A tile (rows x kp, zero padded) and its global copy
+// (a1, a2, gr1 or gr2, the weight stage's narrow operands); the elementwise
+// steps of the chain before this phase's products, dx's first half included.
+template <typename T, bool kInv, int kPhase>
+__device__ void prologue(const RowArgs& a, float* As, int lda, long long row0,
+                         int rows) {
+  const T* in = static_cast<const T*>(a.in);
+  const T* g = static_cast<const T*>(a.g);
+  T* dx = static_cast<T*>(a.dx);
+  const int c = a.c, len1 = a.len1;
+  const float clamp = a.clamp;
+  constexpr bool kGr = kPhase >= 2;
+  const int L = phase_len<kInv, kPhase>(a);
+  const int kw = kGr ? 2 * L : L;
+  // K3: x2, y1, gr1, gr2; K4: y1, x2, gr2, gr1, each with its A's width kp
+  float* const copies[2][4] = {{a.a2, a.a1, a.gr1, a.gr2},
+                               {a.a1, a.a2, a.gr2, a.gr1}};
+  float* const dst = copies[kInv][kPhase];
+  const int ldd = a.kp;
+  // every array read here is read-only in this kernel: __ldg lets the
+  // loads of several elements run ahead of the stores
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < rows * L; idx += blockDim.x) {
+    const int r = idx / L, j = idx % L;
+    const long long m = row0 + r;
+    float v0 = 0.f, v1 = 0.f;
+    if (m < a.m) {
+      const T* xi = in + m * c;
+      const T* gi = g + m * c;
+      if (!kInv) {
+        if (kPhase == 0) {
+          v0 = to_float(__ldg(xi + len1 + j));                 // x2
+        } else if (kPhase == 1) {
+          const float s2 = __ldg(a.ra + m * a.ld_ra + j);
+          const float t2 = __ldg(a.ra + m * a.ld_ra + len1 + j);
+          v0 = expf(log_e(s2, clamp)) * to_float(__ldg(xi + j)) + t2;
+        } else if (kPhase == 2) {
+          const float s1 = __ldg(a.rb + m * a.ld_rb + j);
+          const float e1 = expf(log_e(s1, clamp));
+          const float gy2 = to_float(__ldg(gi + len1 + j));
+          v0 = gy2 * to_float(__ldg(xi + len1 + j)) * e1 *
+               log_e_prime(s1, clamp);
+          v1 = gy2;                                            // gr1
+        } else {
+          const float gy1 = __ldg(a.gmid + m * a.ld_gmid + j);
+          const float s2 = __ldg(a.ra + m * a.ld_ra + j);
+          const float e2 = expf(log_e(s2, clamp));
+          v0 = gy1 * to_float(__ldg(xi + j)) * e2 * log_e_prime(s2, clamp);
+          v1 = gy1;                                            // gr2
+          store(dx + m * c + j, gy1 * e2);                     // gx1
+        }
+      } else {
+        if (kPhase == 0) {
+          v0 = to_float(__ldg(xi + j));                        // y1
+        } else if (kPhase == 1) {
+          const float s1 = __ldg(a.ra + m * a.ld_ra + j);
+          const float t1 = __ldg(a.ra + m * a.ld_ra + a.len2 + j);
+          v0 = (to_float(__ldg(xi + len1 + j)) - t1) *
+               expf(-log_e(s1, clamp));                       // x2
+        } else if (kPhase == 2) {
+          const float s2 = __ldg(a.rb + m * a.ld_rb + j);
+          const float t2 = __ldg(a.rb + m * a.ld_rb + len1 + j);
+          const float e2inv = expf(-log_e(s2, clamp));
+          const float x1 = (to_float(__ldg(xi + j)) - t2) * e2inv;
+          const float gx1 = to_float(__ldg(gi + j));
+          v0 = -gx1 * x1 * log_e_prime(s2, clamp);
+          v1 = -gx1 * e2inv;                                   // gr2
+        } else {
+          const float gx2 = __ldg(a.gmid + m * a.ld_gmid + j);
+          const float s1 = __ldg(a.ra + m * a.ld_ra + j);
+          const float e1inv = expf(-log_e(s1, clamp));
+          v0 = -gx2 * __ldg(a.a2 + m * a.ld_a2 + j) * log_e_prime(s1, clamp);
+          v1 = -gx2 * e1inv;                                   // gr1
+          store(dx + m * c + len1 + j, gx2 * e1inv);           // gy2
+        }
       }
+      dst[m * ldd + j] = v0;
+      if (kGr) dst[m * ldd + L + j] = v1;
     }
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) {
-      if (cg + q * ncg >= N) continue;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) epi(r0 + i, col[q], acc[i][q]);
+    As[r * lda + j] = v0;
+    if (kGr) As[r * lda + L + j] = v1;
+  }
+  const int pad = a.kp - kw;
+  for (int idx = threadIdx.x; idx < rows * pad; idx += blockDim.x) {
+    const int r = idx / pad, j = kw + idx % pad;
+    As[r * lda + j] = 0.f;
+    const long long m = row0 + r;
+    if (m < a.m) dst[m * ldd + j] = 0.f;
+  }
+}
+
+// out[row][col] of the second product, for col < np (padded columns too,
+// where the phase writes an array of ld np).
+template <typename T, bool kInv, int kPhase>
+__device__ __forceinline__ void epilogue_one(const RowArgs& a, long long m,
+                                             int col, float acc) {
+  const T* g = static_cast<const T*>(a.g);
+  T* dx = static_cast<T*>(a.dx);
+  const int c = a.c, len1 = a.len1;
+  if (kPhase == 0) {
+    a.ra[m * a.ld_ra + col] = acc + __ldg(a.bb + col);
+  } else if (kPhase == 1) {
+    a.rb[m * a.ld_rb + col] = acc + __ldg(a.bb + col);
+  } else if (col < a.n_out) {
+    if (kPhase == 2) {
+      // K3: gy1 = gy1 + gz1 W1a';  K4: gx2 = gx2 + gz2 W2a'
+      const int off = kInv ? len1 : 0;
+      a.gmid[m * a.ld_gmid + col] =
+          to_float(__ldg(g + m * c + off + col)) + acc;
+    } else if (!kInv) {
+      // gx2 = gy2 e1 + gz2 W2a'
+      const float e1 =
+          expf(log_e(__ldg(a.rb + m * a.ld_rb + col), a.clamp));
+      store(dx + m * c + len1 + col,
+            to_float(__ldg(g + m * c + len1 + col)) * e1 + acc);
+    } else {
+      // gy1 = gx1 e2^-1 + gz1 W1a'
+      const float e2inv =
+          expf(-log_e(__ldg(a.rb + m * a.ld_rb + col), a.clamp));
+      store(dx + m * c + col,
+            to_float(__ldg(g + m * c + col)) * e2inv + acc);
     }
   }
 }
 
-// The scale/shift layer: r = h w + b with w: (H, 2L) row-major;
-// epi(r, j, s, t) with s = r[:, j], t = r[:, L + j] for j < L.
-template <class Epi>
-__device__ __forceinline__ void affine_rows(const float* h, int ldh, int H,
-                                            const float* __restrict__ w,
-                                            const float* __restrict__ b,
-                                            int L, Epi epi) {
-  const int n = 2 * L;
-  const int ncg = (L + kCols - 1) / kCols;
-  const int items = (kTileRows / kNarrowRows) * ncg;
-  for (int item = threadIdx.x; item < items; item += blockDim.x) {
-    const int cg = item % ncg;
-    const int r0 = (item / ncg) * kNarrowRows;
-    int col[kCols];
+template <typename T, bool kInv, int kPhase, int kNT>
+__global__ void __launch_bounds__(kThreads)
+row_phase_kernel(RowArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int rows = 16 * warps;
+  const long long row0 = (long long)blockIdx.x * rows;
+  const int lda = a.kp + 4;
+  float* const As = smem;
+  float* const wa_s = As + rows * lda;
+  const int wa_buf = a.kp * kWaLd;
+  const int ldb = a.npass + 4;
+  float* const wb_s = wa_s + a.nbuf * wa_buf;
+  const int wb_buf = kHC * ldb;
+
+  prologue<T, kInv, kPhase>(a, As, lda, row0, rows);
+  __syncthreads();
+
+  const int nch = a.hp / kHC;
+  const long long slab = (long long)blockIdx.x * warps + warp;
+  const int r0 = warp * 16;
+  const float* a_lo = As + (r0 + gq) * lda + tq;
+  const long long m_lo = row0 + r0 + gq, m_hi = m_lo + 8;
+
+  for (int pass0 = 0; pass0 < a.np; pass0 += a.npass) {
+    const int ncols = min(a.npass, a.np - pass0);
+    const int nt = ncols / 8;
+    auto issue = [&](int ch, int buf) {
+      float* wa_d = wa_s + buf * wa_buf;
+      for (int s = threadIdx.x; s < a.kp * (kHC / 4); s += blockDim.x) {
+        const int k = s / (kHC / 4), q = 4 * (s % (kHC / 4));
+        cp_async16(wa_d + k * kWaLd + q,
+                   a.wa + (size_t)k * a.hp + ch * kHC + q, true);
+      }
+      float* wb_d = wb_s + buf * wb_buf;
+      const int per_row = ncols / 4;
+      for (int s = threadIdx.x; s < kHC * per_row; s += blockDim.x) {
+        const int k = s / per_row, q = 4 * (s % per_row);
+        cp_async16(wb_d + k * ldb + q,
+                   a.wb + (size_t)(ch * kHC + k) * a.np + pass0 + q, true);
+      }
+    };
+
+    float out[kNT][4];
 #pragma unroll
-    for (int q = 0; q < kCols; ++q) col[q] = min(cg + q * ncg, L - 1);
-    float s[kNarrowRows][kCols], t[kNarrowRows][kCols];
+    for (int n = 0; n < kNT; ++n)
 #pragma unroll
-    for (int i = 0; i < kNarrowRows; ++i)
+      for (int e = 0; e < 4; ++e) out[n][e] = 0.f;
+
+    issue(0, 0);
+    cp_async_commit();
+    for (int ch = 0; ch < nch; ++ch) {
+      if (a.nbuf == 2 && ch + 1 < nch) {
+        issue(ch + 1, (ch + 1) & 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int buf = a.nbuf == 2 ? (ch & 1) : 0;
+      const float* wa_c = wa_s + buf * wa_buf + tq * kWaLd + gq;
+      const float* wb_c = wb_s + buf * wb_buf + 2 * tq * ldb + gq;
+
+      // z = A Wa over this chunk's 32 hidden columns. The tensor cores
+      // add into an accumulator with truncation, so each run of at most 4
+      // k-steps (12 mma) starts from 0 and is added to z in fp32.
+      float z[4][4];
 #pragma unroll
-      for (int q = 0; q < kCols; ++q) s[i][q] = t[i][q] = 0.f;
-    for (int k = 0; k < H; ++k) {
-      float ws[kCols], wt[kCols];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        ws[q] = __ldg(w + (size_t)k * n + col[q]);
-        wt[q] = __ldg(w + (size_t)k * n + L + col[q]);
+        for (int e = 0; e < 4; ++e) z[j][e] = 0.f;
+      for (int k0 = 0; k0 < a.kp; k0 += 32) {
+        float t[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[j][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const int k = k0 + 8 * ks;
+          if (k >= a.kp) break;
+          uint32_t hi[4], lo[4];
+          split(a_lo[k], hi[0], lo[0]);
+          split(a_lo[8 * lda + k], hi[1], lo[1]);
+          split(a_lo[k + 4], hi[2], lo[2]);
+          split(a_lo[8 * lda + k + 4], hi[3], lo[3]);
+          const float* w = wa_c + k * kWaLd;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma3(t[j], hi, lo, w[8 * j], w[4 * kWaLd + 8 * j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) z[j][e] += t[j][e];
+      }
+
+      // relu (recording the gate) or the stored gate; c0, c1 at row gq,
+      // columns 2 tq, 2 tq + 1 of step j; c2, c3 at row gq + 8
+      const int n0 = ch * kHC;
+      uint32_t* mword = a.mask + (slab * nch + ch) * 32 + lane;
+      uint32_t bits = kPhase >= 2 ? *mword : 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (kPhase < 2) {
+          const float* bp = a.ba + n0 + 8 * j + 2 * tq;
+          const float2 b = __ldg(reinterpret_cast<const float2*>(bp));
+          z[j][0] += b.x;
+          z[j][1] += b.y;
+          z[j][2] += b.x;
+          z[j][3] += b.y;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (z[j][e] > 0.f) bits |= 1u << (4 * j + e);
+            else z[j][e] = 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!((bits >> (4 * j + e)) & 1u)) z[j][e] = 0.f;
+        }
+      }
+      if (pass0 == 0) {
+        if (kPhase < 2) *mword = bits;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = n0 + 8 * j + 2 * tq;
+          if (m_lo < a.m)
+            *reinterpret_cast<float2*>(a.wide + m_lo * a.hp + col) =
+                make_float2(z[j][0], z[j][1]);
+          if (m_hi < a.m)
+            *reinterpret_cast<float2*>(a.wide + m_hi * a.hp + col) =
+                make_float2(z[j][2], z[j][3]);
+        }
+      }
+
+      // out += z Wb: step j of the chunk takes z's columns 2 tq, 2 tq + 1
+      // as k = tq, tq + 4, and Wb's rows in the same order; each output
+      // tile sums the chunk from 0 (12 mma) and adds it to out in fp32
+      uint32_t zh[4][4], zl[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        split(z[j][0], zh[j][0], zl[j][0]);
+        split(z[j][2], zh[j][1], zl[j][1]);
+        split(z[j][1], zh[j][2], zl[j][2]);
+        split(z[j][3], zh[j][3], zl[j][3]);
       }
 #pragma unroll
-      for (int i = 0; i < kNarrowRows; ++i) {
-        const float av = h[(r0 + i) * ldh + k];
+      for (int n = 0; n < kNT; ++n) {
+        if (n >= nt) continue;
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int q = 0; q < kCols; ++q) {
-          s[i][q] = fmaf(av, ws[q], s[i][q]);
-          t[i][q] = fmaf(av, wt[q], t[i][q]);
+        for (int j = 0; j < 4; ++j) {
+          const float* w = wb_c + 8 * j * ldb + 8 * n;
+          mma3(t, zh[j], zl[j], w[0], w[ldb]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[n][e] += t[e];
+      }
+      __syncthreads();
+      if (a.nbuf == 1 && ch + 1 < nch) {
+        issue(ch + 1, 0);
+        cp_async_commit();
+      }
+    }
+
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      if (n >= nt) continue;
+      const int col = pass0 + 8 * n + 2 * tq;
+      if (m_lo < a.m) {
+        epilogue_one<T, kInv, kPhase>(a, m_lo, col, out[n][0]);
+        epilogue_one<T, kInv, kPhase>(a, m_lo, col + 1, out[n][1]);
+      }
+      if (m_hi < a.m) {
+        epilogue_one<T, kInv, kPhase>(a, m_hi, col, out[n][2]);
+        epilogue_one<T, kInv, kPhase>(a, m_hi, col + 1, out[n][3]);
+      }
+    }
+  }
+}
+
+// ---- stage 5: the weight products ----
+
+struct Product {
+  const float* u;    // rows x p (ld ldu): h or gz
+  const float* v;    // rows x q (ld ldv): the narrow operand
+  int p, ldu, q, ldv;
+  long long out;     // slot offset of the weight; its bias follows
+  int transpose;     // the weight is (q, p): out[j][i] = D[i][j]
+  int bias_u;        // bias = column sums of u (else of v)
+};
+struct Products {
+  Product pr[4];
+};
+
+// A D tile is 256 x 32 (8 x 1 warps) for a narrow operand of at most 32
+// columns, else 128 x 64 (4 x 2 warps).
+__host__ __device__ __forceinline__ int tile_p(const Product& p) {
+  return p.q <= 32 ? 256 : 128;
+}
+__host__ __device__ __forceinline__ int tile_q(const Product& p) {
+  return p.q <= 32 ? 32 : 64;
+}
+__host__ __device__ __forceinline__ int tiles_of(const Product& p) {
+  return ((p.p + tile_p(p) - 1) / tile_p(p)) *
+         ((p.q + tile_q(p) - 1) / tile_q(p));
+}
+
+// blockIdx.x: a chunk of `chunk` rows; blockIdx.y: a D tile of one of
+// the four products. Writes the tile (and its share of the bias) into the
+// chunk's slot of `partials`.
+__global__ void __launch_bounds__(kWThreads)
+weight_stage_kernel(Products ps, long long m, long long chunk,
+                    float* __restrict__ partials, long long slot) {
+  extern __shared__ __align__(16) float smem[];
+  int tile = blockIdx.y, which = 0;
+  while (tile >= tiles_of(ps.pr[which])) tile -= tiles_of(ps.pr[which++]);
+  const Product& pr = ps.pr[which];
+  const int tp = tile_p(pr), tq_w = tile_q(pr);
+  const int uld = tp + 8, vld = tq_w + 8;   // 8 mod 32: no bank conflicts
+  float* const us = smem;                   // 2 x kWK x uld
+  float* const vs = us + 2 * kWK * uld;     // 2 x kWK x vld
+  const int qt = (pr.q + tq_w - 1) / tq_w;
+  const int p0 = (tile / qt) * tp, q0 = (tile % qt) * tq_w;
+  const long long k_begin = (long long)blockIdx.x * chunk;
+  const long long k_end = min(k_begin + chunk, m);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int wq = tq_w / 32;                 // warps across q: 1 or 2
+  const int pw = (warp / wq) * 32, qw = (warp % wq) * 32;
+  const int nt = min(4, max(0, (pr.q - q0 - qw + 7) / 8));
+  const bool live = p0 + pw < pr.p && nt > 0;
+  const bool sum_u = pr.bias_u && q0 == 0;
+  const bool sum_v = !pr.bias_u && p0 == 0;
+
+  auto issue = [&](long long k0, int buf) {
+    float* ud = us + buf * kWK * uld;
+    for (int s = threadIdx.x; s < kWK * (tp / 4); s += kWThreads) {
+      const int r = s / (tp / 4), col = 4 * (s % (tp / 4));
+      const long long row = k0 + r;
+      const bool ok = row < k_end && p0 + col < pr.ldu;
+      cp_async16(ud + r * uld + col,
+                 ok ? pr.u + row * pr.ldu + p0 + col : pr.u, ok);
+    }
+    float* vd = vs + buf * kWK * vld;
+    for (int s = threadIdx.x; s < kWK * (tq_w / 4); s += kWThreads) {
+      const int r = s / (tq_w / 4), col = 4 * (s % (tq_w / 4));
+      const long long row = k0 + r;
+      const bool ok = row < k_end && q0 + col < pr.ldv;
+      cp_async16(vd + r * vld + col,
+                 ok ? pr.v + row * pr.ldv + q0 + col : pr.v, ok);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  float colsum = 0.f;
+
+  const int stages = (int)((k_end - k_begin + kWK - 1) / kWK);
+  issue(k_begin, 0);
+  cp_async_commit();
+  for (int st = 0; st < stages; ++st) {
+    if (st + 1 < stages) {
+      issue(k_begin + (long long)(st + 1) * kWK, (st + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* ub = us + (st & 1) * kWK * uld;
+    const float* vb = vs + (st & 1) * kWK * vld;
+    if (live) {
+      // the stage's 32 rows sum from 0 (12 mma) and are added to acc in
+      // fp32: the tensor cores add with truncation
+      float t[2][4][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[i][n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kWK; kk += 8) {
+        // A = U' (D rows p, k rows r): a0 (p = gq, r = tq), a1 (p + 8), a2
+        // (r + 4), a3 (p + 8, r + 4)
+        uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float* u = ub + (kk + tq) * uld + pw + 16 * i + gq;
+          split(u[0], hi[i][0], lo[i][0]);
+          split(u[8], hi[i][1], lo[i][1]);
+          split(u[4 * uld], hi[i][2], lo[i][2]);
+          split(u[4 * uld + 8], hi[i][3], lo[i][3]);
+        }
+        const float* v = vb + (kk + tq) * vld + qw + gq;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          if (n >= nt) continue;
+          uint32_t bh0, bl0, bh1, bl1;
+          split(v[8 * n], bh0, bl0);
+          split(v[4 * vld + 8 * n], bh1, bl1);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma(t[i][n], lo[i], bh0, bh1);
+            mma(t[i][n], hi[i], bl0, bl1);
+            mma(t[i][n], hi[i], bh0, bh1);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][n][e] += t[i][n][e];
+    }
+    if (sum_u && threadIdx.x < tp) {
+      for (int r = 0; r < kWK; ++r) colsum += ub[r * uld + threadIdx.x];
+    } else if (sum_v && threadIdx.x < tq_w) {
+      for (int r = 0; r < kWK; ++r) colsum += vb[r * vld + threadIdx.x];
+    }
+    __syncthreads();
+  }
+
+  float* dst = partials + (long long)blockIdx.x * slot + pr.out;
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        if (n >= nt) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = p0 + pw + 16 * i + gq + (e >= 2 ? 8 : 0);
+          const int q = q0 + qw + 8 * n + 2 * tq + (e & 1);
+          if (p < pr.p && q < pr.q)
+            dst[pr.transpose ? (long long)q * pr.p + p
+                             : (long long)p * pr.q + q] = acc[i][n][e];
         }
       }
     }
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) {
-      if (cg + q * ncg >= L) continue;
-      const float bs = __ldg(b + col[q]);
-      const float bt = __ldg(b + L + col[q]);
-#pragma unroll
-      for (int i = 0; i < kNarrowRows; ++i)
-        epi(r0 + i, col[q], s[i][q] + bs, t[i][q] + bt);
-    }
   }
-}
-
-// This tile's share of a weight gradient and its bias gradient:
-// gw[k][n] (+)= sum_r a[r][k] d[r][n] for k < K, n < N, and
-// gb[n] (+)= sum_r d[r][n]. The block's first tile writes, later tiles add.
-__device__ void weight_grad(const float* a, int lda, int K, const float* d,
-                            int ldd, int N, float* __restrict__ gw,
-                            float* __restrict__ gb, bool first) {
-  const int ncg = (N + kCols - 1) / kCols;
-  const int nkg = (K + kGradK - 1) / kGradK;
-  const int items = nkg * ncg;
-  for (int item = threadIdx.x; item < items; item += blockDim.x) {
-    const int cg = item % ncg;
-    const int k0 = (item / ncg) * kGradK;
-    int col[kCols], row[kGradK];
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) col[q] = min(cg + q * ncg, N - 1);
-#pragma unroll
-    for (int i = 0; i < kGradK; ++i) row[i] = min(k0 + i, K - 1);
-    float acc[kGradK][kCols];
-#pragma unroll
-    for (int i = 0; i < kGradK; ++i)
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) acc[i][q] = 0.f;
-    for (int r = 0; r < kTileRows; ++r) {
-      float dv[kCols];
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) dv[q] = d[r * ldd + col[q]];
-#pragma unroll
-      for (int i = 0; i < kGradK; ++i) {
-        const float av = a[r * lda + row[i]];
-#pragma unroll
-        for (int q = 0; q < kCols; ++q) acc[i][q] = fmaf(av, dv[q], acc[i][q]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kGradK; ++i) {
-      if (k0 + i >= K) continue;
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        if (cg + q * ncg >= N) continue;
-        float* p = gw + (size_t)row[i] * N + col[q];
-        *p = first ? acc[i][q] : *p + acc[i][q];
-      }
-    }
-  }
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float sum = 0.f;
-    for (int r = 0; r < kTileRows; ++r) sum += d[r * ldd + n];
-    gb[n] = first ? sum : gb[n] + sum;
-  }
-}
-
-struct Tile {          // shared-memory buffers of one tile
-  float *in, *g, *ha, *hb, *sv, *av, *gr;
-  int ldc, ldh, ldl, ldr;
-};
-
-__host__ __device__ __forceinline__ long long tile_floats(int c, int len1,
-                                                          int hidden) {
-  const int lmax = len1 > c - len1 ? len1 : c - len1;
-  return (long long)kTileRows * (2 * padded(c) + 2 * padded(hidden) +
-                                 2 * padded(lmax) + padded(2 * lmax));
-}
-
-// K3 on one tile: in = x, g = dy on entry and dx on exit.
-__device__ void forward_vjp_tile(const Tile& b, int len1, int len2, int H,
-                                 const Weights& wt, const WeightsT& wtt,
-                                 float clamp, const Grads& gd, bool first) {
-  float* const xs = b.in;
-  float* const gs = b.g;
-  float* const ha = b.ha;
-  float* const hb = b.hb;
-  float* const sv = b.sv;
-  float* const av = b.av;
-  float* const gr = b.gr;
-  const int ldc = b.ldc, ldh = b.ldh, ldl = b.ldl, ldr = b.ldr;
-
-  // ---- recompute the forward: h2, s2, y1, h1 ----
-  matmul_rows<kWideRows>(xs + len1, ldc, len2, wt.w2a, H,
-                         [&](int r, int n, float acc) {
-                           ha[r * ldh + n] = fmaxf(acc + __ldg(wt.b2a + n), 0.f);
-                         });
-  __syncthreads();
-  affine_rows(ha, ldh, H, wt.w2b, wt.b2b, len1,
-              [&](int r, int j, float s, float t) {
-                sv[r * ldl + j] = s;
-                av[r * ldl + j] = expf(log_e(s, clamp)) * xs[r * ldc + j] + t;
-              });
-  __syncthreads();
-  matmul_rows<kWideRows>(av, ldl, len1, wt.w1a, H,
-                         [&](int r, int n, float acc) {
-                           hb[r * ldh + n] = fmaxf(acc + __ldg(wt.b1a + n), 0.f);
-                         });
-  __syncthreads();
-  // ---- y2 = e1 x2 + t1: gr1 = [gy2 x2 e1 le'(s1) | gy2], gx2 = gy2 e1 ----
-  affine_rows(hb, ldh, H, wt.w1b, wt.b1b, len2,
-              [&](int r, int j, float s, float) {
-                const float e = expf(log_e(s, clamp));
-                const float gy2 = gs[r * ldc + len1 + j];
-                gr[r * ldr + j] = gy2 * xs[r * ldc + len1 + j] * e *
-                                  log_e_prime(s, clamp);
-                gr[r * ldr + len2 + j] = gy2;
-                gs[r * ldc + len1 + j] = gy2 * e;
-              });
-  __syncthreads();
-  weight_grad(hb, ldh, H, gr, ldr, 2 * len2, gd.w1b, gd.b1b, first);
-  __syncthreads();
-  // gz1 = (gr1 W1b') masked by h1 > 0, in place of h1
-  matmul_rows<kWideRows>(gr, ldr, 2 * len2, wtt.w1b, H,
-                         [&](int r, int n, float acc) {
-                           float* p = hb + r * ldh + n;
-                           *p = *p > 0.f ? acc : 0.f;
-                         });
-  __syncthreads();
-  // gy1 += gz1 W1a'; the weight gradient y1'gz1
-  matmul_rows<kNarrowRows>(hb, ldh, H, wtt.w1a, len1,
-                           [&](int r, int j, float acc) {
-                             gs[r * ldc + j] += acc;
-                           });
-  weight_grad(av, ldl, len1, hb, ldh, H, gd.w1a, gd.b1a, first);
-  __syncthreads();
-  // ---- y1 = e2 x1 + t2: gr2 = [gy1 x1 e2 le'(s2) | gy1], gx1 = gy1 e2 ----
-  for (int idx = threadIdx.x; idx < kTileRows * len1; idx += blockDim.x) {
-    const int r = idx / len1, j = idx % len1;
-    const float s = sv[r * ldl + j];
-    const float e = expf(log_e(s, clamp));
-    const float gy1 = gs[r * ldc + j];
-    gr[r * ldr + j] = gy1 * xs[r * ldc + j] * e * log_e_prime(s, clamp);
-    gr[r * ldr + len1 + j] = gy1;
-    gs[r * ldc + j] = gy1 * e;
-  }
-  __syncthreads();
-  weight_grad(ha, ldh, H, gr, ldr, 2 * len1, gd.w2b, gd.b2b, first);
-  __syncthreads();
-  matmul_rows<kWideRows>(gr, ldr, 2 * len1, wtt.w2b, H,
-                         [&](int r, int n, float acc) {
-                           float* p = ha + r * ldh + n;
-                           *p = *p > 0.f ? acc : 0.f;
-                         });
-  __syncthreads();
-  // gx2 += gz2 W2a'; the weight gradient x2'gz2
-  matmul_rows<kNarrowRows>(ha, ldh, H, wtt.w2a, len2,
-                           [&](int r, int j, float acc) {
-                             gs[r * ldc + len1 + j] += acc;
-                           });
-  weight_grad(xs + len1, ldc, len2, ha, ldh, H, gd.w2a, gd.b2a, first);
-}
-
-// K4 on one tile: in = y, g = dx on entry and dy on exit.
-__device__ void inverse_vjp_tile(const Tile& b, int len1, int len2, int H,
-                                 const Weights& wt, const WeightsT& wtt,
-                                 float clamp, const Grads& gd, bool first) {
-  float* const ys = b.in;
-  float* const gs = b.g;
-  float* const ha = b.ha;
-  float* const hb = b.hb;
-  float* const sv = b.sv;
-  float* const av = b.av;
-  float* const gr = b.gr;
-  const int ldc = b.ldc, ldh = b.ldh, ldl = b.ldl, ldr = b.ldr;
-
-  // ---- recompute the inverse: h1, s1, x2, h2 ----
-  matmul_rows<kWideRows>(ys, ldc, len1, wt.w1a, H,
-                         [&](int r, int n, float acc) {
-                           hb[r * ldh + n] = fmaxf(acc + __ldg(wt.b1a + n), 0.f);
-                         });
-  __syncthreads();
-  affine_rows(hb, ldh, H, wt.w1b, wt.b1b, len2,
-              [&](int r, int j, float s, float t) {
-                sv[r * ldl + j] = s;
-                av[r * ldl + j] =
-                    (ys[r * ldc + len1 + j] - t) * expf(-log_e(s, clamp));
-              });
-  __syncthreads();
-  matmul_rows<kWideRows>(av, ldl, len2, wt.w2a, H,
-                         [&](int r, int n, float acc) {
-                           ha[r * ldh + n] = fmaxf(acc + __ldg(wt.b2a + n), 0.f);
-                         });
-  __syncthreads();
-  // ---- x1 = (y1 - t2) / e2: gr2 = [-gx1 x1 le'(s2) | -gx1 / e2],
-  //      gy1 = gx1 / e2 ----
-  affine_rows(ha, ldh, H, wt.w2b, wt.b2b, len1,
-              [&](int r, int j, float s, float t) {
-                const float einv = expf(-log_e(s, clamp));
-                const float x1 = (ys[r * ldc + j] - t) * einv;
-                const float gx1 = gs[r * ldc + j];
-                gr[r * ldr + j] = -gx1 * x1 * log_e_prime(s, clamp);
-                gr[r * ldr + len1 + j] = -gx1 * einv;
-                gs[r * ldc + j] = gx1 * einv;
-              });
-  __syncthreads();
-  weight_grad(ha, ldh, H, gr, ldr, 2 * len1, gd.w2b, gd.b2b, first);
-  __syncthreads();
-  matmul_rows<kWideRows>(gr, ldr, 2 * len1, wtt.w2b, H,
-                         [&](int r, int n, float acc) {
-                           float* p = ha + r * ldh + n;
-                           *p = *p > 0.f ? acc : 0.f;
-                         });
-  __syncthreads();
-  // gx2 += gz2 W2a'; the weight gradient x2'gz2
-  matmul_rows<kNarrowRows>(ha, ldh, H, wtt.w2a, len2,
-                           [&](int r, int j, float acc) {
-                             gs[r * ldc + len1 + j] += acc;
-                           });
-  weight_grad(av, ldl, len2, ha, ldh, H, gd.w2a, gd.b2a, first);
-  __syncthreads();
-  // ---- x2 = (y2 - t1) / e1: gr1 = [-gx2 x2 le'(s1) | -gx2 / e1],
-  //      gy2 = gx2 / e1 ----
-  for (int idx = threadIdx.x; idx < kTileRows * len2; idx += blockDim.x) {
-    const int r = idx / len2, j = idx % len2;
-    const float s = sv[r * ldl + j];
-    const float einv = expf(-log_e(s, clamp));
-    const float gx2 = gs[r * ldc + len1 + j];
-    gr[r * ldr + j] = -gx2 * av[r * ldl + j] * log_e_prime(s, clamp);
-    gr[r * ldr + len2 + j] = -gx2 * einv;
-    gs[r * ldc + len1 + j] = gx2 * einv;
-  }
-  __syncthreads();
-  weight_grad(hb, ldh, H, gr, ldr, 2 * len2, gd.w1b, gd.b1b, first);
-  __syncthreads();
-  matmul_rows<kWideRows>(gr, ldr, 2 * len2, wtt.w1b, H,
-                         [&](int r, int n, float acc) {
-                           float* p = hb + r * ldh + n;
-                           *p = *p > 0.f ? acc : 0.f;
-                         });
-  __syncthreads();
-  // gy1 += gz1 W1a'; the weight gradient y1'gz1
-  matmul_rows<kNarrowRows>(hb, ldh, H, wtt.w1a, len1,
-                           [&](int r, int j, float acc) {
-                             gs[r * ldc + j] += acc;
-                           });
-  weight_grad(ys, ldc, len1, hb, ldh, H, gd.w1a, gd.b1a, first);
-}
-
-__host__ __device__ __forceinline__ long long slot_floats(int c, int len1,
-                                                          int hidden) {
-  const long long len2 = c - len1;
-  return len2 * hidden + hidden + hidden * 2 * len1 + 2 * len1 +
-         len1 * hidden + hidden + hidden * 2 * len2 + 2 * len2;
-}
-
-template <typename T, bool kInverse>
-__global__ void __launch_bounds__(kThreads)
-coupling_1x1_bwd_kernel(const T* __restrict__ in, const T* __restrict__ g,
-                        T* __restrict__ dx, long long m_total, int c,
-                        int len1, int hidden, Weights wt, WeightsT wtt,
-                        float clamp, float* __restrict__ partials) {
-  extern __shared__ float smem[];
-  const int len2 = c - len1;
-  const int lmax = max(len1, len2);
-  Tile b;
-  b.ldc = padded(c);
-  b.ldh = padded(hidden);
-  b.ldl = padded(lmax);
-  b.ldr = padded(2 * lmax);
-  b.in = smem;                          // kTileRows x ldc: x or y
-  b.g = b.in + kTileRows * b.ldc;       // kTileRows x ldc: cotangent -> dx
-  b.ha = b.g + kTileRows * b.ldc;       // kTileRows x ldh: h2, then gz2
-  b.hb = b.ha + kTileRows * b.ldh;      // kTileRows x ldh: h1, then gz1
-  b.sv = b.hb + kTileRows * b.ldh;      // kTileRows x ldl: s2 (K3), s1 (K4)
-  b.av = b.sv + kTileRows * b.ldl;      // kTileRows x ldl: y1 (K3), x2 (K4)
-  b.gr = b.av + kTileRows * b.ldl;      // kTileRows x ldr: [gs | gt]
-
-  Grads gd;
-  gd.w2a = partials + (long long)blockIdx.x * slot_floats(c, len1, hidden);
-  gd.b2a = gd.w2a + (size_t)len2 * hidden;
-  gd.w2b = gd.b2a + hidden;
-  gd.b2b = gd.w2b + (size_t)hidden * 2 * len1;
-  gd.w1a = gd.b2b + 2 * len1;
-  gd.b1a = gd.w1a + (size_t)len1 * hidden;
-  gd.w1b = gd.b1a + hidden;
-  gd.b1b = gd.w1b + (size_t)hidden * 2 * len2;
-
-  const long long tiles = (m_total + kTileRows - 1) / kTileRows;
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long row0 = tile * kTileRows;
-    // rows past m_total are zeros: computed, never stored, no gradient
-    for (int idx = threadIdx.x; idx < kTileRows * c; idx += blockDim.x) {
-      const int r = idx / c, col = idx % c;
-      const long long m = row0 + r;
-      const bool live = m < m_total;
-      b.in[r * b.ldc + col] = live ? to_float(in[m * c + col]) : 0.f;
-      b.g[r * b.ldc + col] = live ? to_float(g[m * c + col]) : 0.f;
-    }
-    __syncthreads();
-    const bool first = tile == blockIdx.x;
-    if (kInverse)
-      inverse_vjp_tile(b, len1, len2, hidden, wt, wtt, clamp, gd, first);
-    else
-      forward_vjp_tile(b, len1, len2, hidden, wt, wtt, clamp, gd, first);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kTileRows * c; idx += blockDim.x) {
-      const int r = idx / c, col = idx % c;
-      const long long m = row0 + r;
-      if (m < m_total) store(dx + m * c + col, b.g[r * b.ldc + col]);
-    }
-    __syncthreads();
-  }
+  float* bias = dst + (long long)pr.p * pr.q;
+  if (sum_u && threadIdx.x < tp && p0 + threadIdx.x < pr.p)
+    bias[p0 + threadIdx.x] = colsum;
+  if (sum_v && threadIdx.x < tq_w && q0 + threadIdx.x < pr.q)
+    bias[q0 + threadIdx.x] = colsum;
 }
 
 // out[i] = sum over p < blocks, in order, of partials[p][i].
@@ -491,116 +716,382 @@ reduce_partials_kernel(const float* __restrict__ partials, int blocks,
   }
 }
 
-template <typename T, bool kInverse>
-cudaError_t grid_blocks(long long m, int c, int len1, int hidden,
-                        int* blocks) {
-  const size_t smem = sizeof(float) * tile_floats(c, len1, hidden);
-  auto kernel = coupling_1x1_bwd_kernel<T, kInverse>;
+// ---- host side: shapes, scratch layout, plans ----
+
+struct Dims {
+  long long m;
+  int c, len1, len2, hidden, hp;
+};
+
+Dims dims_of(long long m, int c, int len1, int hidden) {
+  return Dims{m, c, len1, c - len1, hidden, round_up(hidden, kHC)};
+}
+
+// K and N of the two products of row phase `phase`.
+void phase_kn(bool inv, int phase, const Dims& d, int* k, int* n) {
+  const int l1 = d.len1, l2 = d.len2;
+  const int k3[4][2] = {{l2, 2 * l1}, {l1, l2}, {2 * l2, l1}, {2 * l1, l2}};
+  const int k4[4][2] = {{l1, 2 * l2}, {l2, 2 * l1}, {2 * l1, l2}, {2 * l2, l1}};
+  *k = inv ? k4[phase][0] : k3[phase][0];
+  *n = inv ? k4[phase][1] : k3[phase][1];
+}
+
+struct Layout {   // offsets in floats into the scratch buffer
+  long long wa[4], ba[4], wb[4], bb[4];
+  long long a1, a2, ra, rb, gr1, gr2, gmid, h1, h2, gz1, gz2, mask1, mask2;
+  long long total;
+  int ld_a1, ld_a2, ld_ra, ld_rb, ld_gr1, ld_gr2, ld_gmid;
+};
+
+long long align64(long long n) { return (n + 63) / 64 * 64; }
+
+Layout layout_of(bool inv, const Dims& d) {
+  Layout l;
+  long long at = 0;
+  auto take = [&](long long floats) {
+    const long long here = at;
+    at += align64(floats);
+    return here;
+  };
+  int kp[4], np[4];
+  for (int ph = 0; ph < 4; ++ph) {
+    int k, n;
+    phase_kn(inv, ph, d, &k, &n);
+    kp[ph] = round_up(k, 8);
+    np[ph] = round_up(n, 8);
+    l.wa[ph] = take((long long)kp[ph] * d.hp);
+    l.ba[ph] = take(d.hp);
+    l.wb[ph] = take((long long)d.hp * np[ph]);
+    l.bb[ph] = take(np[ph]);
+  }
+  l.ld_a1 = round_up(d.len1, 8);
+  l.ld_a2 = round_up(d.len2, 8);
+  l.ld_gr1 = round_up(2 * d.len2, 8);
+  l.ld_gr2 = round_up(2 * d.len1, 8);
+  l.ld_ra = np[0];
+  l.ld_rb = np[1];
+  l.ld_gmid = np[2];
+  l.a1 = take(d.m * l.ld_a1);
+  l.a2 = take(d.m * l.ld_a2);
+  l.ra = take(d.m * l.ld_ra);
+  l.rb = take(d.m * l.ld_rb);
+  l.gr1 = take(d.m * l.ld_gr1);
+  l.gr2 = take(d.m * l.ld_gr2);
+  l.gmid = take(d.m * l.ld_gmid);
+  l.h1 = take(d.m * d.hp);
+  l.h2 = take(d.m * d.hp);
+  l.gz1 = take(d.m * d.hp);
+  l.gz2 = take(d.m * d.hp);
+  // one word per lane, 16-row slab (rounded up to 8 slabs) and chunk
+  const long long slabs = ((d.m + 15) / 16 + 7) / 8 * 8;
+  l.mask1 = take(slabs * (d.hp / kHC) * 32);
+  l.mask2 = take(slabs * (d.hp / kHC) * 32);
+  l.total = at;
+  return l;
+}
+
+long long row_smem_floats(int warps, int kp, int npass, int nbuf) {
+  return 16LL * warps * (kp + 4) +
+         (long long)nbuf * ((long long)kp * kWaLd + kHC * (npass + 4));
+}
+
+struct Plan {
+  int warps, npass, nbuf, wide_nt;
+  long long smem;   // bytes
+};
+
+// The largest tile (then double buffering, then Wb pass) that fits. The
+// warp counts divide 8: the gate words are laid out for 16-row slabs
+// rounded up to 8 (layout_of).
+bool plan_phase(int kp, int np, Plan* p) {
+  const int wide_nt = np > 64;
+  const int first = wide_nt ? (np < 192 ? np : 192) : np;
+  const int passes[3] = {first, first < 64 ? first : 64, 8};
+  for (int warps = 8; warps >= 1; warps /= 2)
+    for (int nbuf = 2; nbuf >= 1; --nbuf)
+      for (int npass : passes) {
+        const long long bytes =
+            4 * row_smem_floats(warps, kp, npass, nbuf);
+        if (bytes <= kMaxSmem) {
+          *p = Plan{warps, npass, nbuf, wide_nt, bytes};
+          return true;
+        }
+      }
+  return false;
+}
+
+template <typename T, bool kInv, int kPhase>
+cudaError_t launch_row_phase(const RowArgs& a, const Plan& p,
+                             cudaStream_t s) {
+  auto kernel = p.wide_nt ? row_phase_kernel<T, kInv, kPhase, 24>
+                          : row_phase_kernel<T, kInv, kPhase, 8>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return err;
+  const long long rows = 16LL * p.warps;
+  const long long blocks = (a.m + rows - 1) / rows;
+  kernel<<<(unsigned)blocks, 32 * p.warps, p.smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kInv>
+cudaError_t launch_row_phases(RowArgs a, const Dims& d, const Layout& l,
+                              float* scratch, cudaStream_t s) {
+  for (int ph = 0; ph < 4; ++ph) {
+    int k, n;
+    phase_kn(kInv, ph, d, &k, &n);
+    a.kp = round_up(k, 8);
+    a.np = round_up(n, 8);
+    a.n_out = n;
+    Plan p;
+    if (!plan_phase(a.kp, a.np, &p)) return cudaErrorInvalidValue;
+    a.npass = p.npass;
+    a.nbuf = p.nbuf;
+    a.wa = scratch + l.wa[ph];
+    a.ba = scratch + l.ba[ph];
+    a.wb = scratch + l.wb[ph];
+    a.bb = scratch + l.bb[ph];
+    // h1 / gz1 go with mask1, h2 / gz2 with mask2
+    const bool sub1 = (ph == 1 || ph == 2) != kInv;
+    a.wide = scratch + (ph < 2 ? (sub1 ? l.h1 : l.h2) : (sub1 ? l.gz1 : l.gz2));
+    a.mask = reinterpret_cast<uint32_t*>(scratch + (sub1 ? l.mask1 : l.mask2));
+    cudaError_t err;
+    switch (ph) {
+      case 0: err = launch_row_phase<T, kInv, 0>(a, p, s); break;
+      case 1: err = launch_row_phase<T, kInv, 1>(a, p, s); break;
+      case 2: err = launch_row_phase<T, kInv, 2>(a, p, s); break;
+      default: err = launch_row_phase<T, kInv, 3>(a, p, s); break;
+    }
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+long long slot_floats(int c, int len1, int hidden) {
+  const long long len2 = c - len1;
+  return len2 * hidden + hidden + hidden * 2 * len1 + 2 * len1 +
+         len1 * hidden + hidden + hidden * 2 * len2 + 2 * len2;
+}
+
+// The weight stage's D tiles: 256 x 32 or 128 x 64 of (H, len2), (H, 2 len1),
+// (H, len1), (H, 2 len2).
+long long weight_tiles(const Dims& d) {
+  const int qs[4] = {d.len2, 2 * d.len1, d.len1, 2 * d.len2};
+  long long tiles = 0;
+  for (int q : qs) {
+    Product p{};
+    p.p = d.hidden;
+    p.q = q;
+    tiles += tiles_of(p);
+  }
+  return tiles;
+}
+
+constexpr size_t kWeightSmem = sizeof(float) * 2 * kWK * (kUld + kVld);
+
+// Rows of one gradient slot: at least kMinChunkRows, else as many as make
+// the weight stage's blocks (chunks x tiles) fill the blocks the device
+// holds at once, so that no wave of blocks runs part empty. A function of
+// the shapes and the device alone: the same on every run on one card.
+cudaError_t chunk_rows(const Dims& d, long long* rows) {
+  cudaError_t err = cudaFuncSetAttribute(
+      weight_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kWeightSmem);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0, dev = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, weight_stage_kernel, kWThreads, kWeightSmem);
   if (err != cudaSuccess) return err;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long tiles = (m + kTileRows - 1) / kTileRows;
-  const long long p = (long long)per_sm * sms;
-  *blocks = (int)(tiles < p ? tiles : p);
+  long long chunks = (long long)per_sm * sms / weight_tiles(d);
+  if (chunks < 1) chunks = 1;
+  long long r = (d.m + chunks - 1) / chunks;
+  r = (r + kWK - 1) / kWK * kWK;
+  *rows = r > kMinChunkRows ? r : kMinChunkRows;
   return cudaSuccess;
-}
-
-template <typename T, bool kInverse>
-cudaError_t launch(const void* in, const void* g, void* dx, long long m,
-                   int c, int len1, int hidden, const Weights& wt,
-                   const WeightsT& wtt, float clamp, float* partials,
-                   int blocks, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * tile_floats(c, len1, hidden);
-  auto kernel = coupling_1x1_bwd_kernel<T, kInverse>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(in), static_cast<const T*>(g), static_cast<T*>(dx),
-      m, c, len1, hidden, wt, wtt, clamp, partials);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of the backward needs.
-long long sininn_coupling_1x1_bwd_smem_bytes(int c, int len1, int hidden) {
-  return (long long)sizeof(float) * tile_floats(c, len1, hidden);
+// Floats of scratch one K3 (inverse = 0) or K4 launch needs for m rows.
+long long sininn_coupling_1x1_bwd_scratch_floats(int inverse, long long m,
+                                                 int c, int len1,
+                                                 int hidden) {
+  return layout_of(inverse != 0, dims_of(m, c, len1, hidden)).total;
 }
 
-// Floats in one block's slot of weight and bias gradient partials:
+// Bytes of dynamic shared memory of the largest row-phase block, or -1 if a
+// phase fits in none.
+long long sininn_coupling_1x1_bwd_smem_bytes(int c, int len1, int hidden) {
+  const Dims d = dims_of(1, c, len1, hidden);
+  long long most = (long long)kWeightSmem;
+  for (int inv = 0; inv < 2; ++inv)
+    for (int ph = 0; ph < 4; ++ph) {
+      int k, n;
+      Plan p;
+      phase_kn(inv != 0, ph, d, &k, &n);
+      if (!plan_phase(round_up(k, 8), round_up(n, 8), &p)) return -1;
+      if (p.smem > most) most = p.smem;
+    }
+  return most;
+}
+
+// Floats in one slot of weight and bias gradient partials:
 // [w2a (len2, H) | b2a (H) | w2b (H, 2 len1) | b2b (2 len1) | w1a (len1, H)
 //  | b1a (H) | w1b (H, 2 len2) | b1b (2 len2)], weights (cin, cout).
 long long sininn_coupling_1x1_bwd_slot_floats(int c, int len1, int hidden) {
   return slot_floats(c, len1, hidden);
 }
 
-// The number of blocks P the backward launches for m rows on the current
-// device (as many as fit on its SMs at once, at most one per tile), written
-// to *blocks. The partials buffer holds P slots. Returns a cudaError_t.
-int sininn_coupling_1x1_bwd_blocks(int inverse, int bf16, long long m, int c,
-                                   int len1, int hidden, int* blocks) {
-  if (m <= 0 || len1 <= 0 || len1 >= c || hidden <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (bf16) {
-    err = inverse ? grid_blocks<__nv_bfloat16, true>(m, c, len1, hidden, blocks)
-                  : grid_blocks<__nv_bfloat16, false>(m, c, len1, hidden, blocks);
-  } else {
-    err = inverse ? grid_blocks<float, true>(m, c, len1, hidden, blocks)
-                  : grid_blocks<float, false>(m, c, len1, hidden, blocks);
-  }
-  return (int)err;
+// Offset in floats, into the scratch of one K3 (inverse = 0) or K4 launch
+// for m rows, of h1 (sub = 1) or h2 (sub = 2): (m, hidden rounded up to 32)
+// row-major, relu(z) as the row phases computed it, so h > 0 are the relu
+// gates that launch set. For checks against the plain version.
+long long sininn_coupling_1x1_bwd_hidden_offset(int inverse, long long m,
+                                                int c, int len1, int hidden,
+                                                int sub) {
+  const Layout l = layout_of(inverse != 0, dims_of(m, c, len1, hidden));
+  return sub == 1 ? l.h1 : l.h2;
+}
+
+// Slots (chunks of rows, see chunk_rows) of the partials buffer for m rows
+// on the current device, or -1 on an error.
+long long sininn_coupling_1x1_bwd_chunks(long long m, int c, int len1,
+                                         int hidden) {
+  long long rows = 0;
+  if (m <= 0 || chunk_rows(dims_of(m, c, len1, hidden), &rows) != cudaSuccess)
+    return -1;
+  return (m + rows - 1) / rows;
 }
 
 // One launch of K3 (inverse = 0: in = x, g = dy, dx = dx) or K4 (inverse = 1:
-// in = y, g = dx, dx = dy) on `stream`, over `blocks` blocks. in/g/dx:
-// (m, c) row-major, fp32 (bf16 = 0) or bf16 (bf16 = 1). Weights fp32:
-// w2a (len2, H), w2b (H, 2 len1), w1a (len1, H), w1b (H, 2 len2) row-major,
-// and their (cout, cin) row-major copies w2a_t, w2b_t, w1a_t, w1b_t.
-// partials: blocks x slot floats, written in full. Returns a cudaError_t.
+// in = y, g = dx, dx = dy) on `stream`: stages 0-5 above. in/g/dx: (m, c)
+// row-major, fp32 (bf16 = 0) or bf16 (bf16 = 1). Weights: the OIHW 1x1
+// conv weights as stored (contiguous fp32): w2a (H, len2), w2b (2 len1, H),
+// w1a (H, len1), w1b (2 len2, H), and the biases. scratch: scratch_floats,
+// partials: chunks x slot floats (chunks as sininn_coupling_1x1_bwd_chunks
+// gives them), both written before they are read.
+// Returns a cudaError_t.
 int sininn_coupling_1x1_bwd(int inverse, int bf16, const void* in,
                             const void* g, void* dx, long long m, int c,
                             int len1, int hidden, const float* w2a,
                             const float* b2a, const float* w2b,
                             const float* b2b, const float* w1a,
                             const float* b1a, const float* w1b,
-                            const float* b1b, const float* w2a_t,
-                            const float* w2b_t, const float* w1a_t,
-                            const float* w1b_t, float clamp, float* partials,
-                            int blocks, void* stream) {
-  if (m <= 0 || len1 <= 0 || len1 >= c || hidden <= 0 || blocks <= 0 ||
-      (long long)blocks > (m + kTileRows - 1) / kTileRows)
+                            const float* b1b, float clamp, float* scratch,
+                            float* partials, long long chunks,
+                            void* stream) {
+  if (m <= 0 || len1 <= 0 || len1 >= c || hidden <= 0)
     return (int)cudaErrorInvalidValue;
-  const Weights wt{w2a, b2a, w2b, b2b, w1a, b1a, w1b, b1b};
-  const WeightsT wtt{w2a_t, w2b_t, w1a_t, w1b_t};
+  const bool inv = inverse != 0;
+  const Dims d = dims_of(m, c, len1, hidden);
+  const Layout l = layout_of(inv, d);
+  const int l1 = d.len1, l2 = d.len2, H = d.hidden;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bf16) {
-    err = inverse ? launch<__nv_bfloat16, true>(in, g, dx, m, c, len1, hidden,
-                                                wt, wtt, clamp, partials,
-                                                blocks, s)
-                  : launch<__nv_bfloat16, false>(in, g, dx, m, c, len1, hidden,
-                                                 wt, wtt, clamp, partials,
-                                                 blocks, s);
-  } else {
-    err = inverse ? launch<float, true>(in, g, dx, m, c, len1, hidden, wt, wtt,
-                                        clamp, partials, blocks, s)
-                  : launch<float, false>(in, g, dx, m, c, len1, hidden, wt, wtt,
-                                         clamp, partials, blocks, s);
+
+  // stage 0: the phases' operands. (i, j) of Wa = W2a (len2 x H), the
+  // (cin, cout) view of w2a (H, len2), is w2a[j * len2 + i], and so on.
+  struct Src { const float* p; int rows, cols, sr, sc; };
+  const Src W2a{w2a, l2, H, 1, l2}, W2aT{w2a, H, l2, l2, 1};
+  const Src W2b{w2b, H, 2 * l1, 1, H}, W2bT{w2b, 2 * l1, H, H, 1};
+  const Src W1a{w1a, l1, H, 1, l1}, W1aT{w1a, H, l1, l1, 1};
+  const Src W1b{w1b, H, 2 * l2, 1, H}, W1bT{w1b, 2 * l2, H, H, 1};
+  const Src W1bS{w1b, H, l2, 1, H};   // W1b[:, :len2]
+  const Src k3a[4] = {W2a, W1a, W1bT, W2bT}, k3b[4] = {W2b, W1bS, W1aT, W2aT};
+  const Src k4a[4] = {W1a, W2a, W2bT, W1bT}, k4b[4] = {W1b, W2b, W2aT, W1aT};
+  const float* k3ba[2] = {b2a, b1a};
+  const float* k3bb[2] = {b2b, b1b};
+  const float* k4ba[2] = {b1a, b2a};
+  const float* k4bb[2] = {b1b, b2b};
+  PackArgs pk;
+  pk.count = 0;
+  long long most = 0;
+  for (int ph = 0; ph < 4; ++ph) {
+    int k, n;
+    phase_kn(inv, ph, d, &k, &n);
+    const int kp = round_up(k, 8), np = round_up(n, 8);
+    const Src sa = inv ? k4a[ph] : k3a[ph], sb = inv ? k4b[ph] : k3b[ph];
+    pk.mat[pk.count++] =
+        PackMat{l.wa[ph], sa.rows, sa.cols, kp, d.hp, sa.p, sa.sr, sa.sc};
+    pk.mat[pk.count++] =
+        PackMat{l.wb[ph], sb.rows, sb.cols, d.hp, np, sb.p, sb.sr, sb.sc};
+    if (ph < 2) {
+      pk.mat[pk.count++] = PackMat{l.ba[ph], 1, H, 1, d.hp,
+                                   inv ? k4ba[ph] : k3ba[ph], 0, 1};
+      pk.mat[pk.count++] = PackMat{l.bb[ph], 1, n, 1, np,
+                                   inv ? k4bb[ph] : k3bb[ph], 0, 1};
+    }
+    const long long sizes[2] = {(long long)kp * d.hp, (long long)d.hp * np};
+    for (long long z : sizes) most = z > most ? z : most;
   }
-  return (int)err;
+  long long gx = (most + kThreads - 1) / kThreads;
+  if (gx > 1024) gx = 1024;
+  pack_kernel<<<dim3((unsigned)gx, (unsigned)pk.count), kThreads, 0, s>>>(
+      pk, scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // stages 1-4
+  RowArgs a{};
+  a.in = in;
+  a.g = g;
+  a.dx = dx;
+  a.m = m;
+  a.c = c;
+  a.len1 = l1;
+  a.len2 = l2;
+  a.hp = d.hp;
+  a.clamp = clamp;
+  a.a1 = scratch + l.a1;
+  a.a2 = scratch + l.a2;
+  a.ra = scratch + l.ra;
+  a.rb = scratch + l.rb;
+  a.gr1 = scratch + l.gr1;
+  a.gr2 = scratch + l.gr2;
+  a.gmid = scratch + l.gmid;
+  a.ld_a2 = l.ld_a2;
+  a.ld_ra = l.ld_ra;
+  a.ld_rb = l.ld_rb;
+  a.ld_gmid = l.ld_gmid;
+  if (bf16) {
+    err = inv ? launch_row_phases<__nv_bfloat16, true>(a, d, l, scratch, s)
+              : launch_row_phases<__nv_bfloat16, false>(a, d, l, scratch, s);
+  } else {
+    err = inv ? launch_row_phases<float, true>(a, d, l, scratch, s)
+              : launch_row_phases<float, false>(a, d, l, scratch, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+
+  // stage 5: [dW2a | db2a] = (gz2' x2)' , [dW2b | db2b] = h2' gr2,
+  // [dW1a | db1a] = (gz1' y1)', [dW1b | db1b] = h1' gr1
+  const long long o2b = (long long)l2 * H + H;
+  const long long o1a = o2b + (long long)H * 2 * l1 + 2 * l1;
+  const long long o1b = o1a + (long long)l1 * H + H;
+  Products ps;
+  ps.pr[0] = Product{scratch + l.gz2, scratch + l.a2, H, d.hp, l2, l.ld_a2,
+                     0, 1, 1};
+  ps.pr[1] = Product{scratch + l.h2, scratch + l.gr2, H, d.hp, 2 * l1,
+                     l.ld_gr2, o2b, 0, 0};
+  ps.pr[2] = Product{scratch + l.gz1, scratch + l.a1, H, d.hp, l1, l.ld_a1,
+                     o1a, 1, 1};
+  ps.pr[3] = Product{scratch + l.h1, scratch + l.gr1, H, d.hp, 2 * l2,
+                     l.ld_gr1, o1b, 0, 0};
+  const long long tiles = weight_tiles(d);
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  long long rows = 0;
+  err = chunk_rows(d, &rows);   // also sets the kernel's shared memory size
+  if (err != cudaSuccess) return (int)err;
+  if ((m + rows - 1) / rows != chunks) return (int)cudaErrorInvalidValue;
+  weight_stage_kernel<<<dim3((unsigned)((m + rows - 1) / rows),
+                             (unsigned)tiles),
+                        kWThreads, kWeightSmem, s>>>(
+      ps, m, rows, partials, slot_floats(c, len1, hidden));
+  return (int)cudaGetLastError();
 }
 
 // out[i] = sum_{p < blocks} partials[p * n + i], summed in order of p.

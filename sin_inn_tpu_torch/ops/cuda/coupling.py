@@ -8,14 +8,25 @@ Four kernels replace the TPU kernels of ``sin_inn_tpu/ops/pallas/coupling.py``
   ``csrc/coupling_1x1.cu``;
 * ``fused_glow_backward_1x1`` (K3, ``_coupling_bwd_kernel``) and
   ``fused_glow_inverse_backward_1x1`` (K4, ``_coupling_inv_bwd_kernel``),
-  the VJPs of K1 and K2, in ``csrc/coupling_1x1_bwd.cu``. Each block of K3
-  or K4 writes its share of the eight weight and bias gradients into its own
-  slot of a scratch buffer; a second kernel of that file
-  (``reduce_weight_grads``) sums the slots in a fixed order.
+  the VJPs of K1 and K2, in ``csrc/coupling_1x1_bwd.cu``: staged products
+  on the tensor cores in 3xTF32 (each fp32 operand split into a TF32 high
+  and low part, three TF32 products a product). One launch runs a packing
+  kernel, four row phases (a two-layer product each, streamed over the
+  hidden width on 128-row tiles; h and gz go to a scratch buffer, the relu
+  gates as bits) and a weight stage that writes the eight weight and bias
+  gradients of each chunk of rows into its own slot; a second kernel of
+  that file (``reduce_weight_grads``) sums the slots in a fixed order, so
+  the result is bitwise repeatable without atomics.
 
-The sources' headers state what bounds each kernel on an H100 (arithmetic)
-and how the designs deal with weights that do not fit in a block's shared
-memory and with the cross-block gradient sum.
+The sources' headers state what bounds each kernel on an H100 (arithmetic,
+and for K3/K4 the tensor cores and the staged bytes), the tile, stage and
+slot sizes, and how the designs deal with weights that do not fit in a
+block's shared memory and with the cross-block gradient sum. K3/K4's
+recompute of the forward does not repeat K1/K2's ``fmaf`` order, so a relu
+gate whose pre-activation lies within rounding of 0 may be set otherwise
+than in the forward or in the plain version; :func:`relu_gate_slack` bounds
+what such a gate carries, for the checks against the plain versions, and
+:func:`backward_relu_gates` reads which gates a launch set.
 
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel or
 raises, a CPU tensor takes the plain version (``torch.matmul`` and the
@@ -143,72 +154,138 @@ def fused_glow_inverse_1x1_plain(params: Dict, y: torch.Tensor, clamp: float,
     return _plain(params, y, clamp, len1, inverse=True)
 
 
-def _plain_backward(params: Dict, x: torch.Tensor, g: torch.Tensor,
-                    clamp: float, len1: int, inverse: bool):
+def _plain_rows(params: Dict, v: torch.Tensor, gg: torch.Tensor,
+                clamp: float, len1: int, inverse: bool, flip1=None,
+                flip2=None, mm=torch.matmul):
     """The hand-derived reverse chains of coupling.py:269-331 (forward) and
-    :421-486 (inverse) in torch. Returns (dparams, dx)."""
-    c = x.shape[-1]
+    :421-486 (inverse) in torch, on (M, C) fp32 rows v with cotangents gg.
+    Returns each row's operands of the weight gradients (a2, gz2, h2, gr2,
+    a1, gz1, h1, gr1), dx and the relu pre-activations (z1, z2). ``flip1``
+    / ``flip2`` (bool, (M, H)) invert the relu gates of s1 / s2 where set;
+    ``mm`` takes every product (a model of another arithmetic in tests)."""
+    c = v.shape[-1]
     (w2a, b2a, w2b, b2b, w1a, b1a, w1b, b1b), _ = _mats(params, c, len1)
     len2 = c - len1
-    v = x.reshape(-1, c).float()
-    gg = g.reshape(-1, c).float()
     le = lambda s: glow_log_e(s, clamp)
     lep = lambda s: _log_e_prime(s, clamp)
+    gate = lambda h, flip: (h > 0) if flip is None else (h > 0) ^ flip
 
     if not inverse:
         x1, x2 = v[:, :len1], v[:, len1:]
         gy1, gy2 = gg[:, :len1], gg[:, len1:]
         # recompute the forward
-        h2 = torch.relu(x2 @ w2a + b2a)
-        r2 = h2 @ w2b + b2b
+        z2 = mm(x2, w2a) + b2a
+        h2 = torch.relu(z2)
+        r2 = mm(h2, w2b) + b2b
         s2, t2 = r2[:, :len1], r2[:, len1:]
         e2 = torch.exp(le(s2))
         y1 = e2 * x1 + t2
-        h1 = torch.relu(y1 @ w1a + b1a)
-        s1 = (h1 @ w1b + b1b)[:, :len2]
+        z1 = mm(y1, w1a) + b1a
+        h1 = torch.relu(z1)
+        s1 = (mm(h1, w1b) + b1b)[:, :len2]
         e1 = torch.exp(le(s1))
         # y2 = e1 x2 + t1
         gx2 = gy2 * e1
         gr1 = torch.cat([gy2 * x2 * e1 * lep(s1), gy2], dim=1)
-        gz1 = torch.where(h1 > 0, gr1 @ w1b.t(), 0.0)
-        gy1 = gy1 + gz1 @ w1a.t()
+        gz1 = torch.where(gate(h1, flip1), mm(gr1, w1b.t()), 0.0)
+        gy1 = gy1 + mm(gz1, w1a.t())
         # y1 = e2 x1 + t2
         gx1 = gy1 * e2
         gr2 = torch.cat([gy1 * x1 * e2 * lep(s2), gy1], dim=1)
-        gz2 = torch.where(h2 > 0, gr2 @ w2b.t(), 0.0)
-        gx2 = gx2 + gz2 @ w2a.t()
+        gz2 = torch.where(gate(h2, flip2), mm(gr2, w2b.t()), 0.0)
+        gx2 = gx2 + mm(gz2, w2a.t())
         dx = torch.cat([gx1, gx2], dim=1)
         a2, a1 = x2, y1
     else:
         y1, y2 = v[:, :len1], v[:, len1:]
         gx1, gx2 = gg[:, :len1], gg[:, len1:]
         # recompute the inverse
-        h1 = torch.relu(y1 @ w1a + b1a)
-        r1 = h1 @ w1b + b1b
+        z1 = mm(y1, w1a) + b1a
+        h1 = torch.relu(z1)
+        r1 = mm(h1, w1b) + b1b
         s1, t1 = r1[:, :len2], r1[:, len2:]
         e1inv = torch.exp(-le(s1))
         x2 = (y2 - t1) * e1inv
-        h2 = torch.relu(x2 @ w2a + b2a)
-        r2 = h2 @ w2b + b2b
+        z2 = mm(x2, w2a) + b2a
+        h2 = torch.relu(z2)
+        r2 = mm(h2, w2b) + b2b
         s2, t2 = r2[:, :len1], r2[:, len1:]
         e2inv = torch.exp(-le(s2))
         x1 = (y1 - t2) * e2inv
         # x1 = (y1 - t2) e2inv
         gy1 = gx1 * e2inv
         gr2 = torch.cat([-gx1 * x1 * lep(s2), -gx1 * e2inv], dim=1)
-        gz2 = torch.where(h2 > 0, gr2 @ w2b.t(), 0.0)
-        gx2 = gx2 + gz2 @ w2a.t()
+        gz2 = torch.where(gate(h2, flip2), mm(gr2, w2b.t()), 0.0)
+        gx2 = gx2 + mm(gz2, w2a.t())
         # x2 = (y2 - t1) e1inv
         gy2 = gx2 * e1inv
         gr1 = torch.cat([-gx2 * x2 * lep(s1), -gx2 * e1inv], dim=1)
-        gz1 = torch.where(h1 > 0, gr1 @ w1b.t(), 0.0)
-        gy1 = gy1 + gz1 @ w1a.t()
+        gz1 = torch.where(gate(h1, flip1), mm(gr1, w1b.t()), 0.0)
+        gy1 = gy1 + mm(gz1, w1a.t())
         dx = torch.cat([gy1, gy2], dim=1)
         a2, a1 = x2, y1
+    return (a2, gz2, h2, gr2, a1, gz1, h1, gr1), dx, (z1, z2)
+
+
+def _plain_backward(params: Dict, x: torch.Tensor, g: torch.Tensor,
+                    clamp: float, len1: int, inverse: bool):
+    """The plain VJP of the fused forward (or inverse) at x for g. Returns
+    (dparams, dx)."""
+    c = x.shape[-1]
+    (a2, gz2, h2, gr2, a1, gz1, h1, gr1), dx, _ = _plain_rows(
+        params, x.reshape(-1, c).float(), g.reshape(-1, c).float(), clamp,
+        len1, inverse)
     dparams = _grads_to_params(
         a2.t() @ gz2, gz2.sum(0), h2.t() @ gr2, gr2.sum(0),
         a1.t() @ gz1, gz1.sum(0), h1.t() @ gr1, gr1.sum(0))
     return dparams, dx.to(x.dtype).reshape(x.shape)
+
+
+def relu_gate_slack(params: Dict, x: torch.Tensor, g: torch.Tensor,
+                    clamp: float, len1: int, inverse: bool = False,
+                    gates=None, tau: float = 1e-5):
+    """How far another fp32 backward of K3 (K4 with ``inverse``) may stand
+    from the plain one through the relu gates alone. A pre-activation within
+    ``tau`` of 0 may be gated either way once the sums run in another order
+    (or in 3xTF32), and the gate carries every term downstream of it in its
+    row: that row's dx and its share of each weight and bias gradient.
+    ``gates``, the other route's relu gates (s1's, s2's: (M, H) bool, z > 0;
+    :func:`backward_relu_gates` reads K3's or K4's), keeps to the gates
+    within ``tau`` of 0 that it sets otherwise than the plain chain; without
+    it every gate within ``tau`` of 0 counts. For each such gate the plain
+    chain of its row is run again with that gate alone inverted; the bounds
+    are the sums over those gates of the absolute changes. Returns (dparams
+    shaped like params, dx shaped like x), 0 where no gate counts."""
+    c = x.shape[-1]
+    v = x.reshape(-1, c).float()
+    gg = g.reshape(-1, c).float()
+    _, _, z = _plain_rows(params, v, gg, clamp, len1, inverse)
+    close = [zi.abs() < tau for zi in z]
+    if gates is not None:
+        close = [n & (gi != (zi > 0)) for n, gi, zi in zip(close, gates, z)]
+    near = [n.nonzero() for n in close]
+    rows = torch.cat([n[:, 0] for n in near])
+    flips = []
+    for i, n in enumerate(near):
+        f = torch.zeros((rows.numel(), z[0].shape[1]), dtype=torch.bool,
+                        device=x.device)
+        at = torch.arange(n.shape[0], device=x.device) + (
+            near[0].shape[0] if i else 0)
+        f[at, n[:, 1]] = True
+        flips.append(f)
+    base, dx0, _ = _plain_rows(params, v[rows], gg[rows], clamp, len1,
+                               inverse)
+    moved, dx1, _ = _plain_rows(params, v[rows], gg[rows], clamp, len1,
+                                inverse, flip1=flips[0], flip2=flips[1])
+    # each row's share of dW = a' d is the outer product of a and d, so the
+    # sum of the absolute changes is |a|' |d - d0| (a and h do not move)
+    (a2, gz2, h2, gr2, a1, gz1, h1, gr1) = base
+    d = [(m - b).abs() for m, b in zip(moved, base)]
+    dparams = _grads_to_params(
+        a2.abs().t() @ d[1], d[1].sum(0), h2.abs().t() @ d[3], d[3].sum(0),
+        a1.abs().t() @ d[5], d[5].sum(0), h1.abs().t() @ d[7], d[7].sum(0))
+    sdx = torch.zeros_like(v).index_add_(0, rows, (dx1 - dx0).abs())
+    return dparams, sdx.reshape(x.shape)
 
 
 def fused_glow_backward_1x1_plain(params: Dict, x: torch.Tensor,
@@ -250,12 +327,17 @@ def _bwd_lib() -> ctypes.CDLL:
                "sininn_coupling_1x1_bwd_slot_floats"):
         getattr(lib, fn).argtypes = [i32, i32, i32]
         getattr(lib, fn).restype = i64
-    lib.sininn_coupling_1x1_bwd_blocks.argtypes = [
-        i32, i32, i64, i32, i32, i32, ctypes.POINTER(i32)]
-    lib.sininn_coupling_1x1_bwd_blocks.restype = i32
+    lib.sininn_coupling_1x1_bwd_scratch_floats.argtypes = [i32, i64, i32,
+                                                           i32, i32]
+    lib.sininn_coupling_1x1_bwd_scratch_floats.restype = i64
+    lib.sininn_coupling_1x1_bwd_chunks.argtypes = [i64, i32, i32, i32]
+    lib.sininn_coupling_1x1_bwd_chunks.restype = i64
+    lib.sininn_coupling_1x1_bwd_hidden_offset.argtypes = [i32, i64, i32, i32,
+                                                          i32, i32]
+    lib.sininn_coupling_1x1_bwd_hidden_offset.restype = i64
     lib.sininn_coupling_1x1_bwd.argtypes = (
-        [i32, i32, ptr, ptr, ptr, i64, i32, i32, i32] + [ptr] * 12
-        + [ctypes.c_float, ptr, i32, ptr])
+        [i32, i32, ptr, ptr, ptr, i64, i32, i32, i32] + [ptr] * 8
+        + [ctypes.c_float, ptr, ptr, i64, ptr])
     lib.sininn_coupling_1x1_bwd.restype = i32
     lib.sininn_reduce_partials.argtypes = [ptr, i32, i64, ptr, ptr]
     lib.sininn_reduce_partials.restype = i32
@@ -316,8 +398,9 @@ def _launch(params: Dict, x: torch.Tensor, clamp: float, len1: int,
 
 def _launch_backward(params: Dict, x: torch.Tensor, g: torch.Tensor,
                      clamp: float, len1: int, inverse: bool):
-    """One K3 or K4 launch (counted here) and one reduction launch on the
-    current stream. Returns (dparams, dx)."""
+    """One K3 or K4 launch (its staged kernels, counted here as one) and one
+    reduction launch on the current stream. Returns (dparams, dx) and the
+    launch's scratch buffer."""
     _check_input(x, "input")
     _check_input(g, "cotangent")
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
@@ -325,37 +408,37 @@ def _launch_backward(params: Dict, x: torch.Tensor, g: torch.Tensor,
                          f"{g.device} does not match the input "
                          f"{tuple(x.shape)} {x.dtype} on {x.device}")
     c = x.shape[-1]
-    mats, hidden = _mats(params, c, len1)
+    mats, hidden = _mats(params, c, len1)   # checks the shapes
     _check_weights(mats, x.device)
-    mats = [t.detach().contiguous() for t in mats]
-    # (cout, cin) copies for the products with transposed weights: the
-    # OIHW weights as stored
-    mats_t = [params[s][conv]["w"].detach()[:, :, 0, 0].contiguous()
-              for s, conv in (("s2", "conv1"), ("s2", "conv2"),
-                              ("s1", "conv1"), ("s1", "conv2"))]
+    # the OIHW weights and the biases as stored, in LEAVES order
+    leaves = [t.detach().contiguous() for t in param_leaves(params)]
     lib = _bwd_lib()
     smem = lib.sininn_coupling_1x1_bwd_smem_bytes(c, len1, hidden)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"C={c}, hidden={hidden} needs {smem} bytes of "
-                         f"shared memory per block in the backward (max "
-                         f"{_MAX_SMEM})")
+    if not 0 < smem <= _MAX_SMEM:
+        raise ValueError(f"C={c}, len1={len1}, hidden={hidden}: no tile of "
+                         f"the backward fits in {_MAX_SMEM} bytes of shared "
+                         f"memory")
     m = x.numel() // c
-    bf16 = int(x.dtype == torch.bfloat16)
-    slot = lib.sininn_coupling_1x1_bwd_slot_floats(c, len1, hidden)
+    scratch = torch.empty(
+        lib.sininn_coupling_1x1_bwd_scratch_floats(int(inverse), m, c, len1,
+                                                   hidden),
+        dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        blocks = ctypes.c_int(0)
-        _raise_on(lib.sininn_coupling_1x1_bwd_blocks(
-            int(inverse), bf16, m, c, len1, hidden, ctypes.byref(blocks)),
-            lib, "coupling_1x1_bwd (grid)")
-        partials = torch.empty((blocks.value, slot), dtype=torch.float32,
-                               device=x.device)
+        chunks = lib.sininn_coupling_1x1_bwd_chunks(m, c, len1, hidden)
+        if chunks <= 0:
+            raise RuntimeError("coupling_1x1_bwd: the weight stage's grid "
+                               "query failed")
+        partials = torch.empty(
+            (chunks, lib.sininn_coupling_1x1_bwd_slot_floats(c, len1,
+                                                             hidden)),
+            dtype=torch.float32, device=x.device)
         err = lib.sininn_coupling_1x1_bwd(
-            int(inverse), bf16, x.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            m, c, len1, hidden, *[t.data_ptr() for t in mats],
-            *[t.data_ptr() for t in mats_t], float(clamp),
-            partials.data_ptr(), blocks.value, stream)
+            int(inverse), int(x.dtype == torch.bfloat16), x.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), m, c, len1, hidden,
+            *[t.data_ptr() for t in leaves], float(clamp),
+            scratch.data_ptr(), partials.data_ptr(), chunks, stream)
         _raise_on(err, lib, "coupling_1x1_bwd")
         (fused_glow_inverse_backward_1x1 if inverse
          else fused_glow_backward_1x1).launches += 1
@@ -367,7 +450,33 @@ def _launch_backward(params: Dict, x: torch.Tensor, g: torch.Tensor,
     for i, shape in ((0, (len2, hidden)), (2, (hidden, 2 * len1)),
                      (4, (len1, hidden)), (6, (hidden, 2 * len2))):
         parts[i] = parts[i].view(shape)
-    return _grads_to_params(*parts), dx
+    return _grads_to_params(*parts), dx, scratch
+
+
+def backward_relu_gates(params: Dict, x: torch.Tensor, g: torch.Tensor,
+                        clamp: float, len1: int, inverse: bool = False):
+    """One K3 (K4 with ``inverse``) launch on CUDA tensors, with the relu
+    gates its recompute set: ((dparams, dx), (gates of s1, gates of s2)),
+    each gate (M, H) bool, h > 0 of the h1 and h2 the launch left in its
+    scratch. For the checks against the plain version
+    (:func:`relu_gate_slack`'s ``gates``); the launch is counted."""
+    if _device_of(x) != "cuda" or x.numel() == 0:
+        raise ValueError("backward_relu_gates reads a kernel launch: it "
+                         "needs a non-empty CUDA input")
+    dparams, dx, scratch = _launch_backward(params, x, g, clamp, len1,
+                                            inverse)
+    c = x.shape[-1]
+    m = x.numel() // c
+    _, hidden = _mats(params, c, len1)
+    hp = -(-hidden // 32) * 32      # the kernel's hidden width, padded
+    lib = _bwd_lib()
+    gates = []
+    for sub in (1, 2):
+        at = lib.sininn_coupling_1x1_bwd_hidden_offset(
+            int(inverse), m, c, len1, hidden, sub)
+        h = scratch[at:at + m * hp].view(m, hp)[:, :hidden]
+        gates.append(h > 0)
+    return (dparams, dx), tuple(gates)
 
 
 def _device_of(x: torch.Tensor) -> str:
@@ -414,7 +523,7 @@ def fused_glow_backward_1x1(params: Dict, x: torch.Tensor, g: torch.Tensor,
         return fused_glow_backward_1x1_plain(params, x, g, clamp, len1)
     if x.numel() == 0:
         return _zero_grads(params, x)
-    return _launch_backward(params, x, g, clamp, len1, inverse=False)
+    return _launch_backward(params, x, g, clamp, len1, inverse=False)[:2]
 
 
 def fused_glow_inverse_backward_1x1(params: Dict, y: torch.Tensor,
@@ -426,7 +535,7 @@ def fused_glow_inverse_backward_1x1(params: Dict, y: torch.Tensor,
                                                      len1)
     if y.numel() == 0:
         return _zero_grads(params, y)
-    return _launch_backward(params, y, g, clamp, len1, inverse=True)
+    return _launch_backward(params, y, g, clamp, len1, inverse=True)[:2]
 
 
 def reduce_weight_grads(partials: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,10 @@ fixture, never at import). Run on a machine with the card and nvcc:
 Tolerance for fp32 storage: 1e-4 + 1e-4 |plain| (sums over the hidden width
 in another order, atanf against torch.atan); bf16 storage: one bf16
 rounding step. Weight and bias gradients of the backward kernels: 1e-3 of
-the largest |plain| of each (sums over all rows in another order). The
+the largest |plain| of each (sums over all rows in another order); K3/K4's
+dx and leaves each plus ``relu_gate_slack`` over the gates the launch set
+otherwise than the plain version at a pre-activation within 1e-5 of 0
+(such a gate may go either way: 3xTF32 products and another order). The
 windowed splat (K5) and gather (K6, forward and gradient mode): 1e-5 +
 1e-5 |plain| (K5 sums with atomics in a run-dependent order; K6 repeats the
 plain arithmetic); their local-window forms (K5 local, K6 local) the same.
@@ -87,12 +90,16 @@ def test_kernel_round_trip(dev):
     assert (back - x).abs().max().item() <= 1e-4
 
 
-def _assert_grads_close(got, ref, dx, dx_ref, step):
-    for a, b in zip(K.param_leaves(got), K.param_leaves(ref)):
+def _assert_grads_close(got, ref, dx, dx_ref, step, slack):
+    """The backward's limits, each plus the terms of the relu gates within
+    rounding of 0 (``slack``: ``K.relu_gate_slack`` of the same call)."""
+    sp, sdx = slack
+    for a, b, s in zip(K.param_leaves(got), K.param_leaves(ref),
+                       K.param_leaves(sp)):
         assert a.shape == b.shape and a.dtype == torch.float32
-        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+        assert ((a - b).abs() - s).max().item() <= 1e-3 * b.abs().max().item()
     dx, dx_ref = dx.float(), dx_ref.float()
-    assert ((dx - dx_ref).abs() <= 1e-4 + step * dx_ref.abs()).all()
+    assert ((dx - dx_ref).abs() <= 1e-4 + step * dx_ref.abs() + sdx).all()
 
 
 @pytest.mark.parametrize("shape,len1,hidden", [
@@ -100,6 +107,10 @@ def _assert_grads_close(got, ref, dx, dx_ref, step):
     ((1, 5, 7, 192), 96, 256),
     ((3, 4, 5, 12), 5, 32),        # uneven split, narrow hidden
     ((4, 44, 80, 48), 24, 256),    # many tiles per block
+    ((3, 37, 41, 48), 24, 256),    # M = 4,551: neither 128-row tiles nor
+                                   # 2,048-row slots divide it
+    ((8, 88, 160, 48), 24, 256),   # the flagship's batch-8 octaves
+    ((8, 44, 80, 192), 96, 256),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_kernels_match_plain(dev, shape, len1, hidden, dtype):
@@ -108,6 +119,8 @@ def test_backward_kernels_match_plain(dev, shape, len1, hidden, dtype):
     x = torch.randn(shape, generator=gen, device=dev).to(dtype)
     g = torch.randn(shape, generator=gen, device=dev).to(dtype)
     step = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    gated = {inverse: K.backward_relu_gates(p, x, g, CLAMP, len1, inverse)
+             for inverse in (False, True)}
     K.reset_launch_counts()
     for fn, plain in ((K.fused_glow_backward_1x1,
                        K.fused_glow_backward_1x1_plain),
@@ -117,7 +130,11 @@ def test_backward_kernels_match_plain(dev, shape, len1, hidden, dtype):
         rp, rx = plain(p, x, g, CLAMP, len1)
         torch.cuda.synchronize()
         assert dx.dtype == dtype
-        _assert_grads_close(dp, rp, dx, rx, step)
+        inverse = fn is K.fused_glow_inverse_backward_1x1
+        (_, dx_gated), gates = gated[inverse]
+        assert torch.equal(dx, dx_gated)      # the gates of this result
+        slack = K.relu_gate_slack(p, x, g, CLAMP, len1, inverse, gates)
+        _assert_grads_close(dp, rp, dx, rx, step, slack)
     counts = K.launch_counts()
     assert counts["fused_glow_backward_1x1"] == 1
     assert counts["fused_glow_inverse_backward_1x1"] == 1
@@ -130,6 +147,24 @@ def test_backward_is_deterministic(dev):
     g = torch.randn_like(x)
     a = K.fused_glow_backward_1x1(p, x, g, CLAMP, 96)
     b = K.fused_glow_backward_1x1(p, x, g, CLAMP, 96)
+    for u, v in zip(K.param_leaves(a[0]) + [a[1]],
+                    K.param_leaves(b[0]) + [b[1]]):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("shape,len1", [((8, 88, 160, 48), 24),
+                                        ((8, 44, 80, 192), 96)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_backward_is_deterministic_at_flagship_shapes(dev, shape, len1,
+                                                      inverse):
+    p = _params(shape[-1], len1, 256, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(shape, generator=gen, device=dev)
+    g = torch.randn(shape, generator=gen, device=dev)
+    fn = (K.fused_glow_inverse_backward_1x1 if inverse
+          else K.fused_glow_backward_1x1)
+    a = fn(p, x, g, CLAMP, len1)
+    b = fn(p, x, g, CLAMP, len1)
     for u, v in zip(K.param_leaves(a[0]) + [a[1]],
                     K.param_leaves(b[0]) + [b[1]]):
         assert torch.equal(u, v)
@@ -158,7 +193,32 @@ def test_gradients_flow_through_backward_kernels(dev, inverse):
     detached = K.params_from_leaves([t.detach() for t in K.param_leaves(p)])
     rp, rx = plain(detached, x.detach(), g, CLAMP, 24)
     got = K.params_from_leaves([t.grad for t in K.param_leaves(p)])
-    _assert_grads_close(got, rp, x.grad, rx, 1e-4)
+    _, gates = K.backward_relu_gates(detached, x.detach(), g, CLAMP, 24,
+                                     inverse)
+    slack = K.relu_gate_slack(detached, x.detach(), g, CLAMP, 24, inverse,
+                              gates)
+    _assert_grads_close(got, rp, x.grad, rx, 1e-4, slack)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_backward_relu_gates_differ_only_near_zero(dev, inverse):
+    """The relu gates K3/K4 set, read back from the launch, are the plain
+    version's except at pre-activations within rounding of 0."""
+    p = _params(48, 24, 256, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((8, 88, 160, 48), generator=gen, device=dev)
+    g = torch.randn((8, 88, 160, 48), generator=gen, device=dev)
+    (_, dx), gates = K.backward_relu_gates(p, x, g, CLAMP, 24, inverse)
+    fn = (K.fused_glow_inverse_backward_1x1 if inverse
+          else K.fused_glow_backward_1x1)
+    assert torch.equal(dx, fn(p, x, g, CLAMP, 24)[1])
+    _, _, z = K._plain_rows(p, x.reshape(-1, 48), g.reshape(-1, 48), CLAMP,
+                            24, inverse)
+    for gi, zi in zip(gates, z):
+        assert gi.shape == zi.shape and gi.dtype == torch.bool
+        flipped = gi != (zi > 0)
+        assert (zi.abs()[flipped] < 1e-5).all()
+        assert gi.sum() > zi.numel() // 4        # the gates are not all off
 
 
 def test_kernel_refuses_what_it_cannot_take(dev):

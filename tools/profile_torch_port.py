@@ -4,6 +4,7 @@
     python3 tools/profile_torch_port.py [--train | --flow | --flow-train]
                                         [--net NET] [--spatially-adaptive]
                                         [--splat-local-dy B]
+                                        [--match REGEX]
                                         [--batches N] [--out DIR]
 
 Builds the kernels, makes a seeded flagship SRF state (SRConfig defaults:
@@ -33,8 +34,12 @@ HR 352x640, then on ``cuda`` in the ``float32`` mode:
   the controller's transition and whose serving starts from a seeded
   controller state that is not the initial one);
 * traces one step of each with ``torch.profiler`` and prints the device
-  time by kernel, the number of kernel launches and the device's busy share
-  of the step's wall time.
+  time by kernel and by kernel family (the instantiations of one template
+  summed), the number of kernel launches and the device's busy share of the
+  step's wall time; with ``--match``, every kernel whose name the regular
+  expression finds, with its device time a launch (``--train --match
+  'row_phase|weight_stage|pack_kernel|reduce_partials'``: the stages of K3
+  and K4, ``csrc/coupling_1x1_bwd.cu``, by direction, phase and octave).
 
 Writes the profiler tables to DIR (default ``torch_port_profile``).
 """
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -74,7 +80,7 @@ def _events_ms(fn, reps):
     return statistics.median(times), min(times), max(times)
 
 
-def _profile(name, fn, out_dir):
+def _profile(name, fn, out_dir, match=None):
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -101,6 +107,21 @@ def _profile(name, fn, out_dir):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
+    # by kernel family: every instantiation of a template summed
+    families = {}
+    for e in events:
+        key = e.key.replace("(anonymous namespace)::", "")
+        key = re.split(r"[<(]", re.sub(r"^void ", "", key), maxsplit=1)[0]
+        ms, n = families.get(key, (0.0, 0))
+        families[key] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    for key, (ms, n) in sorted(families.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"[profile]   family {ms:9.3f} ms x{n:<4d} {key[:70]}")
+    if match:
+        for e in sorted(events, key=lambda e: e.key):
+            if re.search(match, e.key):
+                ms = e.self_device_time_total / 1e3
+                print(f"[profile]   matched {ms:9.3f} ms x{e.count:<4d} "
+                      f"({ms / e.count:.4f} ms a launch) {e.key[:90]}")
 
 
 def _flow(a, dev) -> int:
@@ -153,7 +174,7 @@ def _flow(a, dev) -> int:
           f"{K6.launch_counts()} {K7.launch_counts()}; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     for name, fn in steps:
-        _profile(name, fn, a.out)
+        _profile(name, fn, a.out, a.match)
     return 0
 
 
@@ -216,7 +237,7 @@ def _flow_train(a, dev) -> int:
               f"{a.batches} runs) = {1e3 / med:.2f} pairs/s; peak device "
               f"memory {peak:.2f} GiB, held for the backward {held:.2f} "
               f"GiB; launches over {a.batches + 1} steps: {counts}")
-        _profile(tag, fn, a.out)
+        _profile(tag, fn, a.out, a.match)
         del state, step, fn
     return 0
 
@@ -225,6 +246,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", type=int, default=10)
     ap.add_argument("--out", default="torch_port_profile")
+    ap.add_argument("--match", default=None,
+                    help="print every kernel whose name this regular "
+                         "expression finds, with its device time a launch")
     ap.add_argument("--train", action="store_true",
                     help="profile the train step at batch 8")
     ap.add_argument("--flow", action="store_true",
@@ -292,7 +316,7 @@ def main() -> int:
           f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
           " GiB")
     for name, fn in steps:
-        _profile(name, fn, a.out)
+        _profile(name, fn, a.out, a.match)
     return 0
 
 
