@@ -12,8 +12,12 @@ nothing of JAX or of the JAX package. Phases:
    flagship path gives them (batch 40, HR 352x640: C=48 and C=192), fp32
    (max abs error <= 1e-4 + 1e-4 |plain|: fp32 sums over K=256 in another
    order, atanf against torch.atan) and one bf16-storage case (one bf16
-   rounding step), the forward-inverse round trip, and median times;
-   Then at the training shapes (batch 8, HR 352x640): K1 and K2 timed, and
+   rounding step, forward at C=48 and inverse at C=192), the
+   forward-inverse round trip, median times, each launch's tile height
+   (warps a block) and its rate of TF32 work (3xTF32: three TF32 products
+   a product). Then at the training shapes (batch 8, HR 352x640): K1 and
+   K2 checked the same way (K2 on the plain forward's output, the round
+   trip within 1e-4) and timed, and
    K3 and K4 (the backward kernels, each with its gradient reduction)
    against their plain versions with fp32 matmuls (dx within
    1e-4 + 1e-4 |plain|; each weight and bias gradient within 1e-3 of the
@@ -168,7 +172,9 @@ nothing of JAX or of the JAX package. Phases:
     level.
 
 Any failed check exits non-zero. The line before the last is a JSON object
-with each kernel's numbers; the last line is
+with each kernel's numbers; K1-K4's ``bound_ms`` counts their products as
+they run, three TF32 products each on the tensor cores (3xTF32), with the
+fp32 rate's bound beside it (``fp32_bound_ms``). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -322,6 +328,18 @@ def backward_cost(m: int, c: int, hidden: int, elem_bytes: int,
     return flops, 3 * m * c * elem_bytes + 2 * 4 * weights
 
 
+def coupling_bounds(flops: int, nbytes: int):
+    """The bounds of a K1-K4 launch in ms: its bytes at the memory rate, its
+    products at the fp32 rate, and at the TF32 rate in one pass and in the
+    three TF32 products a product that the kernels take (3xTF32: what their
+    ``bound_ms`` reads)."""
+    return {"flop": flops, "bytes": nbytes,
+            "fp32_bound_ms": flops / PEAK_FP32 * 1e3,
+            "tf32_bound_ms": flops / PEAK_TF32 * 1e3,
+            "tf32x3_bound_ms": 3 * flops / PEAK_TF32 * 1e3,
+            "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3}
+
+
 def phase_card():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -431,33 +449,44 @@ def phase_kernels(dev):
                     "shape": list(shape), "M": m, "C": c,
                     "max_abs_err": errs[n].max().item(),
                     "ms": ms, "plain_ms": plain_ms,
-                    "flop": flops, "bytes": nbytes,
-                    "fp32_bound_ms": flops / PEAK_FP32 * 1e3,
-                    "tf32_bound_ms": flops / PEAK_TF32 * 1e3,
-                    "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+                    "warps": K.coupling_plan(c, len1, HIDDEN)[0],
+                    "tf32_work_tflops": 3 * flops / ms / 1e9,
+                    **coupling_bounds(flops, nbytes),
                     "round_trip_err": trip_err,
                 })
             del y, y_plain, x_back, x_plain, trip, errs, refs
-        # one bf16-storage case: the octave-1 forward
-        c = 48
-        p = _coupling_params(gen_w, c, dev)
-        xb = torch.randn(shapes[0], generator=gen_x,
-                         device=dev).to(torch.bfloat16)
-        yb = K.fused_glow_forward_1x1(p, xb, CLAMP, c // 2).float()
-        yb_plain = K.fused_glow_forward_1x1_plain(p, xb, CLAMP, c // 2).float()
-        e = (yb - yb_plain).abs()
-        # both round fp32 results to bf16: at most one rounding step apart
-        check(bool((e <= 1e-4 + 2.0 ** -7 * yb_plain.abs()).all()),
-              f"bf16 forward C=48: max abs err {e.max().item():.3e}")
-        bf16_err = e.max().item()
-    print(f"[kernels] bf16-storage forward C=48: max abs err {bf16_err:.3e}")
+        # bf16 storage: the octave-1 forward and the octave-2 inverse
+        bf16_err = 0.0
+        for shape, fn, plain in (
+                (shapes[0], K.fused_glow_forward_1x1,
+                 K.fused_glow_forward_1x1_plain),
+                (shapes[1], K.fused_glow_inverse_1x1,
+                 K.fused_glow_inverse_1x1_plain)):
+            c = shape[-1]
+            p = _coupling_params(gen_w, c, dev)
+            xb = torch.randn(shape, generator=gen_x,
+                             device=dev).to(torch.bfloat16)
+            yb = fn(p, xb, CLAMP, c // 2)
+            check(yb.dtype == torch.bfloat16, f"bf16 C={c}: out {yb.dtype}")
+            yb_plain = plain(p, xb, CLAMP, c // 2).float()
+            e = (yb.float() - yb_plain).abs()
+            # both round fp32 results to bf16: at most one rounding step apart
+            check(bool((e <= 1e-4 + 2.0 ** -7 * yb_plain.abs()).all()),
+                  f"bf16 {fn.__name__} C={c}: max abs err "
+                  f"{e.max().item():.3e}")
+            bf16_err = max(bf16_err, e.max().item())
+    print(f"[kernels] bf16-storage K1 C=48 and K2 C=192: max abs err "
+          f"{bf16_err:.3e}")
     for n, rs in rows.items():
         for r in rs:
             print(f"[kernels] {n} C={r['C']} M={r['M']}: {r['ms']:.3f} ms "
-                  f"(plain {r['plain_ms']:.3f} ms; bounds fp32 "
-                  f"{r['fp32_bound_ms']:.3f} / tf32 {r['tf32_bound_ms']:.3f} "
-                  f"/ bytes {r['bytes_bound_ms']:.3f} ms) max abs err "
-                  f"{r['max_abs_err']:.3e}, round trip {r['round_trip_err']:.3e}")
+                  f"({r['warps']} warps a block, {r['tf32_work_tflops']:.1f} "
+                  f"TFLOP/s of TF32 work; plain {r['plain_ms']:.3f} ms; "
+                  f"bounds 3xTF32 {r['tf32x3_bound_ms']:.3f} / fp32 "
+                  f"{r['fp32_bound_ms']:.3f} / bytes "
+                  f"{r['bytes_bound_ms']:.3f} ms) max abs err "
+                  f"{r['max_abs_err']:.3e}, round trip "
+                  f"{r['round_trip_err']:.3e}")
     return rows, bf16_err
 
 
@@ -577,28 +606,39 @@ def phase_train_kernels(dev):
         g = torch.randn(shape, generator=gen_x, device=dev)
         flops, nbytes = coupling_cost(m, c, HIDDEN, 4)
         with torch.inference_mode():
-            for n, fn, plain in (
+            # K1 on x, K2 on the plain forward's y, and the round trip
+            y_plain = K.fused_glow_forward_1x1_plain(p, x, CLAMP, len1)
+            trip = K.fused_glow_inverse_1x1(
+                p, K.fused_glow_forward_1x1(p, x, CLAMP, len1), CLAMP, len1)
+            trip_err = (trip - x).abs().max().item()
+            check(trip_err <= 1e-4, f"round trip C={c} batch {TRAIN_BATCH}: "
+                                    f"{trip_err:.3e} > 1e-4")
+            for n, fn, plain, inp in (
                     ("fused_glow_forward_1x1", K.fused_glow_forward_1x1,
-                     K.fused_glow_forward_1x1_plain),
+                     K.fused_glow_forward_1x1_plain, x),
                     ("fused_glow_inverse_1x1", K.fused_glow_inverse_1x1,
-                     K.fused_glow_inverse_1x1_plain)):
-                ref = plain(p, x, CLAMP, len1)
-                e = (fn(p, x, CLAMP, len1) - ref).abs()
+                     K.fused_glow_inverse_1x1_plain, y_plain)):
+                ref = plain(p, inp, CLAMP, len1)
+                e = (fn(p, inp, CLAMP, len1) - ref).abs()
+                check(bool(torch.isfinite(e).all()),
+                      f"{n} C={c} batch {TRAIN_BATCH}: non-finite")
                 check(bool((e <= 1e-4 + 1e-4 * ref.abs()).all()),
                       f"{n} C={c} batch {TRAIN_BATCH}: max abs err "
-                      f"{e.max().item():.3e}")
+                      f"{e.max().item():.3e} exceeds 1e-4 + 1e-4|plain|")
+                ms = median_ms(lambda: fn(p, inp, CLAMP, len1), 20)
                 rows[n].append({
                     "shape": list(shape), "M": m, "C": c,
                     "max_abs_err": e.max().item(),
-                    "ms": median_ms(lambda: fn(p, x, CLAMP, len1), 20),
-                    "plain_ms": median_ms(lambda: plain(p, x, CLAMP, len1),
+                    "ms": ms,
+                    "plain_ms": median_ms(lambda: plain(p, inp, CLAMP, len1),
                                           10),
-                    "flop": flops, "bytes": nbytes,
-                    "fp32_bound_ms": flops / PEAK_FP32 * 1e3,
-                    "tf32_bound_ms": flops / PEAK_TF32 * 1e3,
-                    "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
+                    "warps": K.coupling_plan(c, len1, HIDDEN)[0],
+                    "tf32_work_tflops": 3 * flops / ms / 1e9,
+                    **coupling_bounds(flops, nbytes),
+                    "round_trip_err": trip_err,
                 })
                 del ref, e
+            del y_plain, trip
         for n, fn, plain in (
                 ("fused_glow_backward_1x1", K.fused_glow_backward_1x1,
                  K.fused_glow_backward_1x1_plain),
@@ -641,10 +681,7 @@ def phase_train_kernels(dev):
                 "planted_fault_use": faults, **report,
                 "plain_ms": median_ms(lambda: plain(p, x, g, CLAMP, len1),
                                       5),
-                "flop": bflops, "bytes": bbytes,
-                "fp32_bound_ms": bflops / PEAK_FP32 * 1e3,
-                "tf32_bound_ms": bflops / PEAK_TF32 * 1e3,
-                "bytes_bound_ms": bbytes / PEAK_BYTES * 1e3,
+                **coupling_bounds(bflops, bbytes),
             })
         del x, g
     # one bf16-storage case: K3 at octave 1
@@ -666,11 +703,14 @@ def phase_train_kernels(dev):
                      f"{r['chunks']} slots ({r['partials_mb']:.1f} MB), "
                      f"scratch {r['scratch_mb']:.1f} MB, "
                      f"grads max abs err {r['grad_max_abs_err']:.3e}"
-                     if "reduce_ms" in r else "")
+                     if "reduce_ms" in r else
+                     f", {r['warps']} warps a block, "
+                     f"{r['tf32_work_tflops']:.1f} TFLOP/s of TF32 work, "
+                     f"round trip {r['round_trip_err']:.3e}")
             print(f"[kernels] batch {TRAIN_BATCH}: {n} C={r['C']} "
                   f"M={r['M']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} "
-                  f"ms; bounds fp32 {r['fp32_bound_ms']:.3f} / tf32 "
-                  f"{r['tf32_bound_ms']:.3f} / bytes "
+                  f"ms; bounds 3xTF32 {r['tf32x3_bound_ms']:.3f} / fp32 "
+                  f"{r['fp32_bound_ms']:.3f} / bytes "
                   f"{r['bytes_bound_ms']:.3f} ms) max abs err "
                   f"{r['max_abs_err']:.3e}{extra}")
             if "reduce_ms" not in r:
@@ -3017,9 +3057,11 @@ def main() -> int:
     for n in COUPLING:
         # K1/K2: the eval/infer shapes (batch 40), as before, with the
         # training shapes beside them; K3/K4: the training shapes
+        # bound by their work as run: every product three TF32 products on
+        # the tensor cores (the fp32 rate's bound beside it)
         rs = rows.get(n) or train_rows[n]
         bytes_ms = sum(r["bytes_bound_ms"] for r in rs)
-        ops_ms = sum(r["fp32_bound_ms"] for r in rs)
+        ops_ms = sum(r["tf32x3_bound_ms"] for r in rs)
         entry = {
             "name": n, "route": "cuda", "source": SOURCES[n],
             "replaces": REPLACES[n], "launches": counts[n],
@@ -3028,6 +3070,7 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "fp32_bound_ms": sum(r["fp32_bound_ms"] for r in rs),
             "library_ms": None,
             "shapes": rs,
         }

@@ -15,15 +15,16 @@
 //       sum gz1, h1'gr1, sum gr1 over all rows.
 //   K4: the same for the inverse chain (coupling.py:430-466), from y.
 //
-// Every product is a 3xTF32 product on the tensor cores: each fp32 operand a
-// is split into hi = tf32(a) (cvt.rna: to nearest, ties away from zero) and
-// lo = tf32(a - hi), and mma.sync.m16n8k8 (TF32 in, fp32 accumulate) adds
-// a_lo b_hi + a_hi b_lo + a_hi b_hi. The dropped lo lo term and the rounding
-// of lo leave about 2^-21 of each product, near fp32's own 2^-24; one-pass
-// TF32 (2^-11) would not hold dx to 1e-4. The recompute therefore does not
-// repeat K1/K2's fmaf order: a relu gate whose pre-activation lies within
-// rounding of 0 may be set otherwise than in the forward. Math is fp32; x, g
-// and dx are stored in fp32 or bf16; the gradients are fp32.
+// Every product is a 3xTF32 product on the tensor cores (tf32_mma.cuh, as
+// in K1/K2): each fp32 operand a is split into hi = tf32(a) (cvt.rna: to
+// nearest, ties away from zero) and lo = tf32(a - hi), and mma.sync.m16n8k8
+// (TF32 in, fp32 accumulate) adds a_lo b_hi + a_hi b_lo + a_hi b_hi. The
+// dropped lo lo term and the rounding of lo leave about 2^-21 of each
+// product, near fp32's own 2^-24; one-pass TF32 (2^-11) would not hold dx to
+// 1e-4. The recompute does not repeat K1/K2's order of sums: a relu gate
+// whose pre-activation lies within rounding of 0 may be set otherwise than
+// in the forward. Math is fp32; x, g and dx are stored in fp32 or bf16; the
+// gradients are fp32.
 //
 // Stages. One launch of sininn_coupling_1x1_bwd runs, on one stream:
 //   0. pack: the eight OIHW weights and biases into zero-padded row-major
@@ -78,9 +79,7 @@
 // narrow arrays. The kernels reach about a tenth of that TF32 peak; the
 // rest is latency between the chunks' loads, splits and products.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -91,107 +90,10 @@ constexpr int kMinChunkRows = 1024;  // least rows of a gradient slot
 constexpr int kWThreads = 256;    // weight stage: 8 warps of 32 x 32
 constexpr int kWK = 32;           // rows per weight-stage step
 constexpr int kUld = 256 + 8, kVld = 64 + 8;  // widest tiles' strides
-constexpr int kMaxSmem = 232448;
-
-__host__ __device__ __forceinline__ int round_up(int a, int b) {
-  return (a + b - 1) / b * b;
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float log_e(float s, float clamp) {
-  return clamp * 0.636619772367581343f * atanf(s / clamp);
-}
 
 __device__ __forceinline__ float log_e_prime(float s, float clamp) {
   const float u = s / clamp;
   return 0.636619772367581343f / (1.f + u * u);
-}
-
-// ---- 3xTF32 on mma.sync.m16n8k8 ----
-
-__device__ __forceinline__ uint32_t tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
-  return r;
-}
-
-__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(a);
-  lo = tf32(a - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b with a split into (hi, lo) and b = (b0, b1) split here.
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&hi)[4],
-                                     const uint32_t (&lo)[4], float b0,
-                                     float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma(c, lo, bh0, bh1);
-  mma(c, hi, bl0, bl1);
-  mma(c, hi, bh0, bh1);
-}
-
-// ---- 16-byte cp.async ----
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(s), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// ---- stage 0: pack the weights ----
-
-struct PackMat {
-  long long dst;       // floats into the packed buffer
-  int rows, cols;      // real size
-  int rows_pad, cols_pad;
-  const float* src;    // element (i, j) at src[i * sr + j * sc]
-  int sr, sc;
-};
-constexpr int kMaxPack = 12;
-struct PackArgs {
-  PackMat mat[kMaxPack];
-  int count;
-};
-
-__global__ void __launch_bounds__(kThreads)
-pack_kernel(PackArgs p, float* __restrict__ out) {
-  const PackMat& d = p.mat[blockIdx.y];
-  const long long n = (long long)d.rows_pad * d.cols_pad;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (long long)gridDim.x * blockDim.x) {
-    const int i = (int)(e / d.cols_pad), j = (int)(e % d.cols_pad);
-    out[d.dst + e] = (i < d.rows && j < d.cols)
-                         ? __ldg(d.src + (long long)i * d.sr +
-                                 (long long)j * d.sc)
-                         : 0.f;
-  }
 }
 
 // ---- stages 1-4: the row phases ----
@@ -1010,30 +912,23 @@ int sininn_coupling_1x1_bwd(int inverse, int bf16, const void* in,
   const float* k4bb[2] = {b1b, b2b};
   PackArgs pk;
   pk.count = 0;
-  long long most = 0;
   for (int ph = 0; ph < 4; ++ph) {
     int k, n;
     phase_kn(inv, ph, d, &k, &n);
     const int kp = round_up(k, 8), np = round_up(n, 8);
     const Src sa = inv ? k4a[ph] : k3a[ph], sb = inv ? k4b[ph] : k3b[ph];
-    pk.mat[pk.count++] =
-        PackMat{l.wa[ph], sa.rows, sa.cols, kp, d.hp, sa.p, sa.sr, sa.sc};
-    pk.mat[pk.count++] =
-        PackMat{l.wb[ph], sb.rows, sb.cols, d.hp, np, sb.p, sb.sr, sb.sc};
+    pk.mat[pk.count++] = PackMat{l.wa[ph], sa.rows, sa.cols, kp, d.hp,
+                                 sa.p, sa.sr, sa.sc, 0, 0};
+    pk.mat[pk.count++] = PackMat{l.wb[ph], sb.rows, sb.cols, d.hp, np,
+                                 sb.p, sb.sr, sb.sc, 0, 0};
     if (ph < 2) {
       pk.mat[pk.count++] = PackMat{l.ba[ph], 1, H, 1, d.hp,
-                                   inv ? k4ba[ph] : k3ba[ph], 0, 1};
+                                   inv ? k4ba[ph] : k3ba[ph], 0, 1, 0, 0};
       pk.mat[pk.count++] = PackMat{l.bb[ph], 1, n, 1, np,
-                                   inv ? k4bb[ph] : k3bb[ph], 0, 1};
+                                   inv ? k4bb[ph] : k3bb[ph], 0, 1, 0, 0};
     }
-    const long long sizes[2] = {(long long)kp * d.hp, (long long)d.hp * np};
-    for (long long z : sizes) most = z > most ? z : most;
   }
-  long long gx = (most + kThreads - 1) / kThreads;
-  if (gx > 1024) gx = 1024;
-  pack_kernel<<<dim3((unsigned)gx, (unsigned)pk.count), kThreads, 0, s>>>(
-      pk, scratch);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = pack(pk, scratch, s);
   if (err != cudaSuccess) return (int)err;
 
   // stages 1-4

@@ -5,28 +5,36 @@ Four kernels replace the TPU kernels of ``sin_inn_tpu/ops/pallas/coupling.py``
 
 * ``fused_glow_forward_1x1`` (K1, ``_coupling_fwd_kernel``) and
   ``fused_glow_inverse_1x1`` (K2, ``_coupling_inv_kernel``), in
-  ``csrc/coupling_1x1.cu``;
+  ``csrc/coupling_1x1.cu``: one launch runs the packing kernel (the OIHW
+  weights into zero-padded operands, each element split into its TF32 high
+  and low part) and one coupling kernel in which a block of 16 W rows (W
+  warps, 8 where they fit: :func:`coupling_plan`) runs both subnets of the
+  chain: each a two-layer product streamed over the hidden width in chunks
+  of 32 by ``cp.async``, with the hidden layer kept in registers, and the
+  affine step in shared memory. x is read once and y written once;
 * ``fused_glow_backward_1x1`` (K3, ``_coupling_bwd_kernel``) and
   ``fused_glow_inverse_backward_1x1`` (K4, ``_coupling_inv_bwd_kernel``),
-  the VJPs of K1 and K2, in ``csrc/coupling_1x1_bwd.cu``: staged products
-  on the tensor cores in 3xTF32 (each fp32 operand split into a TF32 high
-  and low part, three TF32 products a product). One launch runs a packing
-  kernel, four row phases (a two-layer product each, streamed over the
-  hidden width on 128-row tiles; h and gz go to a scratch buffer, the relu
-  gates as bits) and a weight stage that writes the eight weight and bias
-  gradients of each chunk of rows into its own slot; a second kernel of
-  that file (``reduce_weight_grads``) sums the slots in a fixed order, so
-  the result is bitwise repeatable without atomics.
+  the VJPs of K1 and K2, in ``csrc/coupling_1x1_bwd.cu``: one launch runs a
+  packing kernel, four row phases (a two-layer product each, streamed over
+  the hidden width on 128-row tiles; h and gz go to a scratch buffer, the
+  relu gates as bits) and a weight stage that writes the eight weight and
+  bias gradients of each chunk of rows into its own slot; a second kernel
+  of that file (``reduce_weight_grads``) sums the slots in a fixed order,
+  so the result is bitwise repeatable without atomics.
 
-The sources' headers state what bounds each kernel on an H100 (arithmetic,
-and for K3/K4 the tensor cores and the staged bytes), the tile, stage and
-slot sizes, and how the designs deal with weights that do not fit in a
-block's shared memory and with the cross-block gradient sum. K3/K4's
-recompute of the forward does not repeat K1/K2's ``fmaf`` order, so a relu
-gate whose pre-activation lies within rounding of 0 may be set otherwise
-than in the forward or in the plain version; :func:`relu_gate_slack` bounds
-what such a gate carries, for the checks against the plain versions, and
-:func:`backward_relu_gates` reads which gates a launch set.
+Every product of K1-K4 runs on the tensor cores in 3xTF32
+(``csrc/tf32_mma.cuh``: each fp32 operand split into a TF32 high and low
+part, three TF32 ``mma.sync`` products a product); that header also holds
+the packing kernel of both files (``pack_kernel``). The sources' headers
+state what bounds each kernel on an H100 (the tensor cores, and for K3/K4
+the staged bytes), the tile, stage and slot sizes, and how the designs deal
+with weights that do not fit in a block's shared memory and with the
+cross-block gradient sum. K3/K4's recompute of the forward does not repeat
+K1/K2's order of sums, so a relu gate whose pre-activation lies within
+rounding of 0 may be set otherwise than in the forward or in the plain
+version; :func:`relu_gate_slack` bounds what such a gate carries, for the
+checks against the plain versions, and :func:`backward_relu_gates` reads
+which gates a launch set.
 
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel or
 raises, a CPU tensor takes the plain version (``torch.matmul`` and the
@@ -113,17 +121,19 @@ def _log_e_prime(s: torch.Tensor, clamp: float) -> torch.Tensor:
 
 
 def _plain(params: Dict, x: torch.Tensor, clamp: float, len1: int,
-           inverse: bool) -> torch.Tensor:
+           inverse: bool, mm=torch.matmul) -> torch.Tensor:
+    """The fused chain on (N, H, W, C) x; ``mm`` takes every product (a
+    model of another arithmetic in tests)."""
     n, h, w, c = x.shape
     (w2a, b2a, w2b, b2b, w1a, b1a, w1b, b1b), _ = _mats(params, c, len1)
     len2 = c - len1
     v = x.reshape(-1, c).float()
 
     def r2(a):   # subnet s2 on x2 -> [s2 | t2], 2*len1 wide
-        return torch.relu(a @ w2a + b2a) @ w2b + b2b
+        return mm(torch.relu(mm(a, w2a) + b2a), w2b) + b2b
 
     def r1(a):   # subnet s1 on y1 -> [s1 | t1], 2*len2 wide
-        return torch.relu(a @ w1a + b1a) @ w1b + b1b
+        return mm(torch.relu(mm(a, w1a) + b1a), w1b) + b1b
 
     if not inverse:
         x1, x2 = v[:, :len1], v[:, len1:]
@@ -306,15 +316,18 @@ def fused_glow_inverse_backward_1x1_plain(params: Dict, y: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.library("coupling_1x1")
-    ptr = ctypes.c_void_p
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sininn_coupling_1x1.argtypes = (
-        [ctypes.c_int, ctypes.c_int, ptr, ptr, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ptr] * 8
-        + [ctypes.c_float, ptr])
-    lib.sininn_coupling_1x1.restype = ctypes.c_int
-    lib.sininn_coupling_1x1_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.sininn_coupling_1x1_smem_bytes.restype = ctypes.c_longlong
-    lib.sininn_error_string.argtypes = [ctypes.c_int]
+        [i32, i32, ptr, ptr, i64, i32, i32, i32] + [ptr] * 8
+        + [ctypes.c_float, ptr, ptr])
+    lib.sininn_coupling_1x1.restype = i32
+    for fn in ("sininn_coupling_1x1_smem_bytes",
+               "sininn_coupling_1x1_scratch_floats"):
+        getattr(lib, fn).argtypes = [i32, i32, i32]
+        getattr(lib, fn).restype = i64
+    lib.sininn_coupling_1x1_plan.argtypes = [i32, i32, i32, ptr]
+    lib.sininn_coupling_1x1_plan.restype = i32
+    lib.sininn_error_string.argtypes = [i32]
     lib.sininn_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -372,18 +385,23 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
 
 def _launch(params: Dict, x: torch.Tensor, clamp: float, len1: int,
             inverse: bool) -> torch.Tensor:
-    """One K1 or K2 launch on the current stream. Returns the output; the
-    caller counts the launch."""
+    """One K1 or K2 launch (its packing kernel and the coupling kernel) on
+    the current stream. Returns the output; the caller counts the launch."""
     _check_input(x, "input")
     c = x.shape[-1]
-    mats, hidden = _mats(params, c, len1)
+    mats, hidden = _mats(params, c, len1)   # checks the shapes
     _check_weights(mats, x.device)
-    mats = [t.detach().contiguous() for t in mats]
+    # the OIHW weights and the biases as stored, in LEAVES order
+    leaves = [t.detach().contiguous() for t in param_leaves(params)]
     lib = _lib()
-    smem = lib.sininn_coupling_1x1_smem_bytes(c, hidden)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"C={c}, hidden={hidden} needs {smem} bytes of "
-                         f"shared memory per block (max {_MAX_SMEM})")
+    smem = lib.sininn_coupling_1x1_smem_bytes(c, len1, hidden)
+    if not 0 < smem <= _MAX_SMEM:
+        raise ValueError(f"C={c}, len1={len1}, hidden={hidden}: no tile of "
+                         f"the coupling fits in {_MAX_SMEM} bytes of shared "
+                         f"memory")
+    scratch = torch.empty(
+        lib.sininn_coupling_1x1_scratch_floats(c, len1, hidden),
+        dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     m = x.numel() // c
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -391,9 +409,23 @@ def _launch(params: Dict, x: torch.Tensor, clamp: float, len1: int,
         err = lib.sininn_coupling_1x1(
             int(inverse), int(x.dtype == torch.bfloat16), x.data_ptr(),
             out.data_ptr(), m, c, len1, hidden,
-            *[t.data_ptr() for t in mats], float(clamp), stream)
+            *[t.data_ptr() for t in leaves], float(clamp),
+            scratch.data_ptr(), stream)
     _raise_on(err, lib, "coupling_1x1")
     return out
+
+
+def coupling_plan(c: int, len1: int, hidden: int) -> Tuple[int, int, int]:
+    """The plan of a K1/K2 launch: the warps a block (16 rows each; the most
+    that fit in shared memory) and the passes over the columns of the s2
+    and of the s1 subnet's second product (1 where every Wb chunk fits).
+    Raises a ValueError if no block fits."""
+    out = (ctypes.c_int * 3)()
+    if _lib().sininn_coupling_1x1_plan(c, len1, hidden, out) != 0:
+        raise ValueError(f"C={c}, len1={len1}, hidden={hidden}: no tile of "
+                         f"the coupling fits in {_MAX_SMEM} bytes of shared "
+                         f"memory")
+    return tuple(out)
 
 
 def _launch_backward(params: Dict, x: torch.Tensor, g: torch.Tensor,

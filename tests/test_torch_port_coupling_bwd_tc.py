@@ -5,10 +5,10 @@ against the JAX package's Pallas backward kernels in interpret mode.
 cores: each fp32 operand a is split into hi = tf32(a) (``cvt.rna``: to
 nearest on the top 10 mantissa bits, ties away from zero) and lo =
 tf32(a - hi), and a b is taken as lo hi + hi lo + hi hi, summed in fp32.
-Here that split is emulated in plain PyTorch (:func:`tf32_rna`, :func:`mm3`),
-every product of the reverse chain (``_plain_rows``) goes through it, and
-the weight products are summed over row chunks in a fixed order as the
-kernel's slots are. Inputs come from numpy seeds at C = 48 and C = 192,
+Here that split is emulated in plain PyTorch (``tf32_rna``, ``mm3`` of
+``tests/torch_port_helpers.py``), every product of the reverse chain
+(``_plain_rows``) goes through it, and the weight products are summed over
+row chunks in a fixed order as the kernel's slots are. Inputs come from numpy seeds at C = 48 and C = 192,
 hidden 256, the SRF flagship's widths, over 512 rows.
 
 What is not modelled: how the tensor cores add. Each mma adds its products
@@ -42,37 +42,12 @@ from sin_inn_tpu.ops import subnet as JS
 from sin_inn_tpu.ops.pallas import coupling as JK
 from sin_inn_tpu_torch.models.convert import glow_params_from_jax
 from sin_inn_tpu_torch.ops.cuda import coupling as TK
+from torch_port_helpers import mm1, mm3, split, tf32_rna
 
 CLAMP = 1.2
 HIDDEN = 256
 SHAPE = (2, 16, 16)          # 512 rows: two of the Pallas kernel's tiles
 CHUNK = 96                   # rows per slot here: 5 full chunks, 1 ragged
-
-
-def tf32_rna(a: torch.Tensor) -> torch.Tensor:
-    """fp32 -> the nearest TF32 value (10 mantissa bits), ties away from
-    zero, as ``cvt.rna.tf32.f32``: add half of the dropped 13 bits to the
-    magnitude, then clear them."""
-    bits = a.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split(a: torch.Tensor):
-    hi = tf32_rna(a)
-    return hi, tf32_rna(a - hi)
-
-
-def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in 3xTF32: lo hi + hi lo + hi hi, in the kernel's order, each
-    an fp32 matmul (the mma's truncating accumulation is not modelled)."""
-    ah, al = split(a)
-    bh, bl = split(b)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
-def mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One-pass TF32: hi hi alone."""
-    return tf32_rna(a) @ tf32_rna(b)
 
 
 @pytest.fixture(scope="module", params=[(48, 24), (192, 96)],

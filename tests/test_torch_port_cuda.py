@@ -6,12 +6,13 @@ fixture, never at import). Run on a machine with the card and nvcc:
     python -m pytest tests/test_torch_port_cuda.py -m cuda -q
 
 Tolerance for fp32 storage: 1e-4 + 1e-4 |plain| (sums over the hidden width
-in another order, atanf against torch.atan); bf16 storage: one bf16
-rounding step. Weight and bias gradients of the backward kernels: 1e-3 of
-the largest |plain| of each (sums over all rows in another order); K3/K4's
-dx and leaves each plus ``relu_gate_slack`` over the gates the launch set
-otherwise than the plain version at a pre-activation within 1e-5 of 0
-(such a gate may go either way: 3xTF32 products and another order). The
+in another order, K1-K4's products in 3xTF32 on the tensor cores, atanf
+against torch.atan); bf16 storage: one bf16 rounding step. Weight and bias
+gradients of the backward kernels: 1e-3 of the largest |plain| of each
+(sums over all rows in another order); K3/K4's dx and leaves each plus
+``relu_gate_slack`` over the gates the launch set otherwise than the plain
+version at a pre-activation within 1e-5 of 0 (such a gate may go either
+way: 3xTF32 products and another order). The
 windowed splat (K5) and gather (K6, forward and gradient mode): 1e-5 +
 1e-5 |plain| (K5 sums with atomics in a run-dependent order; K6 repeats the
 plain arithmetic); their local-window forms (K5 local, K6 local) the same.
@@ -59,6 +60,12 @@ def _params(c, len1, hidden, dev, kernel=1):
     ((2, 9, 13, 48), 24, 256),     # ragged last tile
     ((1, 5, 7, 192), 96, 256),
     ((3, 4, 5, 12), 5, 32),        # uneven split, narrow hidden
+    ((1, 9, 15, 48), 24, 256),     # M = 135: a 128-row tile and 7 rows
+    ((3, 37, 41, 192), 96, 256),   # M = 4,551: not a multiple of 128
+    ((8, 88, 160, 48), 24, 256),   # the flagship's batch-8 octaves
+    ((8, 44, 80, 192), 96, 256),
+    ((1, 7, 73, 256), 128, 256),   # M = 511, 4 passes over Wb's columns
+    ((1, 7, 73, 384), 192, 256),   # 6-warp blocks, 24 passes
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain(dev, shape, len1, hidden, dtype):
@@ -79,6 +86,20 @@ def test_kernels_match_plain(dev, shape, len1, hidden, dtype):
         counts = K.launch_counts()
         assert counts["fused_glow_forward_1x1"] == 1
         assert counts["fused_glow_inverse_1x1"] == 1
+
+
+@pytest.mark.parametrize("c,len1,hidden,plan", [
+    (12, 5, 32, (8, 1, 1)),
+    (48, 24, 256, (8, 1, 1)),
+    (192, 96, 256, (8, 1, 1)),
+    (256, 128, 256, (8, 4, 4)),
+    (384, 192, 256, (6, 24, 24)),
+])
+def test_kernel_plan(dev, c, len1, hidden, plan):
+    """The block heights and passes of ``test_kernels_match_plain``'s
+    shapes: one pass of 8 warps on the SRF path, the narrower plans at the
+    wider C."""
+    assert K.coupling_plan(c, len1, hidden) == plan
 
 
 def test_kernel_round_trip(dev):

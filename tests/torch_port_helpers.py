@@ -2,6 +2,7 @@
 package."""
 
 import numpy as np
+import torch
 
 
 def np_params(spec, c=3, seed=11):
@@ -41,3 +42,32 @@ def np_params(spec, c=3, seed=11):
             "s1": {"conv1": conv(k, len1, h), "conv2": conv(k, h, 2 * len2)},
             "s2": {"conv1": conv(k, len2, h), "conv2": conv(k, h, 2 * len1)}})
     return params
+
+
+# ---- the tensor cores' 3xTF32 arithmetic, modelled in plain PyTorch ----
+
+
+def tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32``: add half of the dropped 13 bits to the
+    magnitude, then clear them."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(a: torch.Tensor):
+    hi = tf32_rna(a)
+    return hi, tf32_rna(a - hi)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in 3xTF32: lo hi + hi lo + hi hi, in the kernels' order, each
+    an fp32 matmul (the mma's truncating accumulation is not modelled)."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One-pass TF32: hi hi alone."""
+    return tf32_rna(a) @ tf32_rna(b)

@@ -39,7 +39,11 @@ HR 352x640, then on ``cuda`` in the ``float32`` mode:
   step's wall time; with ``--match``, every kernel whose name the regular
   expression finds, with its device time a launch (``--train --match
   'row_phase|weight_stage|pack_kernel|reduce_partials'``: the stages of K3
-  and K4, ``csrc/coupling_1x1_bwd.cu``, by direction, phase and octave).
+  and K4, ``csrc/coupling_1x1_bwd.cu``, by direction, phase and octave;
+  ``--train --match coupling_1x1``: K1 and K2, ``csrc/coupling_1x1.cu``,
+  ``coupling_1x1_kernel<T, inverse, tiles>`` by direction (the 24-tile
+  instance runs the second octave, the 8-tile one the first); their
+  packing kernel is ``pack_kernel``, one row for K1-K4).
 
 Writes the profiler tables to DIR (default ``torch_port_profile``).
 """
