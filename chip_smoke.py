@@ -48,14 +48,17 @@ nothing of JAX or of the JAX package. Phases:
    the drop rule runs: K6 within 1e-5 + 1e-5 |plain| (it repeats the plain
    arithmetic), K5 and its coverage channel within 1e-5 + 1e-5 |plain| (its
    atomic sums run in another order); device time per call (torch.profiler:
-   every kernel and memset of the call) of each kernel, of its plain
-   version and, for K6, of ``grid_sample``, and each kernel's median time
-   between CUDA events (which includes the host's launch path); then the
-   local-window kernels, K6 local (C=3, resample coordinates) and K5 local
-   (C=5), at local dy 32, dx 128, cap_y 64, on the tile offsets of a seeded
-   flow with a drift of 10-40 px per 128 x 128 tile, +-4 px of detail and a
-   stripe of 45 px more that leaves the local window: the same limits,
-   times and yardstick, and the time of ``tile_flow_offsets`` itself;
+   every kernel and memset of the call) of each kernel and of its plain
+   version, and each kernel's median time between CUDA events (which
+   includes the host's launch path); then the local-window kernels, K6
+   local (C=3, resample coordinates) and K5 local (C=5), at local dy 32, dx
+   128, cap_y 64, on the tile offsets of a seeded flow with a drift of
+   10-40 px per 128 x 128 tile, +-4 px of detail and a stripe of 45 px more
+   that leaves the local window: the same limits and times, and the time of
+   ``tile_flow_offsets`` itself. K6 local, ``grid_sample`` on the same
+   flow, K6 and ``grid_sample`` on K6's flow are timed in turns in one loop
+   (200 launches each, the device time of each launch): the medians are
+   the two K6 rows' ms and library_ms, and each one's spread is printed;
 7. the flow path: a 6-frame synthetic 436x1024 video and a seeded
    full-width ``RBF`` INR (E = 512, MLP 512-256-256-256-4) saved and
    restored through the checkpoint store; ``flow_test_outputs`` over the 5
@@ -84,8 +87,10 @@ nothing of JAX or of the JAX package. Phases:
    in another order), the bf16 operand mode within 1e-3 of the largest
    |plain| of the bf16 plain version and within a normwise 2e-2 of the
    fp32 plain result (two bf16 roundings per product, and the relu gates
-   they flip), two launches bitwise equal; times of each, the scratch
-   size; and a net whose widths the kernel cannot take (hidden 512) is
+   they flip), two launches bitwise equal; times of each (the kernel and
+   its plain version in turns, 200 calls each for ``RBF``, with their
+   spread), the scratch size; and a net whose widths the kernel cannot
+   take (hidden 512) is
    refused on the card with a ValueError, not handed to autograd;
 9. ``flow train``: the 6-frame 436x1024 video through ``run_flow_train`` at
    the ``FlowConfig`` defaults (RBF, batch 1, Wang occlusion, bounds dy 64,
@@ -119,7 +124,8 @@ nothing of JAX or of the JAX package. Phases:
     of each other, the bf16 operand mode within a normwise 5e-3 of the bf16
     plain version and 2e-2 of the fp32 one; the backward with every leaf,
     the coordinate rows among them, within 1e-3 of its largest |plain|, two
-    launches bitwise equal; times, bounds, scratch size;
+    launches bitwise equal; times (the kernel and its plain version in
+    turns), bounds, scratch size;
 11. the progressive path, on the static windows (``splat_local_dy="off"``,
     so that one train path keeps the static K5, K6 and K6 grads launches):
     ``run_flow_train`` for ``PFF`` with the spatial controller on the
@@ -172,9 +178,9 @@ nothing of JAX or of the JAX package. Phases:
     level.
 
 Any failed check exits non-zero. The line before the last is a JSON object
-with each kernel's numbers; K1-K4's ``bound_ms`` counts their products as
-they run, three TF32 products each on the tensor cores (3xTF32), with the
-fp32 rate's bound beside it (``fp32_bound_ms``). The last line is
+with each kernel's numbers; K1-K4's and K7 backward's ``bound_ms`` counts
+their products as they run, three TF32 products each on the tensor cores
+(3xTF32), with the fp32 rate's bound beside it (``fp32_bound_ms``). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -288,20 +294,98 @@ def median_ms(fn, reps: int) -> float:
 def device_ms(fn, reps: int) -> float:
     """Device time per call of ``fn``: every kernel and memset it launches,
     traced by torch.profiler over ``reps`` calls. A small kernel's event
-    time is mostly the host's launch path; this is the card's share."""
+    time is mostly the host's launch path; this is the card's share. A
+    trace that holds fewer device events than calls lost some: it is taken
+    again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in evs) >= reps:
+            break
+    check(sum(e.count for e in evs) >= reps,
+          f"the profiler saw {sum(e.count for e in evs)} device events over "
+          f"{reps} calls")
+    total_us = sum(e.self_device_time_total for e in evs)
     check(total_us > 0, "the profiler saw no device time")
     return total_us / reps / 1e3
+
+
+def _spread(ts):
+    """Median and spread (min, 10th and 90th percentiles, max) of times."""
+    ts = sorted(ts)
+    at = lambda f: ts[min(len(ts) - 1, int(f * len(ts)))]
+    return {"median_ms": statistics.median(ts), "min_ms": ts[0],
+            "p10_ms": at(0.1), "p90_ms": at(0.9), "max_ms": ts[-1],
+            "n": len(ts)}
+
+
+def interleaved_device_ms(fns, reps: int):
+    """Device time of each launch of several calls taken in turns (A B C A
+    B C ...) ``reps`` times under torch.profiler, each call one kernel: per
+    name the median over its launches and their spread. In turns, so that
+    a drift of the card's clock or of its neighbours' load falls on all of
+    them alike."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = list(fns)
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in fns.values():
+                fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    check(len(evs) == reps * len(names),
+          f"interleaved timing: {len(evs)} device events for "
+          f"{reps} x {len(names)} calls of one kernel each")
+    times = {n: [] for n in names}
+    kernels = {n: set() for n in names}
+    for i, e in enumerate(evs):
+        times[names[i % len(names)]].append(e.device_time_total / 1e3)
+        kernels[names[i % len(names)]].add(e.name)
+    check(all(len(k) == 1 for k in kernels.values()),
+          f"interleaved timing: the calls' kernels mixed: {kernels}")
+    return {n: _spread(ts) for n, ts in times.items()}
+
+
+def interleaved_event_ms(fns, reps: int):
+    """Time of each call of several (each many kernels) taken in turns,
+    ``reps`` times, between CUDA events around the call: per name the
+    median and the spread."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    marks = {n: [] for n in fns}
+    for _ in range(reps):
+        for n, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            marks[n].append((start, end))
+    torch.cuda.synchronize()
+    return {n: _spread([a.elapsed_time(b) for a, b in ms])
+            for n, ms in marks.items()}
+
+
+def _spread_line(name, t):
+    return (f"{name} median {t['median_ms']:.4f} ms (min {t['min_ms']:.4f}, "
+            f"p10 {t['p10_ms']:.4f}, p90 {t['p90_ms']:.4f}, max "
+            f"{t['max_ms']:.4f}; {t['n']} launches)")
 
 
 def coupling_cost(m: int, c: int, hidden: int, elem_bytes: int):
@@ -1101,12 +1185,12 @@ def phase_flow_kernels(dev):
         nbytes = px * (3 + 2 + 3) * 4
         flops = px * (16 + 9 * 3)
         kern = lambda: K6.gather_region(img, fl, DY, DX, coord)
+        # ms and library_ms: the interleaved loop of _local_flow_kernels
+        static_calls = {"gather_region": kern, "grid_sample": lib}
         rows["gather_region"] = {
             "shape": [1, FLOW_H, FLOW_W, 3], "max_abs_err": err6,
-            "ms": device_ms(kern, 50),
             "plain_ms": device_ms(lambda: K6.gather_region_plain(
                 img, fl, DY, DX, coord), 10),
-            "library_ms": device_ms(lib, 50),
             "event_ms": median_ms(kern, 50),
             "bytes": nbytes, "flop": flops,
             "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
@@ -1134,7 +1218,7 @@ def phase_flow_kernels(dev):
             "bytes": nbytes, "flop": flops,
             "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
             "ops_bound_ms": flops / PEAK_FP32 * 1e3}
-    rows.update(_local_flow_kernels(dev, img, cat))
+    rows.update(_local_flow_kernels(dev, img, cat, rows, static_calls))
     for n, r in rows.items():
         lib_s = ("" if r["library_ms"] is None
                  else f", grid_sample {r['library_ms']:.4f} ms")
@@ -1168,11 +1252,14 @@ def _local_flow(gen, dev):
     return fl.contiguous()
 
 
-def _local_flow_kernels(dev, img, cat):
+def _local_flow_kernels(dev, img, cat, rows_static, static_calls):
     """K6 local (C = 3, resample coordinates) and K5 local (C = 5) against
     their plain versions at 1 x 436 x 1024, local dy 32, dx 128, cap_y 64,
     on the offsets of a flow that leaves the local window in part; times,
-    bounds, grid_sample for K6 local, and the offsets' own time."""
+    bounds and the offsets' own time. K6 local, grid_sample on the same
+    flow, K6 static and grid_sample on the static row's flow
+    (``static_calls``) are timed in turns in one loop, 200 launches each:
+    the ms and library_ms of both K6 rows."""
     import torch.nn.functional as F
 
     from sin_inn_tpu_torch.ops.cuda import gather as K6
@@ -1212,12 +1299,25 @@ def _local_flow_kernels(dev, img, cat):
         flops = px * (16 + 9 * 3)
         kern = lambda: K6.gather_region_local(img, fl, offs.off_src, LDY, DX,
                                               CAPY, 0, coord)
+        turns = interleaved_device_ms(
+            {"gather_region_local": kern, "grid_sample (local flow)": lib,
+             "gather_region": static_calls["gather_region"],
+             "grid_sample (static flow)": static_calls["grid_sample"]}, 200)
+        for n, t in turns.items():
+            print(f"[flow kernels] in turns: {_spread_line(n, t)}")
+        rows_static["gather_region"].update(
+            ms=turns["gather_region"]["median_ms"],
+            library_ms=turns["grid_sample (static flow)"]["median_ms"],
+            turns={"kernel": turns["gather_region"],
+                   "grid_sample": turns["grid_sample (static flow)"]})
         rows["gather_region_local"] = {
             "shape": [1, FLOW_H, FLOW_W, 3], "max_abs_err": err,
-            "ms": device_ms(kern, 50),
+            "ms": turns["gather_region_local"]["median_ms"],
             "plain_ms": device_ms(lambda: K6.gather_region_plain(
                 img, fl, LDY, DX, coord, off_src=offs.off_src), 10),
-            "library_ms": device_ms(lib, 50),
+            "library_ms": turns["grid_sample (local flow)"]["median_ms"],
+            "turns": {"kernel": turns["gather_region_local"],
+                      "grid_sample": turns["grid_sample (local flow)"]},
             "event_ms": median_ms(kern, 50),
             "bytes": nbytes, "flop": flops,
             "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
@@ -1525,6 +1625,15 @@ def inr_backward_cost(n: int, widths):
     return flops, 4 * (n * (3 + widths[-1]) + 2 * params)
 
 
+def inr_backward_bounds(flops: int, nbytes: int):
+    """K7 backward's bounds in ms: its products as it runs them, three TF32
+    products each on the tensor cores (3xTF32: ``ops_bound_ms``, what its
+    ``bound_ms`` reads), at the fp32 rate beside it, and its bytes."""
+    return {"ops_bound_ms": 3 * flops / PEAK_TF32 * 1e3,
+            "fp32_bound_ms": flops / PEAK_FP32 * 1e3,
+            "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3}
+
+
 def phase_flow_train_kernels(dev):
     """K6 grads and K7 backward against their plain versions at the flow
     train step's shapes; times, bounds, determinism."""
@@ -1637,29 +1746,38 @@ def phase_flow_train_kernels(dev):
                           f"max abs err {e:.3e} against the bf16 plain "
                           f"version exceeds {lim:.3e}")
             flops, nbytes = inr_backward_cost(n, widths)
+            # the kernel and its plain version in turns: 200 each for the
+            # path's net, 20 for the other
+            turns = interleaved_event_ms({
+                "kernel": lambda: K7.fused_inr_backward(
+                    kind, enc, layers, pts, mask, g),
+                "plain": lambda: K7.fused_inr_backward_plain(
+                    kind, enc, layers, pts, mask, g)},
+                200 if net == "RBF" else 20)
             row = {
                 "shape": [n, 3], "net": net, "widths": widths,
                 "max_abs_err": err, "bf16_normwise_err": rel16,
-                "ms": median_ms(lambda: K7.fused_inr_backward(
-                    kind, enc, layers, pts, mask, g), 3),
+                "ms": turns["kernel"]["median_ms"],
                 "bf16_ms": median_ms(lambda: K7.fused_inr_backward(
                     kind, enc, layers, pts, mask, g, bf16=True), 3),
-                "plain_ms": median_ms(lambda: K7.fused_inr_backward_plain(
-                    kind, enc, layers, pts, mask, g), 3),
+                "plain_ms": turns["plain"]["median_ms"], "turns": turns,
                 "library_ms": None, "bytes": nbytes, "flop": flops,
                 "scratch_bytes": K7.scratch_bytes(layers, pts, kind, enc),
-                "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
-                "ops_bound_ms": flops / PEAK_FP32 * 1e3}
+                **inr_backward_bounds(flops, nbytes)}
         inr_rows.append(row)
         print(f"[flow train kernels] fused_inr_backward {net} N={n}: "
               f"{row['ms']:.3f} ms with its reduction (bf16 operands "
               f"{row['bf16_ms']:.3f} ms; plain {row['plain_ms']:.3f} ms; "
-              f"bound fp32 {row['ops_bound_ms']:.3f} / bytes "
+              f"bound 3xTF32 {row['ops_bound_ms']:.3f} / fp32 "
+              f"{row['fp32_bound_ms']:.3f} / bytes "
               f"{row['bytes_bound_ms']:.4f} ms; {flops / 1e9:.1f} GFLOP, "
-              f"{flops / row['ms'] / 1e9:.2f} TFLOP/s), scratch "
-              f"{row['scratch_bytes'] / 2 ** 20:.1f} MiB, max abs err "
+              f"{3 * flops / row['ms'] / 1e9:.2f} TFLOP/s of TF32 work), "
+              f"scratch {row['scratch_bytes'] / 2 ** 20:.1f} MiB, max abs err "
               f"{err:.3e}, bf16 normwise {rel16:.3e}, two launches bitwise "
               f"equal")
+        for n_, t in turns.items():
+            print(f"[flow train kernels] fused_inr_backward {net} in turns: "
+                  f"{_spread_line(n_, t)}")
 
     # widths the kernel cannot take (a 32-row tile of 512 + 3 x 512 + 4
     # floats exceeds a block's shared memory): the model refuses on the card
@@ -2111,29 +2229,37 @@ def phase_prog_kernels(dev):
             const_flops, const_bytes = inr_forward_cost(n, widths, 3, "const")
             flops += 4 * n * 3 * widths[1] + fwd_flops - const_flops
             nbytes += 8 * 3 * widths[1] + fwd_bytes - const_bytes
+            # the kernel and its plain version in turns: 50 each for the
+            # path's mode (PFF, slab), 10 for the others
+            turns = interleaved_event_ms({
+                "kernel": lambda: K7.fused_inr_backward(
+                    kind, enc, layers, pts, mask, g),
+                "plain": lambda: K7.fused_inr_backward_plain(
+                    kind, enc, layers, pts, mask, g)},
+                50 if (net, mode) == ("PFF", "slab") else 10)
             row = {
                 "shape": [n, 3], "net": net, "mode": mode, "prog": True,
                 "widths": widths, "max_abs_err": err,
-                "ms": median_ms(lambda: K7.fused_inr_backward(
-                    kind, enc, layers, pts, mask, g), 3),
+                "ms": turns["kernel"]["median_ms"],
                 "bf16_ms": median_ms(lambda: K7.fused_inr_backward(
                     kind, enc, layers, pts, mask, g, bf16=True), 3),
-                "plain_ms": median_ms(lambda: K7.fused_inr_backward_plain(
-                    kind, enc, layers, pts, mask, g), 3),
+                "plain_ms": turns["plain"]["median_ms"], "turns": turns,
                 "library_ms": None, "bytes": nbytes, "flop": flops,
                 "scratch_bytes": K7.scratch_bytes(layers, pts, kind, enc,
                                                   mask),
-                "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
-                "ops_bound_ms": flops / PEAK_FP32 * 1e3}
+                **inr_backward_bounds(flops, nbytes)}
         bwd_rows.append(row)
         print(f"[prog kernels] fused_inr_backward {net} {mode} N={n}: "
               f"{row['ms']:.3f} ms with its reduction (bf16 operands "
               f"{row['bf16_ms']:.3f} ms; plain {row['plain_ms']:.3f} ms; "
-              f"bound fp32 {row['ops_bound_ms']:.3f} / bytes "
+              f"bound 3xTF32 {row['ops_bound_ms']:.3f} / fp32 "
+              f"{row['fp32_bound_ms']:.3f} / bytes "
               f"{row['bytes_bound_ms']:.4f} ms; {flops / 1e9:.1f} GFLOP, "
-              f"{flops / row['ms'] / 1e9:.2f} TFLOP/s), scratch "
-              f"{row['scratch_bytes'] / 2 ** 20:.1f} MiB, max abs err "
-              f"{err:.3e}, two launches bitwise equal")
+              f"{3 * flops / row['ms'] / 1e9:.2f} TFLOP/s of TF32 work), "
+              f"scratch {row['scratch_bytes'] / 2 ** 20:.1f} MiB, max abs "
+              f"err {err:.3e}, two launches bitwise equal; in turns: "
+              f"{_spread_line('kernel', turns['kernel'])}, "
+              f"{_spread_line('plain', turns['plain'])}")
 
     for net, kind, modes in (("PFF", "ff", ("slab", "point", "const")),
                              ("PRBF", "rbf", ("slab",))):
@@ -3108,6 +3234,11 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None if None in lib else sum(lib), "shapes": rs})
+        if n == "fused_inr_backward":
+            # bound by its products as it runs them (3xTF32), the fp32
+            # rate's bound beside it
+            kernels[-1]["fp32_bound_ms"] = sum(r["fp32_bound_ms"]
+                                               for r in rs)
     # K8: the four 3x3 couplings' module path at batch 8 (launches), each
     # octave's half timed at batch 8, the batch-40 rows beside them
     for n, rs in k8_rows.items():

@@ -44,8 +44,9 @@
 //      The elementwise chain (y1, gr, dx) runs in the phases' prologues and
 //      epilogues. Narrow N is padded to the mma's 8 columns, not given to
 //      fewer threads.
-//   5. weight products: [dW | db] of each of the four weights as a split-K
-//      product over chunks of rows, D = U' V with U the H-wide operand (h or
+//   5. weight products (weight_stage.cuh, shared with K7 backward): [dW |
+//      db] of each of the four weights as a split-K product over chunks of
+//      rows, D = U' V with U the H-wide operand (h or
 //      gz) and V the narrow one, on D tiles of 256 x 32 (V at most 32 wide)
 //      or 128 x 64, 8 warps of 32 x 32, 32 rows a stage by double-buffered
 //      cp.async. Each block writes its tile of its chunk's slot once; the
@@ -80,6 +81,7 @@
 // rest is latency between the chunks' loads, splits and products.
 
 #include "tf32_mma.cuh"
+#include "weight_stage.cuh"
 
 namespace {
 
@@ -87,9 +89,6 @@ constexpr int kThreads = 256;     // row phases: at most 8 warps
 constexpr int kHC = 32;           // hidden chunk of a row phase
 constexpr int kWaLd = kHC + 8;    // shared row stride of a Wa chunk
 constexpr int kMinChunkRows = 1024;  // least rows of a gradient slot
-constexpr int kWThreads = 256;    // weight stage: 8 warps of 32 x 32
-constexpr int kWK = 32;           // rows per weight-stage step
-constexpr int kUld = 256 + 8, kVld = 64 + 8;  // widest tiles' strides
 
 __device__ __forceinline__ float log_e_prime(float s, float clamp) {
   const float u = s / clamp;
@@ -432,180 +431,6 @@ row_phase_kernel(RowArgs a) {
   }
 }
 
-// ---- stage 5: the weight products ----
-
-struct Product {
-  const float* u;    // rows x p (ld ldu): h or gz
-  const float* v;    // rows x q (ld ldv): the narrow operand
-  int p, ldu, q, ldv;
-  long long out;     // slot offset of the weight; its bias follows
-  int transpose;     // the weight is (q, p): out[j][i] = D[i][j]
-  int bias_u;        // bias = column sums of u (else of v)
-};
-struct Products {
-  Product pr[4];
-};
-
-// A D tile is 256 x 32 (8 x 1 warps) for a narrow operand of at most 32
-// columns, else 128 x 64 (4 x 2 warps).
-__host__ __device__ __forceinline__ int tile_p(const Product& p) {
-  return p.q <= 32 ? 256 : 128;
-}
-__host__ __device__ __forceinline__ int tile_q(const Product& p) {
-  return p.q <= 32 ? 32 : 64;
-}
-__host__ __device__ __forceinline__ int tiles_of(const Product& p) {
-  return ((p.p + tile_p(p) - 1) / tile_p(p)) *
-         ((p.q + tile_q(p) - 1) / tile_q(p));
-}
-
-// blockIdx.x: a chunk of `chunk` rows; blockIdx.y: a D tile of one of
-// the four products. Writes the tile (and its share of the bias) into the
-// chunk's slot of `partials`.
-__global__ void __launch_bounds__(kWThreads)
-weight_stage_kernel(Products ps, long long m, long long chunk,
-                    float* __restrict__ partials, long long slot) {
-  extern __shared__ __align__(16) float smem[];
-  int tile = blockIdx.y, which = 0;
-  while (tile >= tiles_of(ps.pr[which])) tile -= tiles_of(ps.pr[which++]);
-  const Product& pr = ps.pr[which];
-  const int tp = tile_p(pr), tq_w = tile_q(pr);
-  const int uld = tp + 8, vld = tq_w + 8;   // 8 mod 32: no bank conflicts
-  float* const us = smem;                   // 2 x kWK x uld
-  float* const vs = us + 2 * kWK * uld;     // 2 x kWK x vld
-  const int qt = (pr.q + tq_w - 1) / tq_w;
-  const int p0 = (tile / qt) * tp, q0 = (tile % qt) * tq_w;
-  const long long k_begin = (long long)blockIdx.x * chunk;
-  const long long k_end = min(k_begin + chunk, m);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane / 4, tq = lane % 4;
-  const int wq = tq_w / 32;                 // warps across q: 1 or 2
-  const int pw = (warp / wq) * 32, qw = (warp % wq) * 32;
-  const int nt = min(4, max(0, (pr.q - q0 - qw + 7) / 8));
-  const bool live = p0 + pw < pr.p && nt > 0;
-  const bool sum_u = pr.bias_u && q0 == 0;
-  const bool sum_v = !pr.bias_u && p0 == 0;
-
-  auto issue = [&](long long k0, int buf) {
-    float* ud = us + buf * kWK * uld;
-    for (int s = threadIdx.x; s < kWK * (tp / 4); s += kWThreads) {
-      const int r = s / (tp / 4), col = 4 * (s % (tp / 4));
-      const long long row = k0 + r;
-      const bool ok = row < k_end && p0 + col < pr.ldu;
-      cp_async16(ud + r * uld + col,
-                 ok ? pr.u + row * pr.ldu + p0 + col : pr.u, ok);
-    }
-    float* vd = vs + buf * kWK * vld;
-    for (int s = threadIdx.x; s < kWK * (tq_w / 4); s += kWThreads) {
-      const int r = s / (tq_w / 4), col = 4 * (s % (tq_w / 4));
-      const long long row = k0 + r;
-      const bool ok = row < k_end && q0 + col < pr.ldv;
-      cp_async16(vd + r * vld + col,
-                 ok ? pr.v + row * pr.ldv + q0 + col : pr.v, ok);
-    }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
-  float colsum = 0.f;
-
-  const int stages = (int)((k_end - k_begin + kWK - 1) / kWK);
-  issue(k_begin, 0);
-  cp_async_commit();
-  for (int st = 0; st < stages; ++st) {
-    if (st + 1 < stages) {
-      issue(k_begin + (long long)(st + 1) * kWK, (st + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* ub = us + (st & 1) * kWK * uld;
-    const float* vb = vs + (st & 1) * kWK * vld;
-    if (live) {
-      // the stage's 32 rows sum from 0 (12 mma) and are added to acc in
-      // fp32: the tensor cores add with truncation
-      float t[2][4][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) t[i][n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kWK; kk += 8) {
-        // A = U' (D rows p, k rows r): a0 (p = gq, r = tq), a1 (p + 8), a2
-        // (r + 4), a3 (p + 8, r + 4)
-        uint32_t hi[2][4], lo[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float* u = ub + (kk + tq) * uld + pw + 16 * i + gq;
-          split(u[0], hi[i][0], lo[i][0]);
-          split(u[8], hi[i][1], lo[i][1]);
-          split(u[4 * uld], hi[i][2], lo[i][2]);
-          split(u[4 * uld + 8], hi[i][3], lo[i][3]);
-        }
-        const float* v = vb + (kk + tq) * vld + qw + gq;
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          if (n >= nt) continue;
-          uint32_t bh0, bl0, bh1, bl1;
-          split(v[8 * n], bh0, bl0);
-          split(v[4 * vld + 8 * n], bh1, bl1);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            mma(t[i][n], lo[i], bh0, bh1);
-            mma(t[i][n], hi[i], bl0, bl1);
-            mma(t[i][n], hi[i], bh0, bh1);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][n][e] += t[i][n][e];
-    }
-    if (sum_u && threadIdx.x < tp) {
-      for (int r = 0; r < kWK; ++r) colsum += ub[r * uld + threadIdx.x];
-    } else if (sum_v && threadIdx.x < tq_w) {
-      for (int r = 0; r < kWK; ++r) colsum += vb[r * vld + threadIdx.x];
-    }
-    __syncthreads();
-  }
-
-  float* dst = partials + (long long)blockIdx.x * slot + pr.out;
-  if (live) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        if (n >= nt) continue;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int p = p0 + pw + 16 * i + gq + (e >= 2 ? 8 : 0);
-          const int q = q0 + qw + 8 * n + 2 * tq + (e & 1);
-          if (p < pr.p && q < pr.q)
-            dst[pr.transpose ? (long long)q * pr.p + p
-                             : (long long)p * pr.q + q] = acc[i][n][e];
-        }
-      }
-    }
-  }
-  float* bias = dst + (long long)pr.p * pr.q;
-  if (sum_u && threadIdx.x < tp && p0 + threadIdx.x < pr.p)
-    bias[p0 + threadIdx.x] = colsum;
-  if (sum_v && threadIdx.x < tq_w && q0 + threadIdx.x < pr.q)
-    bias[q0 + threadIdx.x] = colsum;
-}
-
 // out[i] = sum over p < blocks, in order, of partials[p][i].
 __global__ void __launch_bounds__(kThreads)
 reduce_partials_kernel(const float* __restrict__ partials, int blocks,
@@ -789,20 +614,18 @@ long long weight_tiles(const Dims& d) {
   return tiles;
 }
 
-constexpr size_t kWeightSmem = sizeof(float) * 2 * kWK * (kUld + kVld);
-
 // Rows of one gradient slot: at least kMinChunkRows, else as many as make
 // the weight stage's blocks (chunks x tiles) fill the blocks the device
 // holds at once, so that no wave of blocks runs part empty. A function of
 // the shapes and the device alone: the same on every run on one card.
 cudaError_t chunk_rows(const Dims& d, long long* rows) {
   cudaError_t err = cudaFuncSetAttribute(
-      weight_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      weight_stage_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kWeightSmem);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0, dev = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, weight_stage_kernel, kWThreads, kWeightSmem);
+      &per_sm, weight_stage_kernel<false>, kWThreads, kWeightSmem);
   if (err != cudaSuccess) return err;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -967,7 +790,7 @@ int sininn_coupling_1x1_bwd(int inverse, int bf16, const void* in,
   const long long o2b = (long long)l2 * H + H;
   const long long o1a = o2b + (long long)H * 2 * l1 + 2 * l1;
   const long long o1b = o1a + (long long)l1 * H + H;
-  Products ps;
+  Products ps{};
   ps.pr[0] = Product{scratch + l.gz2, scratch + l.a2, H, d.hp, l2, l.ld_a2,
                      0, 1, 1};
   ps.pr[1] = Product{scratch + l.h2, scratch + l.gr2, H, d.hp, 2 * l1,
@@ -982,7 +805,7 @@ int sininn_coupling_1x1_bwd(int inverse, int bf16, const void* in,
   err = chunk_rows(d, &rows);   // also sets the kernel's shared memory size
   if (err != cudaSuccess) return (int)err;
   if ((m + rows - 1) / rows != chunks) return (int)cudaErrorInvalidValue;
-  weight_stage_kernel<<<dim3((unsigned)((m + rows - 1) / rows),
+  weight_stage_kernel<false><<<dim3((unsigned)((m + rows - 1) / rows),
                              (unsigned)tiles),
                         kWThreads, kWeightSmem, s>>>(
       ps, m, rows, partials, slot_floats(c, len1, hidden));

@@ -30,9 +30,17 @@
 // reads and the output writes of a warp are contiguous; the four taps read
 // the NHWC image directly (no channel-planar copy), and neighbouring threads
 // read neighbouring taps, so L1 and L2 serve the reuse and no shared memory
-// is needed. The coordinate is one fused multiply-add after the sum (as
-// XLA forms it) and the tap sums use round-to-nearest intrinsics with no
-// other contraction, so the kernel repeats the plain version's arithmetic
+// is needed. The forward mode's block is one row of one 128-column tile, so
+// its threads share one tile window (and one offset address, local); the
+// flow comes as one 8-byte load and, at C = 3, a pixel's 12 tap loads go
+// out together. On the card that beat blocks of 2 to 8 such rows (the
+// TPU's 8-row chunk), an offset read once a block through shared memory,
+// and 2 or 4 adjacent pixels a thread with float4 flow loads and wider
+// stores: the byte-bound gather gains most from many small blocks, each
+// with its loads in flight. The gradient mode keeps 256 pixels of a row a
+// block. The coordinate is one fused multiply-add after the sum (as XLA
+// forms it) and the tap sums use round-to-nearest intrinsics with no other
+// contraction, so both modes repeat the plain version's arithmetic
 // operation for operation.
 //
 // The local-window forms (either entry given an `off_src` pointer) replace
@@ -51,11 +59,12 @@
 // 0.0101 ms).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 128;   // output tile width (columns)
+constexpr int kThreads = 256;  // gradient mode: 256 pixels of a row a block
+constexpr int kTile = 128;     // output tile width (columns); forward block
 constexpr int kChunk = 8;    // output rows per chunk of the TPU kernel
 constexpr long long kMaxGridRows = 65535;   // gridDim.y limit
 
@@ -88,28 +97,19 @@ __device__ __forceinline__ void tap_window(const float* __restrict__ off,
   k_hi = (float)min(j0 + kTile + dx, w);      // exclusive
 }
 
-// One output pixel (row = b h + y of the n h image rows, column x).
-template <bool kLocal>
-__device__ __forceinline__ void gather_pixel(const float* __restrict__ a,
-                                             const float* __restrict__ flow,
-                                             const float* __restrict__ off,
-                                             float* __restrict__ out, int row,
-                                             int x, int h, int w, int c,
-                                             int dy, int dx, float sx,
-                                             float shx, float sy, float shy) {
-  const int y = row % h;
-  const long long img = (long long)(row - y) * w;
-  const long long p = (long long)row * w + x;
-  const float fx = flow[2 * p];
-  const float fy = flow[2 * p + 1];
+// The gather at one output pixel (x, y) of the image starting at element
+// img / c of a, with its flow (fx, fy) and the tap window of its block,
+// into o[0 .. c): the arithmetic of the plain version, operation for
+// operation. kC: the channels, or 0 for c at run time.
+template <int kC>
+__device__ __forceinline__ void gather_px(const float* __restrict__ a,
+                                          long long img, int x, int y, int w,
+                                          int c, float fx, float fy,
+                                          float sx, float shx, float sy,
+                                          float shy, float r_lo, float r_hi,
+                                          float k_lo, float k_hi, float* o) {
   const float px = __fmaf_rn(__fadd_rn((float)x, fx), sx, shx);
   const float py = __fmaf_rn(__fadd_rn((float)y, fy), sy, shy);
-
-  // the window of taps this pixel may read, clipped to the image
-  float r_lo, r_hi, k_lo, k_hi;
-  tap_window<kLocal>(off, row / h, y, x, h, w, dy, dx, r_lo, r_hi, k_lo,
-                     k_hi);
-
   const float r0 = floorf(py), k0 = floorf(px);
   const float r1 = r0 + 1.0f, k1 = k0 + 1.0f;
   const bool in_r0 = r0 >= r_lo && r0 < r_hi, in_r1 = r1 >= r_lo && r1 < r_hi;
@@ -121,33 +121,57 @@ __device__ __forceinline__ void gather_pixel(const float* __restrict__ a,
   const long long row0 = in_r0 ? img + (long long)r0 * w : -1;
   const long long row1 = in_r1 ? img + (long long)r1 * w : -1;
   const int ik0 = in_k0 ? (int)k0 : -1, ik1 = in_k1 ? (int)k1 : -1;
-
-  float* o = out + p * c;
-  for (int ch = 0; ch < c; ++ch) {
-    const float a00 = (row0 >= 0 && ik0 >= 0) ? a[(row0 + ik0) * c + ch] : 0.0f;
-    const float a01 = (row0 >= 0 && ik1 >= 0) ? a[(row0 + ik1) * c + ch] : 0.0f;
-    const float a10 = (row1 >= 0 && ik0 >= 0) ? a[(row1 + ik0) * c + ch] : 0.0f;
-    const float a11 = (row1 >= 0 && ik1 >= 0) ? a[(row1 + ik1) * c + ch] : 0.0f;
+  const int ch_n = kC > 0 ? kC : c;
+#pragma unroll
+  for (int ch = 0; ch < ch_n; ++ch) {
+    const float a00 =
+        (row0 >= 0 && ik0 >= 0) ? a[(row0 + ik0) * ch_n + ch] : 0.0f;
+    const float a01 =
+        (row0 >= 0 && ik1 >= 0) ? a[(row0 + ik1) * ch_n + ch] : 0.0f;
+    const float a10 =
+        (row1 >= 0 && ik0 >= 0) ? a[(row1 + ik0) * ch_n + ch] : 0.0f;
+    const float a11 =
+        (row1 >= 0 && ik1 >= 0) ? a[(row1 + ik1) * ch_n + ch] : 0.0f;
     const float v0 = __fadd_rn(__fmul_rn(a00, wx0), __fmul_rn(a01, wx1));
     const float v1 = __fadd_rn(__fmul_rn(a10, wx0), __fmul_rn(a11, wx1));
     o[ch] = __fadd_rn(__fmul_rn(wy0, v0), __fmul_rn(wy1, v1));
   }
 }
 
-// Grid: x over the columns, y over the n h image rows (strided when there
-// are more rows than grid rows), so no thread divides a 64-bit index.
-template <bool kLocal>
-__global__ void gather_region_kernel(const float* __restrict__ a,
-                                     const float* __restrict__ flow,
-                                     const float* __restrict__ off,
-                                     float* __restrict__ out, int rows, int h,
-                                     int w, int c, int dy, int dx, float sx,
-                                     float shx, float sy, float shy) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+// Forward mode. A block is one row of one 128-column output tile (the TPU
+// kernel's tile), one thread a pixel: the threads of a block share the
+// tile's window and read its offset (kLocal) from one address, one
+// transaction a warp. The flow comes in as one 8-byte load a pixel (where
+// `vec`: the flow 8-byte aligned); at kC = 3 the channel loop is unrolled,
+// so a pixel's 12 tap loads are in flight together. Grid: x over the
+// tiles, y over the n h image rows (strided past the grid's limit).
+template <bool kLocal, int kC>
+__global__ void __launch_bounds__(kTile)
+gather_region_kernel(const float* __restrict__ a,
+                     const float* __restrict__ flow,
+                     const float* __restrict__ off, float* __restrict__ out,
+                     int rows, int h, int w, int c, int dy, int dx, float sx,
+                     float shx, float sy, float shy, int vec) {
+  const int x = blockIdx.x * kTile + threadIdx.x;
   if (x >= w) return;
-  for (int row = blockIdx.y; row < rows; row += gridDim.y)
-    gather_pixel<kLocal>(a, flow, off, out, row, x, h, w, c, dy, dx, sx, shx,
-                         sy, shy);
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const int y = row % h;
+    const long long p = (long long)row * w + x;
+    float fx, fy;
+    if (vec) {
+      const float2 f = __ldg(reinterpret_cast<const float2*>(flow) + p);
+      fx = f.x;
+      fy = f.y;
+    } else {
+      fx = flow[2 * p];
+      fy = flow[2 * p + 1];
+    }
+    float r_lo, r_hi, k_lo, k_hi;
+    tap_window<kLocal>(off, row / h, y, x, h, w, dy, dx, r_lo, r_hi, k_lo,
+                       k_hi);
+    gather_px<kC>(a, (long long)(row - y) * w, x, y, w, c, fx, fy, sx, shx,
+                  sy, shy, r_lo, r_hi, k_lo, k_hi, out + p * c);
+  }
 }
 
 // d/dp of hat(p - k): -sign(d) on |d| < 1, and 0 at d = 0 and beyond, as the
@@ -245,16 +269,26 @@ int launch(const float* a, const float* flow, const float* payload,
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)n * h;
   if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((w + kThreads - 1) / kThreads,
-                  (unsigned)(rows < kMaxGridRows ? rows : kMaxGridRows));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (payload == nullptr)
-    gather_region_kernel<kLocal><<<grid, kThreads, 0, st>>>(
-        a, flow, off, out, (int)rows, h, w, c, dy, dx, sx, shx, sy, shy);
-  else
+  const unsigned grid_y = (unsigned)(rows < kMaxGridRows ? rows
+                                                        : kMaxGridRows);
+  if (payload == nullptr) {
+    const dim3 grid((w + kTile - 1) / kTile, grid_y);
+    const int vec = reinterpret_cast<uintptr_t>(flow) % 8 == 0;
+    if (c == 3)
+      gather_region_kernel<kLocal, 3><<<grid, kTile, 0, st>>>(
+          a, flow, off, out, (int)rows, h, w, c, dy, dx, sx, shx, sy, shy,
+          vec);
+    else
+      gather_region_kernel<kLocal, 0><<<grid, kTile, 0, st>>>(
+          a, flow, off, out, (int)rows, h, w, c, dy, dx, sx, shx, sy, shy,
+          vec);
+  } else {
+    const dim3 grid((w + kThreads - 1) / kThreads, grid_y);
     gather_region_grads_kernel<kLocal><<<grid, kThreads, 0, st>>>(
         a, flow, payload, off, out, dp, (int)rows, h, w, c, dy, dx, sx, shx,
         sy, shy);
+  }
   return (int)cudaGetLastError();
 }
 

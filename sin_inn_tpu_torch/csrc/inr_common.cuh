@@ -1,6 +1,6 @@
-// What the forward and the backward kernel of the fused encoded coordinate
-// MLP (the flow INR) share: the net's description, the tile's encoding under
-// each mask mode, and the layer product on register tiles.
+// What the forward and the backward kernels of the fused encoded coordinate
+// MLP (the flow INR) share: the net's description and the tile's encoding
+// under each mask mode; and the forward's layer product on register tiles.
 //
 // The net. N points x (N, d), an encoding of E channels, L linear layers
 // W_l (K_l, N_l), b_l (K_0 = E, hidden width H between, N_{L-1} = O
@@ -70,7 +70,6 @@ struct Net {
   int res, w_img;                 // slab mode: cells per axis, image width W
   const float* w[kMaxLayers];     // W_l (K_l, N_l) row-major (W_0: E rows)
   const float* b[kMaxLayers];     // b_l (N_l)
-  const float* wt[kMaxLayers];    // W_l' (N_l, K_l) row-major, 1 <= l < L - 1
   const float* enc_a;             // rbf: centres (E, d); ff: F (d, E / 2)
   const float* enc_b;             // rbf: |c|^2 (E)
   const float* enc_c;             // rbf: sigma^2 (E)
@@ -395,8 +394,7 @@ inline int variant_of(int mode, int prog) {
 
 inline Net make_net(int prog, int n_lin, int d, int e, int hidden, int out,
                     int res, int w_img, const float* const* w,
-                    const float* const* b, const float* const* wt,
-                    const float* enc_a, const float* enc_b,
+                    const float* const* b, const float* enc_a, const float* enc_b,
                     const float* enc_c, const float* mask, const float* mc,
                     const float* wx, const float* wc) {
   Net n{};
@@ -405,7 +403,6 @@ inline Net make_net(int prog, int n_lin, int d, int e, int hidden, int out,
   for (int l = 0; l < n_lin && l < kMaxLayers; ++l) {
     n.w[l] = w ? w[l] : nullptr;
     n.b[l] = b ? b[l] : nullptr;
-    n.wt[l] = wt ? wt[l] : nullptr;
   }
   n.enc_a = enc_a; n.enc_b = enc_b; n.enc_c = enc_c;
   n.mask = mask; n.mc = mc; n.wx = wx; n.wc = wc;
@@ -416,7 +413,7 @@ inline Net shape_net(int prog, int n_lin, int d, int e, int hidden, int out,
                      int res, int w_img) {
   return make_net(prog, n_lin, d, e, hidden, out, res, w_img, nullptr,
                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, nullptr);
+                  nullptr, nullptr);
 }
 
 // f(bf16, rbf, variant) with the three as integral constants.

@@ -124,17 +124,16 @@ extern "C" {
 
 // One launch on `stream`. x: (n_points, d) fp32 contiguous; out: (n_points,
 // out), written in full. The other arguments as `sininn_inr_bwd` of
-// inr_bwd.cu takes them (wt is unused). The grid is as many blocks as the
+// inr_bwd.cu takes them. The grid is as many blocks as the
 // device holds at once, at most one per tile. Returns a cudaError_t.
 int sininn_inr_fwd(int bf16, int rbf, int mode, int prog, long long n_points,
                    int n_lin, int d, int e, int hidden, int out_ch, int res,
                    int w_img, const float* x, const float* const* w,
-                   const float* const* b, const float* const* wt,
-                   const float* enc_a, const float* enc_b, const float* enc_c,
+                   const float* const* b, const float* enc_a, const float* enc_b, const float* enc_c,
                    const float* me, const float* mc, const float* wx,
                    const float* wc, float* out, void* stream) {
   const Net n = make_net(prog, n_lin, d, e, hidden, out_ch, res, w_img, w, b,
-                         wt, enc_a, enc_b, enc_c, me, mc, wx, wc);
+                         enc_a, enc_b, enc_c, me, mc, wx, wc);
   cudaError_t err = check_net(n, n_points, mode);
   if (err != cudaSuccess) return (int)err;
   const int variant = variant_of(mode, prog);

@@ -37,6 +37,11 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// v rounded to the nearest bf16 value (ties to even), as a float
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // le(s) = clamp (2/pi) atan(s / clamp)
 __device__ __forceinline__ float log_e(float s, float clamp) {
   return clamp * 0.636619772367581343f * atanf(s / clamp);

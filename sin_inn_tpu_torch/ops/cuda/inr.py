@@ -48,10 +48,13 @@ both.
 
 The CUDA kernels need: an encoding width and a hidden width that are
 multiples of 4 (they read float4), at least one hidden layer and at most 7,
-at most 4 coordinates, and their tile within the 227 KB of shared memory a
-block can have: for the backward 32 rows x (E + hidden layers x H + O)
-floats, plus 32 x 4 for a progressive net and 33 x res in slab mode. (The
-TPU kernel's multiple-of-128 rule answered the TPU's lanes.)
+at most 4 coordinates, and, the routing's rule (``kernel_supports``), 32
+rows x (E + hidden layers x H + O) floats, plus 32 x 4 for a progressive net
+and 33 x res in slab mode, within the 227 KB of shared memory a block can
+have (the tiles both kernels hold are smaller). (The TPU kernel's
+multiple-of-128 rule answered the TPU's lanes.) The backward's staged
+activations and gradient slots live in one scratch buffer a launch
+(``scratch_bytes``: 385 MB at the flow path's shape).
 
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel
 or raises, a CPU tensor takes the plain version. ``fused_inr_forward.launches``
@@ -280,22 +283,20 @@ def fused_inr_backward_plain(kind: str, enc: Dict, layers: Layers,
 _I32, _I64, _PTR = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 # (bf16, rbf, mode, prog, n_points, n_lin, d, e, hidden, out, res, w_img)
 _SHAPE_ARGS = [_I32] * 4 + [_I64] + [_I32] * 7
-# x, w[], b[], wt[], enc_a, enc_b, enc_c, me, mc, wx, wc
-_OPERAND_ARGS = [_PTR] * 11
+# x, w[], b[], enc_a, enc_b, enc_c, me, mc, wx, wc
+_OPERAND_ARGS = [_PTR] * 10
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.library("inr_bwd")
-    lib.sininn_inr_bwd_smem_bytes.argtypes = [_I32] * 6
-    lib.sininn_inr_bwd_smem_bytes.restype = _I64
-    lib.sininn_inr_bwd_slot_floats.argtypes = [_I32] * 6
-    lib.sininn_inr_bwd_slot_floats.restype = _I64
-    lib.sininn_inr_bwd_blocks.argtypes = _SHAPE_ARGS + [ctypes.POINTER(_I32)]
-    lib.sininn_inr_bwd_blocks.restype = _I32
-    # ..., g, partials, blocks, stream
+    # ..., scratch floats, slots, floats a slot
+    lib.sininn_inr_bwd_plan.argtypes = (_SHAPE_ARGS
+                                        + [ctypes.POINTER(_I64)] * 3)
+    lib.sininn_inr_bwd_plan.restype = _I32
+    # ..., g, scratch, partials, slots, stream
     lib.sininn_inr_bwd.argtypes = (_SHAPE_ARGS + _OPERAND_ARGS
-                                   + [_PTR, _PTR, _I32, _PTR])
+                                   + [_PTR, _PTR, _PTR, _I64, _PTR])
     lib.sininn_inr_bwd.restype = _I32
     lib.sininn_error_string.argtypes = [_I32]
     lib.sininn_error_string.restype = ctypes.c_char_p
@@ -334,10 +335,11 @@ def _dims(layers: Layers, x: torch.Tensor, prog: bool = False
 
 def _smem_bytes(n_lin: int, e: int, hidden: int, out: int, prog: bool,
                 res: int) -> int:
-    """Shared memory of one backward block (the forward's is smaller): every
-    activation of a 32-row tile and the output cotangent; for a progressive
-    net the masked coordinates (4 floats a row) and, in slab mode (``res`` >
-    0), the tile's rows of wx with a flag per column."""
+    """The routing's shared-memory rule (the tiles the kernels hold are
+    smaller): every activation of a 32-row tile and the output cotangent;
+    for a progressive net the masked coordinates (4 floats a row) and, in
+    slab mode (``res`` > 0), the tile's rows of wx with a flag per
+    column."""
     return (4 * TILE_ROWS * (e + (n_lin - 1) * hidden + out
                               + (4 if prog else 0))
             + 4 * (TILE_ROWS + 1) * res)
@@ -406,7 +408,7 @@ class _Call(NamedTuple):
 
 
 def _prepare(kind: str, enc: Dict, net: _Net, layers: Layers,
-             x: torch.Tensor, bf16: bool, transposed: bool) -> _Call:
+             x: torch.Tensor, bf16: bool) -> _Call:
     res = net.wx.shape[1] if net.mode == "slab" else 0
     n_lin, d, e, hidden, out = require_kernel(layers, x, net.prog, res)
     dev = x.device
@@ -417,14 +419,12 @@ def _prepare(kind: str, enc: Dict, net: _Net, layers: Layers,
         ws = [_bf16_round(w) for w in ws]
         if net.mode == "slab":
             me, mc, wx = _bf16_round(me), _bf16_round(mc), _bf16_round(wx)
-    wts = [w.t().contiguous() if transposed and 0 < l < n_lin - 1 else None
-           for l, w in enumerate(ws)]
     enc_ops = _enc_operands(kind, enc)
     x = x.contiguous()
     me = me.contiguous()
     mc = mc.contiguous() if mc is not None else None
     wx = wx.contiguous() if wx is not None else None
-    keep = (x, me, mc, wx, *ws, *bs, *wts, *enc_ops)
+    keep = (x, me, mc, wx, *ws, *bs, *enc_ops)
     for t in keep:
         if t is not None and (t.device != dev or t.dtype != torch.float32):
             raise ValueError(f"the fused INR kernels take float32 tensors "
@@ -440,48 +440,51 @@ def _prepare(kind: str, enc: Dict, net: _Net, layers: Layers,
     shape = (int(bf16), int(kind == "rbf"), MODES.index(net.mode),
              int(net.prog), x.shape[0], n_lin, d, e, hidden, out, res,
              net.wx.shape[0] if net.mode == "slab" else 0)
-    operands = (x.data_ptr(), w_ptrs, _ptr_array(bs), _ptr_array(wts),
+    operands = (x.data_ptr(), w_ptrs, _ptr_array(bs),
                 *[ptr(t) for t in enc_ops], ptr(me), ptr(mc), ptr(wx),
                 wc_ptr)
     return _Call(shape, operands, keep, ws, bs)
 
 
-def _grid(lib: ctypes.CDLL, call: _Call, device) -> Tuple[int, int]:
-    """(blocks P, floats per slot) of one backward launch on ``device``."""
-    blocks = ctypes.c_int(0)
+def _plan(lib: ctypes.CDLL, call: _Call, device) -> Tuple[int, int, int]:
+    """(floats of scratch, gradient slots, floats a slot) of one backward
+    launch on ``device``."""
+    out = [ctypes.c_longlong(0) for _ in range(3)]
     with torch.cuda.device(device):
-        err = lib.sininn_inr_bwd_blocks(*call.shape, ctypes.byref(blocks))
-    _raise_on(err, lib, "inr_bwd (grid)")
-    _, _, _, prog, _, n_lin, d, e, hidden, out, _, _ = call.shape
-    return blocks.value, lib.sininn_inr_bwd_slot_floats(
-        n_lin, d, e, hidden, out, prog)
+        err = lib.sininn_inr_bwd_plan(*call.shape,
+                                      *[ctypes.byref(v) for v in out])
+    _raise_on(err, lib, "inr_bwd (plan)")
+    return tuple(v.value for v in out)
 
 
 def scratch_bytes(layers: Layers, x: torch.Tensor, kind: str, enc: Dict,
                   mask: Optional[Mask] = None, bf16: bool = False) -> int:
-    """Bytes of the per-block gradient slots one backward launch allocates
-    on ``x``'s (CUDA) device."""
+    """Bytes one backward launch allocates on ``x``'s (CUDA) device: the
+    staged activations and cotangents of one row chunk with the packed
+    weights, and the gradient slots."""
     net = _resolve(kind, enc, layers, x, mask)
-    call = _prepare(kind, enc, net, layers, x, bf16, False)
-    blocks, slot = _grid(_bwd_lib(), call, x.device)
-    return 4 * blocks * slot
+    call = _prepare(kind, enc, net, layers, x, bf16)
+    scratch, slots, slot = _plan(_bwd_lib(), call, x.device)
+    return 4 * (scratch + slots * slot)
 
 
 def _launch_backward(kind: str, enc: Dict, net: _Net, layers: Layers,
                      x: torch.Tensor, g: torch.Tensor, bf16: bool):
-    call = _prepare(kind, enc, net, layers, x, bf16, True)
+    call = _prepare(kind, enc, net, layers, x, bf16)
     dev = x.device
     g = g.contiguous()
     if g.device != dev or g.dtype != torch.float32:
         raise ValueError(f"the fused INR backward takes a float32 cotangent "
                          f"on {dev}, got {g.dtype} on {g.device}")
     lib = _bwd_lib()
-    blocks, slot = _grid(lib, call, dev)
-    partials = torch.empty((blocks, slot), dtype=torch.float32, device=dev)
+    floats, slots, slot = _plan(lib, call, dev)
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    partials = torch.empty((slots, slot), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.sininn_inr_bwd(*call.shape, *call.operands, g.data_ptr(),
-                                 partials.data_ptr(), blocks, stream)
+                                 scratch.data_ptr(), partials.data_ptr(),
+                                 slots, stream)
         _raise_on(err, lib, "inr_bwd")
         fused_inr_backward.launches += 1
     flat = reduce_weight_grads(partials)
@@ -496,7 +499,7 @@ def _launch_backward(kind: str, enc: Dict, net: _Net, layers: Layers,
 
 def _launch_forward(kind: str, enc: Dict, net: _Net, layers: Layers,
                     x: torch.Tensor, bf16: bool) -> torch.Tensor:
-    call = _prepare(kind, enc, net, layers, x, bf16, False)
+    call = _prepare(kind, enc, net, layers, x, bf16)
     dev = x.device
     out = torch.empty((x.shape[0], layers[-1][0].shape[1]),
                       dtype=torch.float32, device=dev)

@@ -275,6 +275,8 @@ def _flow(gen, n, h, w, amp, dev):
     ((1, 436, 1024), 3, (64, 128), 90.0),  # the flow path's shape
     ((1, 130, 260), 5, (13, 70), 30.0),   # unpadded bounds
     ((300, 240, 8), 3, (8, 8), 3.0),      # more image rows than grid rows
+    ((2, 45, 301), 3, (8, 8), 20.0),      # no multiple of the 128-column
+    ((1, 37, 260), 5, (8, 64), 10.0),     # block or of the 8-row chunk
 ])
 def test_windowed_kernels_match_plain(dev, shape, c, bounds, amp):
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -298,6 +300,27 @@ def test_windowed_kernels_match_plain(dev, shape, c, bounds, amp):
                                   "gather_region_local": 0,
                                   "gather_region_local_grads": 0}
     assert K5.launch_counts() == {"splat_region": 1, "splat_region_local": 0}
+
+
+def test_gather_kernel_takes_an_unaligned_flow(dev):
+    """K6 and K6 local on a flow 4 but not 8 bytes aligned (a view one
+    float into its storage): the per-value loads, the same arithmetic."""
+    from sin_inn_tpu_torch.ops.offsets import tile_flow_offsets
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n, h, w = 1, 40, 200
+    a = torch.rand((n, h, w, 3), generator=gen, device=dev)
+    base = torch.empty(n * h * w * 2 + 1, device=dev)
+    fl = base[1:].view(n, h, w, 2)
+    fl.copy_(_flow(gen, n, h, w, 6.0, dev))
+    assert fl.data_ptr() % 8 == 4
+    coord = K6.resample_coord(h, w)
+    close = lambda g, r: bool(((g - r).abs() <= 1e-5 + 1e-5 * r.abs()).all())
+    assert close(K6.gather_region(a, fl, 8, 8, coord),
+                 K6.gather_region_plain(a, fl, 8, 8, coord))
+    off = tile_flow_offsets(fl, 128, 128, 24, 0).off_src
+    assert close(K6.gather_region_local(a, fl, off, 8, 64, 24, 0, coord),
+                 K6.gather_region_plain(a, fl, 8, 64, coord, off_src=off))
 
 
 def test_softsplat_region_kernel_matches_plain(dev):
@@ -392,6 +415,10 @@ def test_windowed_functions_backward_on_the_card(dev):
     ("ff", 4096, (128, 64, 4)),
     ("rbf", 446_464, (512, 256, 256, 256, 4)),   # the flow path's shape
     ("rbf", 333, (36, 20, 20, 3)),         # widths that are not multiples of 8
+    # three row chunks of the staged kernel (at most 32,768 rows each), N no
+    # multiple of its 32-row tile or 128-row product tile, H no multiple of
+    # its 64-column tile, O of 8
+    ("ff", 70_001, (64, 48, 48, 5)),
 ])
 def test_inr_backward_kernel_matches_plain(dev, kind, n, widths):
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -511,6 +538,8 @@ def test_flow_train_step_kernel_route_matches_autograd(dev):
     ((1, 200, 300), 5, (8, 64), (24, 0), 12.0),     # beyond it
     ((1, 436, 1024), 5, (32, 128), (64, 0), 30.0),  # the flow path's shape
     ((2, 136, 300), 3, (16, 64), (64, 128), 2.0),   # column offsets
+    ((2, 45, 301), 3, (8, 64), (24, 0), 5.0),       # no multiple of the
+    ((1, 37, 260), 5, (8, 18), (24, 0), 2.0),       # block or of 8 rows
 ])
 def test_local_window_kernels_match_plain(dev, shape, c, bounds, caps,
                                           detail):
@@ -636,6 +665,10 @@ def _masks(gen, dev, mode, rows, w, res, e, d=3):
     ("ff", "slab", 6, 64, 5, (64, 32, 2)),
     ("rbf", "slab", 3, 96, 34, (36, 20, 1)),
     ("ff", "slab", 436, 1024, 50, (512, 256, 3)),    # the flow path's shape
+    # three row chunks of the staged backward: a ragged N, and a chunk
+    # boundary inside an image row of the slabs
+    ("ff", "point", 67, 1001, 0, (64, 32, 2)),
+    ("rbf", "slab", 70, 1024, 8, (64, 32, 2)),
 ])
 def test_inr_kernels_match_plain_in_every_mask_mode(dev, kind, mode, rows, w,
                                                     res, widths):

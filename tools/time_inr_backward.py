@@ -5,7 +5,9 @@ port on one card, so that two checkouts can be compared inside one call.
     PYTHONPATH=CHECKOUT python3 tools/time_inr_backward.py [LABEL]
 
 Builds ``csrc/inr_bwd.cu`` of the ``sin_inn_tpu_torch`` package found on
-``PYTHONPATH``, prints the registers ptxas gave each instantiation, and the
+``PYTHONPATH``, prints the registers ptxas gave each instantiation (of the
+single kernel of the version before the staged one, or of the staged
+version's prep, row-product and weight-stage kernels), and the
 median, least and largest time of 10 launches (CUDA events, after a
 warm-up, with the gradient reduction) at N = 446,464 points (the 436x1024
 pose grid) for the ``RBF`` and ``FFN`` nets at default widths (constant
@@ -56,10 +58,14 @@ def main() -> int:
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
     dev = torch.device("cuda", 0)
     built = _build.build_all(["inr_bwd", "coupling_1x1_bwd"])
-    found = re.findall(r"inr_bwd_kernelI((?:L[bi]\d+E)+)[^\n]*\n[^\n]*\n"
-                       r"[^\n]*Used (\d+) registers", built["inr_bwd"].log)
-    for instantiation, registers in found:
-        print(f"{label} registers {instantiation}: {registers}")
+    # the single kernel of the parent's version, or the staged one's prep,
+    # row product and weight-stage kernels
+    found = re.findall(r"(inr_bwd_kernel|prep_kernel|row_gemm_kernel|"
+                       r"weight_stage_kernel)I((?:L[bi]\d+E)+)[^\n]*\n"
+                       r"[^\n]*\n[^\n]*Used (\d+) registers",
+                       built["inr_bwd"].log)
+    for kernel, instantiation, registers in found:
+        print(f"{label} registers {kernel} {instantiation}: {registers}")
     pts = FT.pose_grid(torch.tensor([0.2], device=dev), H,
                        W).reshape(-1, 3).contiguous()
     gen = torch.Generator(device=dev).manual_seed(8)
