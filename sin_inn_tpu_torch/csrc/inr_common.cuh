@@ -1,6 +1,6 @@
 // What the forward and the backward kernels of the fused encoded coordinate
-// MLP (the flow INR) share: the net's description and the tile's encoding
-// under each mask mode; and the forward's layer product on register tiles.
+// MLP (the flow INR) share: the net's description, the encodings' arithmetic
+// and the tile's encoding under each mask mode.
 //
 // The net. N points x (N, d), an encoding of E channels, L linear layers
 // W_l (K_l, N_l), b_l (K_0 = E, hidden width H between, N_{L-1} = O
@@ -51,7 +51,7 @@ namespace inr {
 
 constexpr int kThreads = 256;
 constexpr int kTileRows = 32;   // points per tile
-constexpr int kRows = 8;        // rows per thread in a layer product
+constexpr int kRows = 8;        // rows per thread in the slab rebuild
 constexpr int kMaxLayers = 8;
 constexpr int kMaxDim = 4;
 
@@ -82,19 +82,6 @@ struct Net {
 template <bool kBf16>
 __device__ __forceinline__ float rnd(float v) {
   return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-template <bool kBf16>
-__device__ __forceinline__ float4 rnd4(float4 v) {
-  return make_float4(rnd<kBf16>(v.x), rnd<kBf16>(v.y), rnd<kBf16>(v.z),
-                     rnd<kBf16>(v.w));
-}
-
-__host__ __device__ __forceinline__ int layer_k(const Net& n, int l) {
-  return l == 0 ? n.e : n.hidden;
-}
-__host__ __device__ __forceinline__ int layer_n(const Net& n, int l) {
-  return l == n.n_lin - 1 ? n.out : n.hidden;
 }
 
 // Floats of shared memory a tile needs beside its activations: the masked
@@ -161,6 +148,78 @@ __device__ __forceinline__ void slab_mask_tile(const Net& n, long long row0,
   }
 }
 
+// The rbf encoding of channel e at the coordinates xv (zeros past d):
+// exp(-max(|x|^2 + |c|^2 - 2 x.c, 0) sigma^2), in the plain forward's order.
+// A channel's constants and a point's |x|^2 come apart, so that a kernel can
+// hold either while the other varies.
+struct RbfChannel {
+  float c[kMaxDim];   // the centre (zeros past d)
+  float cc, s2;       // |c|^2, sigma^2
+};
+
+__device__ __forceinline__ RbfChannel rbf_channel(const Net& n, int e) {
+  RbfChannel ch;
+#pragma unroll
+  for (int k = 0; k < kMaxDim; ++k)
+    ch.c[k] = k < n.d ? __ldg(n.enc_a + (size_t)e * n.d + k) : 0.f;
+  ch.cc = __ldg(n.enc_b + e);
+  ch.s2 = __ldg(n.enc_c + e);
+  return ch;
+}
+
+__device__ __forceinline__ float sq_norm(const Net& n, const float* xv) {
+  float xx = __fmul_rn(xv[0], xv[0]);
+#pragma unroll
+  for (int k = 1; k < kMaxDim; ++k)
+    if (k < n.d) xx = __fadd_rn(xx, __fmul_rn(xv[k], xv[k]));
+  return xx;
+}
+
+__device__ __forceinline__ float rbf_eval(const Net& n, const float* xv,
+                                          float xx, const RbfChannel& ch) {
+  float xc = __fmul_rn(xv[0], ch.c[0]);
+#pragma unroll
+  for (int k = 1; k < kMaxDim; ++k)
+    if (k < n.d) xc = __fmaf_rn(xv[k], ch.c[k], xc);
+  float d2 = __fsub_rn(__fadd_rn(xx, ch.cc), __fmul_rn(2.f, xc));
+  d2 = fmaxf(d2, 0.f);
+  return expf(__fmul_rn(-d2, ch.s2));
+}
+
+__device__ __forceinline__ float rbf_code(const Net& n, const float* xv,
+                                          int e) {
+  return rbf_eval(n, xv, sq_norm(n, xv), rbf_channel(n, e));
+}
+
+// The ff phase of frequency f, 2 pi x . F[:, f], at xv = 2 pi x (zeros
+// past d), in the plain forward's order; channels 2f and 2f + 1 are its
+// sine and cosine. `ff_column` holds F[:, f].
+struct FfColumn {
+  float f[kMaxDim];
+};
+
+__device__ __forceinline__ FfColumn ff_column(const Net& n, int f) {
+  FfColumn col;
+#pragma unroll
+  for (int k = 0; k < kMaxDim; ++k)
+    col.f[k] = k < n.d ? __ldg(n.enc_a + (size_t)k * (n.e / 2) + f) : 0.f;
+  return col;
+}
+
+__device__ __forceinline__ float ff_eval(const Net& n, const float* xv,
+                                         const FfColumn& col) {
+  float p = __fmul_rn(xv[0], col.f[0]);
+#pragma unroll
+  for (int k = 1; k < kMaxDim; ++k)
+    if (k < n.d) p = __fmaf_rn(xv[k], col.f[k], p);
+  return p;
+}
+
+__device__ __forceinline__ float ff_phase(const Net& n, const float* xv,
+                                          int f) {
+  return ff_eval(n, xv, ff_column(n, f));
+}
+
 // The encoding channel's mask at tile row r (point m), channel e. In slab
 // mode a0 holds it (slab_mask_tile), at the element that is about to be
 // overwritten by the same thread.
@@ -212,22 +271,8 @@ __device__ void encode_tile(const Net& n, const float* __restrict__ x,
 #pragma unroll
       for (int k = 0; k < kMaxDim; ++k)
         xv[k] = (k < d && m < n_points) ? __ldg(x + m * d + k) : 0.f;
-      const float* c = n.enc_a + (size_t)e * d;
-      float xc = __fmul_rn(xv[0], __ldg(c));
-      float xx = __fmul_rn(xv[0], xv[0]);
-#pragma unroll
-      for (int k = 1; k < kMaxDim; ++k) {
-        if (k < d) {
-          xc = __fmaf_rn(xv[k], __ldg(c + k), xc);
-          xx = __fadd_rn(xx, __fmul_rn(xv[k], xv[k]));
-        }
-      }
-      float d2 = __fsub_rn(__fadd_rn(xx, __ldg(n.enc_b + e)),
-                           __fmul_rn(2.f, xc));
-      d2 = fmaxf(d2, 0.f);
-      const float code = expf(__fmul_rn(-d2, __ldg(n.enc_c + e)));
-      a0[idx] = rnd<kBf16>(
-          __fmul_rn(code, mask_at<kVariant>(n, a0, r, e, m, n_points)));
+      a0[idx] = rnd<kBf16>(__fmul_rn(
+          rbf_code(n, xv, e), mask_at<kVariant>(n, a0, r, e, m, n_points)));
     }
   } else {
     const int nf = n.e / 2;
@@ -240,12 +285,8 @@ __device__ void encode_tile(const Net& n, const float* __restrict__ x,
         xv[k] = (k < d && m < n_points)
                     ? __fmul_rn(__ldg(x + m * d + k), 6.283185307179586f)
                     : 0.f;
-      float p = __fmul_rn(xv[0], __ldg(n.enc_a + f));
-#pragma unroll
-      for (int k = 1; k < kMaxDim; ++k)
-        if (k < d) p = __fmaf_rn(xv[k], __ldg(n.enc_a + (size_t)k * nf + f), p);
       float s, c;
-      sincosf(p, &s, &c);
+      sincosf(ff_phase(n, xv, f), &s, &c);
       a0[r * n.e + 2 * f] = rnd<kBf16>(__fmul_rn(
           s, mask_at<kVariant>(n, a0, r, 2 * f, m, n_points)));
       a0[r * n.e + 2 * f + 1] = rnd<kBf16>(__fmul_rn(
@@ -269,107 +310,6 @@ __device__ __forceinline__ void prepare_tile(const Net& n,
   }
   encode_tile<kBf16, kRbf, kVariant>(n, x, row0, n_points, a0, xm, wxs);
   __syncthreads();
-}
-
-// epi(r, n0, v[4]) with v[q] = sum_k a[r][k] w[k][n0 + q] for every tile row
-// r and every group of four columns n0 < N. a: shared memory (rows, K),
-// rounded on the way in when kRoundA. w: (K, N) row-major, global. K and N
-// are multiples of 4.
-template <bool kRoundA, class Epi>
-__device__ __forceinline__ void matmul_rows(const float* a, int K,
-                                            const float* __restrict__ w,
-                                            int N, Epi epi) {
-  const int ncg = N / 4;
-  const int items = (kTileRows / kRows) * ncg;
-  for (int item = threadIdx.x; item < items; item += kThreads) {
-    const int cg = item % ncg;
-    const int r0 = (item / ncg) * kRows;
-    const float4* wp = reinterpret_cast<const float4*>(w) + cg;
-    float acc[kRows][4];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-    // An explicit factor: left to the compiler's own choice, the unrolling
-    // of this loop, and with it the registers (75 to 114) and the time of a
-    // launch (51 to 66 ms in the backward), changed from one instantiation
-    // of the kernels to the next.
-#pragma unroll 2
-    for (int k = 0; k < K; k += 4) {
-      float4 wv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = __ldg(wp + (size_t)(k + j) * ncg);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        float4 av = *reinterpret_cast<const float4*>(a + (r0 + i) * K + k);
-        if (kRoundA) av = rnd4<true>(av);
-        const float ak[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][0] = fmaf(ak[j], wv[j].x, acc[i][0]);
-          acc[i][1] = fmaf(ak[j], wv[j].y, acc[i][1]);
-          acc[i][2] = fmaf(ak[j], wv[j].z, acc[i][2]);
-          acc[i][3] = fmaf(ak[j], wv[j].w, acc[i][3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) epi(r0 + i, 4 * cg, acc[i]);
-  }
-}
-
-// relu(v + [xm wc] + bias) for four columns of a hidden layer, rounded for
-// the next product in the bf16 mode; with kCoord the coordinate rows'
-// product joins (the first layer of a progressive net).
-template <bool kBf16, bool kCoord>
-__device__ __forceinline__ float4 hidden_out(const Net& n, const float* v,
-                                             const float* bias, int n0,
-                                             const float* xm, int r) {
-  const float4 bv = __ldg(reinterpret_cast<const float4*>(bias + n0));
-  float z[4] = {v[0], v[1], v[2], v[3]};
-  if (kCoord) {
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < n.d; ++k) {
-      const float xk = xm[r * kMaxDim + k];
-      const float4 wv =
-          __ldg(reinterpret_cast<const float4*>(n.wc + (size_t)k * n.hidden +
-                                                n0));
-      c[0] = fmaf(xk, wv.x, c[0]);
-      c[1] = fmaf(xk, wv.y, c[1]);
-      c[2] = fmaf(xk, wv.z, c[2]);
-      c[3] = fmaf(xk, wv.w, c[3]);
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) z[q] += c[q];
-  }
-  float4 o;
-  o.x = rnd<kBf16>(fmaxf(z[0] + bv.x, 0.f));
-  o.y = rnd<kBf16>(fmaxf(z[1] + bv.y, 0.f));
-  o.z = rnd<kBf16>(fmaxf(z[2] + bv.z, 0.f));
-  o.w = rnd<kBf16>(fmaxf(z[3] + bv.w, 0.f));
-  return o;
-}
-
-// One hidden layer of the tile: z = relu(a W + [xm wc] + bias), (rows, K) ->
-// (rows, H), both in shared memory. coord_rows is a constant false in the
-// kernels of non-progressive nets, which then carry one product only.
-template <bool kBf16, bool kProg>
-__device__ __forceinline__ void hidden_layer(const Net& n, const float* a,
-                                             int K, const float* w,
-                                             const float* bias, float* z,
-                                             bool first, const float* xm) {
-  const int H = n.hidden;
-  if (kProg && first) {
-    matmul_rows<false>(a, K, w, H, [&](int r, int n0, const float* v) {
-      *reinterpret_cast<float4*>(z + r * H + n0) =
-          hidden_out<kBf16, true>(n, v, bias, n0, xm, r);
-    });
-  } else {
-    matmul_rows<false>(a, K, w, H, [&](int r, int n0, const float* v) {
-      *reinterpret_cast<float4*>(z + r * H + n0) =
-          hidden_out<kBf16, false>(n, v, bias, n0, xm, r);
-    });
-  }
 }
 
 inline cudaError_t check_net(const Net& n, long long n_points, int mode) {

@@ -48,13 +48,17 @@ both.
 
 The CUDA kernels need: an encoding width and a hidden width that are
 multiples of 4 (they read float4), at least one hidden layer and at most 7,
-at most 4 coordinates, and, the routing's rule (``kernel_supports``), 32
-rows x (E + hidden layers x H + O) floats, plus 32 x 4 for a progressive net
-and 33 x res in slab mode, within the 227 KB of shared memory a block can
-have (the tiles both kernels hold are smaller). (The TPU kernel's
-multiple-of-128 rule answered the TPU's lanes.) The backward's staged
-activations and gradient slots live in one scratch buffer a launch
-(``scratch_bytes``: 385 MB at the flow path's shape).
+at most 4 coordinates, a hidden width of at most 256 and at most 8 outputs
+(K7 forward holds a tile's whole hidden width in one block's warps and
+takes the output layer as one 8-column tile), and, the routing's rule
+(``kernel_supports``), 32 rows x (E + hidden layers x H + O) floats, plus
+32 x 4 for a progressive net and 33 x res in slab mode, within the 227 KB of
+shared memory a block can have (the tiles both kernels hold are smaller), as
+is K7 forward's own block (``_fwd_smem_bytes``: 198 KB at the flow path's
+widths). (The TPU kernel's multiple-of-128 rule answered the TPU's lanes.) The
+backward's staged activations and gradient slots live in one scratch buffer
+a launch (``scratch_bytes``: 385 MB at the flow path's shape); the forward
+needs none.
 
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel
 or raises, a CPU tensor takes the plain version. ``fused_inr_forward.launches``
@@ -79,6 +83,8 @@ MODES = ("const", "point", "slab")
 TILE_ROWS = 32               # points per tile of both kernels
 _MAX_SMEM = 232448           # bytes of shared memory a block can have
 _MAX_LAYERS = 8
+_MAX_HIDDEN = 256            # K7 forward: a tile's hidden width in one block
+_MAX_OUT = 8                 # K7 forward: the output layer's one 8-col tile
 _PLAIN_CHUNK = 16384         # rows per chunk of the plain versions
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
@@ -345,14 +351,27 @@ def _smem_bytes(n_lin: int, e: int, hidden: int, out: int, prog: bool,
             + 4 * (TILE_ROWS + 1) * res)
 
 
+def _fwd_smem_bytes(hidden: int, res: int) -> int:
+    """Shared memory of a K7 forward block (``csrc/inr_fwd.cu`` ``plan_of``):
+    64 rows of activations (or, in slab mode, of the tile's wx), three
+    32-row weight slices, two 32-column slices of u_0, the output layer's
+    weights, the tile's coordinates and its slab header and flags."""
+    hp = -(-hidden // 8) * 8
+    wide = -(-hp // 32) * 32
+    return 4 * (64 * max(wide + 4, res) + 3 * 32 * (wide + 8) + 2 * 64 * 36
+                + 8 * hp + 3 * 64 * 4 + 2 * 64 + 3 + 2 * res)
+
+
 def kernel_supports(n_lin: int, d: int, e: int, hidden: int, out: int,
                     prog: bool = False, res: int = 0) -> bool:
     """What ``csrc/inr_fwd.cu`` and ``csrc/inr_bwd.cu`` take (see the module
     docstring); ``prog``: a progressive net; ``res``: the slabs' cell
     resolution in slab mode."""
     return (2 <= n_lin <= _MAX_LAYERS and 1 <= d <= 4 and e % 4 == 0
-            and hidden % 4 == 0 and e >= 4 and hidden >= 4 and out >= 1
-            and _smem_bytes(n_lin, e, hidden, out, prog, res) <= _MAX_SMEM)
+            and hidden % 4 == 0 and e >= 4 and 4 <= hidden <= _MAX_HIDDEN
+            and 1 <= out <= _MAX_OUT
+            and _smem_bytes(n_lin, e, hidden, out, prog, res) <= _MAX_SMEM
+            and _fwd_smem_bytes(hidden, res) <= _MAX_SMEM)
 
 
 def require_kernel(layers: Layers, x: torch.Tensor, prog: bool = False,
@@ -366,9 +385,11 @@ def require_kernel(layers: Layers, x: torch.Tensor, prog: bool = False,
             f"the fused INR kernels do not take d={d}, E={e}, "
             f"hidden={hidden}, {n_lin} layers, out={out}: they need 1 <= d <= "
             f"4, 2 to {_MAX_LAYERS} layers, an encoding width and a hidden "
-            f"width that are multiples of 4, and a {TILE_ROWS}-row tile of "
-            f"all activations within {_MAX_SMEM} bytes of shared memory "
-            f"(this net needs {_smem_bytes(n_lin, e, hidden, out, prog, res)}). "
+            f"width that are multiples of 4, a hidden width of at most "
+            f"{_MAX_HIDDEN}, at most {_MAX_OUT} outputs, and a {TILE_ROWS}-row "
+            f"tile of all activations within {_MAX_SMEM} bytes of shared "
+            f"memory (this net needs "
+            f"{_smem_bytes(n_lin, e, hidden, out, prog, res)}). "
             "Run this net through the plain route and ordinary autograd "
             "with use_kernel=\"off\" (--use-kernel off)")
     return dims

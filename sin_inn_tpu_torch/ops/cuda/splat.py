@@ -15,8 +15,11 @@ the tap: rows [128 i - dy, 128 i - dy + SH), columns [128 j - dx,
 / 128). For |flow_y| <= dy - 1 and |flow_x| <= dx - 1 this is the exact
 ``splat_scatter``; farther taps are dropped.
 
-The kernel sums with atomics, so its result is not bitwise reproducible from
-run to run; the plain version and the JAX path are deterministic.
+The kernel sums in 64-bit fixed point with integer atomics, at a scale per
+channel taken from the largest finite |value| on the device, so two launches
+give the same bits, as the plain version and the JAX path do; it takes at
+most 8 channels. Where a value is Inf or NaN, every output pixel and channel
+it reaches is NaN or Inf as in the plain version's fp32 sum.
 
 ``splat_region`` is differentiable (:class:`SplatRegion`): its backward is
 one launch of the gather kernel's gradient mode (``ops/cuda/gather.py``
@@ -61,6 +64,7 @@ from sin_inn_tpu_torch.ops.cuda.gather import (RAW, aligned_offsets,
 from sin_inn_tpu_torch.ops.splat import softmax_coverage_via, splat_scatter
 
 _B = 128     # output-tile rows and columns
+MAX_CHANNELS = 8    # channels the kernel takes (three flag bits each)
 
 
 def window_shape(max_dy: int, max_dx: int) -> Tuple[int, int]:
@@ -115,9 +119,11 @@ def splat_region_local_plain(values: torch.Tensor, flow: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.library("splat_region")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sininn_splat_region.argtypes = [ptr, ptr, ptr] + [i32] * 8 + [ptr]
+    lib.sininn_splat_region_scratch.argtypes = [i32] * 4
+    lib.sininn_splat_region_scratch.restype = ctypes.c_longlong
+    lib.sininn_splat_region.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.sininn_splat_region.restype = i32
-    lib.sininn_splat_region_local.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.sininn_splat_region_local.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
     lib.sininn_splat_region_local.restype = i32
     lib.sininn_error_string.argtypes = [i32]
     lib.sininn_error_string.restype = ctypes.c_char_p
@@ -142,24 +148,32 @@ def _check(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
 
 def _launch(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
             max_dx: int, off_out=None) -> torch.Tensor:
-    """One launch of K5, or of K5 local when ``off_out`` is given."""
+    """One launch of K5, or of K5 local when ``off_out`` is given, with
+    its fixed-point scratch."""
     if not (values.is_contiguous() and flow.is_contiguous()):
         raise ValueError("splat kernel needs contiguous NHWC tensors")
     n, h, w, c = values.shape
+    if c > MAX_CHANNELS:
+        raise ValueError(f"the splat kernel takes at most {MAX_CHANNELS} "
+                         f"channels, got {c}")
     sh, sw = window_shape(max_dy, max_dx)
-    out = torch.zeros_like(values)
+    out = torch.empty_like(values)
     lib = _lib()
+    scratch = torch.empty(lib.sininn_splat_region_scratch(n, h, w, c),
+                          dtype=torch.int64, device=values.device)
     stream = torch.cuda.current_stream(values.device).cuda_stream
     with torch.cuda.device(values.device):
         if off_out is None:
             err = lib.sininn_splat_region(
-                values.data_ptr(), flow.data_ptr(), out.data_ptr(), n, h, w,
-                c, max_dy, max_dx, sh, sw, stream)
+                values.data_ptr(), flow.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), n, h, w, c, max_dy, max_dx, sh, sw,
+                stream)
         else:
             off_out = aligned_offsets(off_out)
             err = lib.sininn_splat_region_local(
                 values.data_ptr(), flow.data_ptr(), off_out.data_ptr(),
-                out.data_ptr(), n, h, w, c, max_dy, max_dx, sh, sw, stream)
+                out.data_ptr(), scratch.data_ptr(), n, h, w, c, max_dy,
+                max_dx, sh, sw, stream)
     if err != 0:
         raise RuntimeError("splat_region kernel launch failed: "
                            + lib.sininn_error_string(err).decode())

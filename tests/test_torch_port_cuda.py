@@ -14,19 +14,24 @@ gradients of the backward kernels: 1e-3 of the largest |plain| of each
 version at a pre-activation within 1e-5 of 0 (such a gate may go either
 way: 3xTF32 products and another order). The
 windowed splat (K5) and gather (K6, forward and gradient mode): 1e-5 +
-1e-5 |plain| (K5 sums with atomics in a run-dependent order; K6 repeats the
-plain arithmetic); their local-window forms (K5 local, K6 local) the same.
+1e-5 |plain| (K5 sums in fixed point, the plain version in fp32 in another
+order; K6 repeats the plain arithmetic); their local-window forms (K5
+local, K6 local) the same; K5 and K5 local bit for bit as the CPU model of
+their fixed-point sums (``tests/torch_port_helpers.py``), and so bitwise
+repeatable.
 The fused INR backward (K7): each weight and bias
 gradient within 1e-3 of the largest |plain| of it, bitwise repeatable, in
 every mask mode and with the coordinate rows of a progressive net; the fused
 INR forward (K7 forward): 1e-4 + 1e-4 |plain| in fp32 (sums over up to 515
-channels in another order), 2e-2 in the bf16 operand mode (activations near
-a bf16 tie round either way); the train step's kernel route within a
-normwise 1e-3 of autograd's.
+channels in another order, 3xTF32 products), 2e-2 in the bf16 operand mode
+(activations near a bf16 tie round either way), bitwise repeatable, and in
+fp32 normwise within 1e-5 (one-pass TF32 would give about 1e-4); the
+train step's kernel route within a normwise 1e-3 of autograd's.
 """
 
 import pytest
 import torch
+from torch_port_helpers import k5_local_model, k5_model
 
 from sin_inn_tpu_torch.core import rng as R
 from sin_inn_tpu_torch.ops import subnet as S
@@ -300,6 +305,65 @@ def test_windowed_kernels_match_plain(dev, shape, c, bounds, amp):
                                   "gather_region_local": 0,
                                   "gather_region_local_grads": 0}
     assert K5.launch_counts() == {"splat_region": 1, "splat_region_local": 0}
+
+
+@pytest.mark.parametrize("shape,c,bounds,amp", [
+    ((1, 200, 300), 5, (8, 8), 20.0),     # the drop rule
+    ((2, 130, 260), 3, (13, 70), 30.0),   # unpadded bounds, two images
+    ((1, 436, 1024), 5, (64, 128), 90.0),  # the flow path's shape
+])
+def test_splat_kernels_are_their_fixed_point_model(dev, shape, c, bounds,
+                                                   amp):
+    """K5 and K5 local give the CPU model's bits (fixed-point sums: any
+    order of the atomics gives them), so two launches agree bitwise."""
+    from sin_inn_tpu_torch.ops.offsets import tile_flow_offsets
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n, h, w = shape
+    fl = _flow(gen, n, h, w, amp, dev)
+    v = torch.rand((n, h, w, c), generator=gen, device=dev)
+    v[..., -1] = 1.0
+    got = K5.splat_region(v, fl, *bounds)
+    again = K5.splat_region(v, fl, *bounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), k5_model(v.cpu(), fl.cpu(), *bounds))
+    offs = tile_flow_offsets(fl, 128, 128, 2 * bounds[0], 0)
+    ldy = max(bounds[0] // 2, 1)
+    got = K5.splat_region_local(v, fl, offs.off_out, offs.off_src, ldy,
+                                bounds[1])
+    again = K5.splat_region_local(v, fl, offs.off_out, offs.off_src, ldy,
+                                  bounds[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), k5_local_model(
+        v.cpu(), fl.cpu(), offs.off_out.cpu(), ldy, bounds[1]))
+
+
+def test_splat_kernel_non_finite_values(dev):
+    """A value that is Inf or NaN: the plain version's NaN and Inf pixels,
+    the finite ones within the limit; more than 8 channels are refused."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    v = torch.rand((1, 40, 60, 5), generator=gen, device=dev)
+    v[0, 5, 7, 0] = float("inf")
+    v[0, 5, 8, 0] = float("-inf")
+    v[0, 20, 30, 1] = float("nan")
+    v[0, 33, 50, 2] = float("-inf")
+    fl = _flow(gen, 1, 40, 60, 2.0, dev)
+    got = K5.splat_region(v, fl, 4, 8)
+    ref = K5.splat_region_plain(v, fl, 4, 8)
+    torch.cuda.synchronize()
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(f(got), f(ref))
+    fin = torch.isfinite(ref)
+    assert ((got - ref)[fin].abs() <= 1e-5 + 1e-5 * ref[fin].abs()).all()
+    model = k5_model(v.cpu(), fl.cpu(), 4, 8)
+    assert torch.equal(torch.isnan(got.cpu()), torch.isnan(model))
+    nan0 = lambda t: torch.where(torch.isnan(t), 0.0, t)
+    assert torch.equal(nan0(got.cpu()), nan0(model))
+    with pytest.raises(ValueError, match="at most 8 channels"):
+        K5.splat_region(torch.rand((1, 8, 8, 9), device=dev),
+                        torch.zeros((1, 8, 8, 2), device=dev), 4, 4)
 
 
 def test_gather_kernel_takes_an_unaligned_flow(dev):
@@ -687,10 +751,14 @@ def test_inr_kernels_match_plain_in_every_mask_mode(dev, kind, mode, rows, w,
     K7.reset_launch_counts()
     for bf16 in (False, True):
         out = K7.fused_inr_forward(kind, enc, layers, x, mask, bf16)
+        twice = K7.fused_inr_forward(kind, enc, layers, x, mask, bf16)
         ref = K7.fused_inr_forward_plain(kind, enc, layers, x, mask, bf16)
         torch.cuda.synchronize()
         tol = 1e-4 if not bf16 else 2e-2     # bf16: ties broken elsewhere
         assert ((out - ref).abs() <= tol + tol * ref.abs()).all()
+        assert torch.equal(out, twice)
+        if not bf16:     # 3xTF32: fp32's accuracy (one-pass TF32: ~1e-4)
+            assert (out - ref).norm() <= 1e-5 * ref.norm()
         got = K7.fused_inr_backward(kind, enc, layers, x, mask, g, bf16)
         again = K7.fused_inr_backward(kind, enc, layers, x, mask, g, bf16)
         want = K7.fused_inr_backward_plain(kind, enc, layers, x, mask, g,
@@ -700,7 +768,7 @@ def test_inr_kernels_match_plain_in_every_mask_mode(dev, kind, mode, rows, w,
             for a_, b_, r_ in zip(pg, pa, pr):
                 assert a_.shape == r_.shape and torch.equal(a_, b_)
                 assert (a_ - r_).abs().max() <= 1e-3 * r_.abs().max()
-    assert K7.launch_counts() == {"fused_inr_forward": 2,
+    assert K7.launch_counts() == {"fused_inr_forward": 4,
                                   "fused_inr_backward": 4}
     if n > 100_000:
         return

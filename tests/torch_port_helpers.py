@@ -1,6 +1,8 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package."""
 
+import math
+
 import numpy as np
 import torch
 
@@ -71,3 +73,124 @@ def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One-pass TF32: hi hi alone."""
     return tf32_rna(a) @ tf32_rna(b)
+
+
+def tf32_rz(a: torch.Tensor) -> torch.Tensor:
+    """fp32 -> its top 19 bits (sign, exponent, 10 mantissa bits): the TF32
+    value toward zero, as K7 forward splits its operands."""
+    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_rz(a: torch.Tensor):
+    hi = tf32_rz(a)
+    return hi, tf32_rz(a - hi)
+
+
+def mm3_rz(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in 3xTF32 with the split toward zero (``split_rz``), lo hi +
+    hi lo + hi hi in the kernel's order, each an fp32 matmul."""
+    ah, al = split_rz(a)
+    bh, bl = split_rz(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+# ---- K5's fixed-point sums, modelled in plain PyTorch ----
+
+
+def splat_fixed_point(values: torch.Tensor, flow: torch.Tensor, keep,
+                      span: int, order=None) -> torch.Tensor:
+    """K5's arithmetic (``csrc/splat_region.cu``): the taps, window rule and
+    fp32 contributions of ``ops/splat.py`` ``splat_scatter``, each finite
+    contribution rounded (half to even) to an integer at the scale 2^q_c and
+    summed in int64, q_c = 62 - e with span max|v_c| < 2^e (``span``: SH x
+    SW, the most sources one output pixel sums), clamped to [-126, 126];
+    then sum 2^-q_c through float64, rounded once to fp32. A non-finite
+    contribution makes its pixel NaN (a NaN, or both infinities) or the
+    infinity. The same bits as the kernel, whatever the order: ``order``,
+    a permutation of the n h w source pixels, adds their contributions in
+    that order."""
+    from sin_inn_tpu_torch.ops.splat import _hat
+
+    n, h, w, c = values.shape
+    v = values.float()
+    biggest = torch.where(torch.isfinite(v), v.abs(),
+                          torch.zeros_like(v)).amax(dim=(0, 1, 2))
+    qs = []
+    for m in biggest.tolist():
+        q = 0 if m == 0.0 else 62 - math.frexp(span * m)[1]
+        qs.append(min(max(q, -126), 126))
+    scale = torch.tensor([2.0 ** q for q in qs], dtype=torch.float32)
+    ys = torch.arange(h, dtype=torch.float32)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32)[None, None, :]
+
+    def taps(t, size):
+        t0 = torch.floor(t)
+        out = []
+        for tap in (t0, t0 + 1.0):
+            ok = (tap >= 0) & (tap <= size - 1)
+            out.append((torch.where(ok, _hat(t - tap), 0.0),
+                        torch.where(ok, tap, 0.0).long()))
+        return out
+
+    rows = taps(ys + flow[..., 1], h)
+    cols = taps(xs + flow[..., 0], w)
+    base = torch.arange(n)[:, None, None] * (h * w)
+    acc = torch.zeros((n * h * w, c), dtype=torch.int64)
+    kinds = {k: torch.zeros((n * h * w, c), dtype=torch.int64)
+             for k in ("pos", "neg", "nan")}
+    for wy, ri in rows:
+        vy = v * wy[..., None]
+        for wx, ki in cols:
+            wx = torch.where(keep(ri, ki), wx, 0.0)
+            t = (vy * wx[..., None]).reshape(-1, c)
+            idx = (base + ri * w + ki).reshape(-1)
+            if order is not None:
+                t, idx = t[order], idx[order]
+            fin = torch.isfinite(t)
+            fixed = torch.round(torch.where(fin, t, 0.0) * scale)
+            acc.index_add_(0, idx, fixed.to(torch.int64))
+            kinds["pos"].index_add_(0, idx, (t == math.inf).long())
+            kinds["neg"].index_add_(0, idx, (t == -math.inf).long())
+            kinds["nan"].index_add_(0, idx, torch.isnan(t).long())
+    inv = torch.tensor([2.0 ** -q for q in qs], dtype=torch.float64)
+    out = (acc.double() * inv).float()
+    pos, neg = kinds["pos"] > 0, kinds["neg"] > 0
+    out = torch.where(pos, math.inf, out)
+    out = torch.where(neg, -math.inf, out)
+    out = torch.where((kinds["nan"] > 0) | (pos & neg), math.nan, out)
+    return out.reshape(n, h, w, c)
+
+
+def k5_model(values, flow, max_dy: int, max_dx: int,
+             order=None) -> torch.Tensor:
+    """K5 (the static windows) as ``splat_fixed_point`` computes it."""
+    from sin_inn_tpu_torch.ops.cuda.splat import _in_window, window_shape
+
+    _, h, w, _ = values.shape
+    sh, sw = window_shape(max_dy, max_dx)
+    ys = torch.arange(h)[None, :, None]
+    xs = torch.arange(w)[None, None, :]
+    return splat_fixed_point(values, flow, lambda r, k: (
+        _in_window(ys, r, max_dy, sh) & _in_window(xs, k, max_dx, sw)),
+        sh * sw, order)
+
+
+def k5_local_model(values, flow, off_out, loc_dy: int, loc_dx: int,
+                   order=None) -> torch.Tensor:
+    """K5 local as ``splat_fixed_point`` computes it: each tap pair kept by
+    the window of the tile holding it, shifted by -off_out of that tile."""
+    from sin_inn_tpu_torch.ops.cuda.splat import _B, _in_window, window_shape
+
+    n, h, w, _ = values.shape
+    sh, sw = window_shape(loc_dy, loc_dx)
+    ys = torch.arange(h)[None, :, None]
+    xs = torch.arange(w)[None, None, :]
+    nidx = torch.arange(n)[:, None, None]
+    shift = (-off_out).long()
+
+    def keep(r, k):
+        o = shift[nidx, r // _B, k // _B]
+        return (_in_window(ys, r, loc_dy, sh, o[..., 1])
+                & _in_window(xs, k, loc_dx, sw, o[..., 0]))
+
+    return splat_fixed_point(values, flow, keep, sh * sw, order)
