@@ -1,5 +1,6 @@
 // The weight-gradient stage shared by the staged backward kernels
-// (csrc/coupling_1x1_bwd.cu: K3/K4; csrc/inr_bwd.cu: K7 backward): split-K
+// (csrc/coupling_1x1_bwd.cu: K3/K4; csrc/inr_bwd.cu: K7 backward;
+// csrc/coupling_3x3_bwd.cu: K8 backward, with U gathered): split-K
 // products D = U' V over chunks of rows on the tensor cores, one slot of
 // partials a chunk, written once. The reduction kernel of
 // coupling_1x1_bwd.cu then sums the slots in chunk order, so a launch gives
@@ -17,6 +18,12 @@
 // product is exact and each product is one mma. Either way every run of at
 // most 12 mma (one 32-row stage) starts from 0 and is added to the running
 // sum in fp32: the tensor cores add with truncation.
+//
+// Gathered U (kGather = true): U is the im2col of an NHWC image batch that
+// is never written out. Row m of U is pixel m of (n, img_h, img_w) images,
+// column tap img_c + c its channel c at the 3x3 tap's neighbour (0 outside
+// the image); u is the image batch, ldu its channel stride. img_c and ldu
+// are multiples of 4, so each 16-byte copy stays within one tap.
 
 #pragma once
 
@@ -36,6 +43,7 @@ struct Product {
   long long out;     // slot offset of the weight; its bias follows
   int transpose;     // the weight is (q, p): out[j][i] = D[i][j]
   int bias_u;        // bias = column sums of u (else of v)
+  int img_h, img_w, img_c;   // gathered U only
 };
 struct Products {
   Product pr[kMaxProducts];
@@ -57,7 +65,7 @@ constexpr size_t kWeightSmem = sizeof(float) * 2 * kWK * (kUld + kVld);
 // blockIdx.x: a chunk of `chunk` rows of the m; blockIdx.y: a D tile of one
 // of the products, in order. Writes the tile (and its share of the bias)
 // into the chunk's slot of `partials`.
-template <bool kBf16>
+template <bool kBf16, bool kGather = false>
 __global__ void __launch_bounds__(kWThreads)
 weight_stage_kernel(Products ps, long long m, long long chunk,
                     float* __restrict__ partials, long long slot) {
@@ -82,11 +90,33 @@ weight_stage_kernel(Products ps, long long m, long long chunk,
   const bool sum_u = pr.bias_u && q0 == 0;
   const bool sum_v = !pr.bias_u && p0 == 0;
 
+  // gathered U: the loop below gives a thread the same 16-byte column of
+  // the U tile at every row (its stride is a multiple of a row's float4s),
+  // so the column's tap and channel are fixed
+  const int g_j = p0 + 4 * (threadIdx.x % (tp / 4));
+  const int g_tap = kGather ? g_j / pr.img_c : 0;
+  const int g_c = g_j - g_tap * (kGather ? pr.img_c : 0);
+  const int g_dy = g_tap / 3 - 1, g_dx = g_tap % 3 - 1;
+  const bool g_live = g_j < pr.p;
+
   auto issue = [&](long long k0, int buf) {
     float* ud = us + buf * kWK * uld;
     for (int s = threadIdx.x; s < kWK * (tp / 4); s += kWThreads) {
       const int r = s / (tp / 4), col = 4 * (s % (tp / 4));
       const long long row = k0 + r;
+      if (kGather) {
+        // m < 2^31 pixels: 32-bit index arithmetic
+        const int pix = (int)row, t = pix / pr.img_w;
+        const int y = t % pr.img_h + g_dy, x = pix - t * pr.img_w + g_dx;
+        const bool ok = row < k_end && g_live && y >= 0 && y < pr.img_h &&
+                        x >= 0 && x < pr.img_w;
+        cp_async16(ud + r * uld + col,
+                   ok ? pr.u + ((long long)(t - t % pr.img_h + y) *
+                                    pr.img_w + x) * pr.ldu + g_c
+                      : pr.u,
+                   ok);
+        continue;
+      }
       const bool ok = row < k_end && p0 + col < pr.ldu;
       cp_async16(ud + r * uld + col,
                  ok ? pr.u + row * pr.ldu + p0 + col : pr.u, ok);

@@ -8,23 +8,30 @@ from one to the other.
 * ``half_coupling_3x3`` (K8 forward, ``csrc/coupling_3x3.cu``) computes one
   half coupling, ``y = exp(le(s)) x_aff + t`` or, with ``inverse``,
   ``(x_aff - t) exp(-le(s))``, with ``[s | t] = conv2(relu(conv1(x_in)))``
-  (SAME 3x3 convolutions), the hidden layer kept on the chip. The TPU's
-  whole-image, half and row-band kernels differ only in how they tile this
-  function; on the card one launch is one half, so ``fused_glow3_forward``
-  / ``_inverse`` and the ``glow3_*_halves`` are two launches each.
+  (SAME 3x3 convolutions), the hidden layer kept on the chip a 32-channel
+  chunk at a time. Both convolutions are implicit GEMMs on the tensor cores
+  in 3xTF32 (three TF32 ``mma.sync`` products a product, fp32 accuracy),
+  the weights packed on every call. The TPU's whole-image, half and
+  row-band kernels differ only in how they tile this function; on the card
+  one launch is one half, so ``fused_glow3_forward`` / ``_inverse`` and the
+  ``glow3_*_halves`` are two launches each.
 * ``half_coupling_3x3_backward`` (K8 backward, ``csrc/coupling_3x3_bwd.cu``)
   is the VJP of one half: dx_in, dx_aff and the four weight and bias
-  gradients, summed per chunk of pixels into gradient slots that
-  ``reduce_weight_grads`` (``ops/cuda/coupling.py``) adds in a fixed order.
+  gradients, every product in 3xTF32 on the tensor cores, the weight
+  gradients summed per chunk of pixels into gradient slots that
+  ``reduce_weight_grads`` (``ops/cuda/coupling.py``) adds in a fixed order,
+  so it is bitwise repeatable.
 * ``make_fused_coupling3(clamp, len1)``: K8 primal, backward by recomputing
   the coupling through the convolution route (``ops/coupling.py`` over
   ``ops/subnet.py``, cuDNN on the card), as the JAX package recomputes it in
   XLA. ``make_half_banded`` / ``make_fused_coupling3_banded``: K8 primal
   and K8 backward as ``torch.autograd.Function``s.
 
-The kernels take fp32 tensors only, caff (the affine half's channels), the
-hidden width and, in the backward, Cin as multiples of 4; any other shape or
-dtype raises a ValueError naming the limit. No entry point reaches this
+The kernels take fp32 tensors only: Caff (the affine half's channels) up
+to 384; Caff, the hidden width and, in the backward, Cin multiples of 4;
+and a Cin whose smallest tile (8 x 4 pixels with a 2-pixel halo) fits a
+block's shared memory (Cin up to 312 at Caff 96). Any other shape or dtype
+raises a ValueError naming the limit. No entry point reaches this
 module: the INN keeps its 3x3 couplings on the convolution route, as the
 JAX package does (``models/inn.py``).
 
@@ -36,7 +43,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from functools import partial
 from typing import Dict, List, Sequence, Tuple
 
@@ -51,8 +57,6 @@ from sin_inn_tpu_torch.ops.cuda import _build
 from sin_inn_tpu_torch.ops.cuda import coupling as K
 
 _MAX_SMEM = 232_448
-_TILE_ROWS = (8, 4, 2, 1)     # candidate tile heights; tiles are 16 wide
-_CHUNK = 2048                 # pixels per weight-gradient slot
 
 # one subnet's leaves, in the autograd Functions' operand order
 SUB_LEAVES = (("conv1", "w"), ("conv1", "b"), ("conv2", "w"), ("conv2", "b"))
@@ -199,34 +203,39 @@ def relu_gate_slack(sub_params: Dict, x_in: torch.Tensor,
 def _lib(name: str) -> ctypes.CDLL:
     lib = _build.library(name)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sininn_coupling_3x3_smem_bytes.argtypes = [i32, i32, i32]
-    lib.sininn_coupling_3x3_smem_bytes.restype = i64
     lib.sininn_error_string.argtypes = [i32]
     lib.sininn_error_string.restype = ctypes.c_char_p
     if name == "coupling_3x3":
+        lib.sininn_coupling_3x3_smem_bytes.argtypes = [i32, i32]
+        lib.sininn_coupling_3x3_smem_bytes.restype = i64
+        lib.sininn_coupling_3x3_scratch_floats.argtypes = [i32, i32, i32]
+        lib.sininn_coupling_3x3_scratch_floats.restype = i64
         lib.sininn_coupling_3x3.argtypes = (
             [i32, ptr, ptr, ptr] + [i32] * 6 + [ptr] * 4
-            + [ctypes.c_float, i32, ptr])
+            + [ctypes.c_float, ptr, ptr])
         lib.sininn_coupling_3x3.restype = i32
     else:
-        lib.sininn_conv3x3_smem_bytes.argtypes = [i32, i32]
-        lib.sininn_conv3x3_smem_bytes.restype = i64
-        lib.sininn_coupling_3x3_bwd_slot_floats.argtypes = [i32, i32, i32]
-        lib.sininn_coupling_3x3_bwd_slot_floats.restype = i64
+        for fn in ("smem_bytes", "scratch_floats", "slot_floats"):
+            f = getattr(lib, f"sininn_coupling_3x3_bwd_{fn}")
+            f.argtypes = [i32, i32, i32]
+            f.restype = i64
+        lib.sininn_coupling_3x3_bwd_chunks.argtypes = [i64, i32, i32, i32]
+        lib.sininn_coupling_3x3_bwd_chunks.restype = i64
         lib.sininn_coupling_3x3_bwd.argtypes = (
-            [i32] + [ptr] * 9 + [i32] * 7 + [ptr] * 6
-            + [ctypes.c_float, i32, i32, i32, ptr])
+            [i32] + [ptr] * 9 + [i64] + [i32] * 6 + [ptr] * 4
+            + [ctypes.c_float, ptr, ptr])
         lib.sininn_coupling_3x3_bwd.restype = i32
     return lib
 
 
-def _tile_rows(smem_bytes, what: str) -> int:
-    """The tallest tile whose shared memory fits a block."""
-    for th in _TILE_ROWS:
-        if smem_bytes(th) <= _MAX_SMEM:
-            return th
-    raise ValueError(f"{what} needs {smem_bytes(_TILE_ROWS[-1])} bytes of "
-                     f"shared memory for a 1 x 16 tile (max {_MAX_SMEM})")
+def _check_smem(smem: int, what: str, caff: int) -> None:
+    """Raise a ValueError naming the limit a launch's shapes break."""
+    if smem < 0:
+        raise ValueError(f"{what}: the K8 kernels take Caff up to 384, got "
+                         f"{caff}")
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{what} needs {smem} bytes of shared memory for "
+                         f"its block (max {_MAX_SMEM})")
 
 
 def _check_kernel_inputs(tensors: Sequence[torch.Tensor], caff: int,
@@ -248,12 +257,10 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
                            + lib.sininn_error_string(err).decode())
 
 
-def _prep(sub: Dict) -> List[torch.Tensor]:
-    """w1 (9, cin, hid), b1, w2 (9, hid, cout), b2: the kernels' weights."""
-    return [sub["conv1"]["w"].detach().permute(2, 3, 1, 0).contiguous(),
-            sub["conv1"]["b"].detach().contiguous(),
-            sub["conv2"]["w"].detach().permute(2, 3, 1, 0).contiguous(),
-            sub["conv2"]["b"].detach().contiguous()]
+def _weights(sub: Dict) -> List[torch.Tensor]:
+    """w1, b1, w2, b2 as stored (OIHW): the kernels pack them on every
+    call, since the optimizer updates them in place."""
+    return [sub[c][k].detach().contiguous() for c, k in SUB_LEAVES]
 
 
 def half_coupling_3x3(sub_params: Dict, x_in: torch.Tensor,
@@ -264,25 +271,35 @@ def half_coupling_3x3(sub_params: Dict, x_in: torch.Tensor,
         return half_coupling_3x3_plain(sub_params, x_in, x_aff, clamp,
                                        inverse)
     cin, caff, hid = _shapes(sub_params, x_in, x_aff)
-    mats = _prep(sub_params)
+    mats = _weights(sub_params)
     _check_kernel_inputs([x_in, x_aff, *mats], caff, hid)
+    lib = _lib("coupling_3x3")
+    _check_smem(lib.sininn_coupling_3x3_smem_bytes(cin, caff),
+                f"K8 forward (Cin={cin}, Caff={caff})", caff)
     if x_in.numel() == 0 or x_aff.numel() == 0:
         return torch.empty_like(x_aff)
-    lib = _lib("coupling_3x3")
-    th = _tile_rows(lambda t: lib.sininn_coupling_3x3_smem_bytes(t, cin, hid),
-                    f"K8 forward (Cin={cin}, hidden={hid})")
     x_in, x_aff = x_in.contiguous(), x_aff.contiguous()
     y = torch.empty_like(x_aff)
+    packed = torch.empty(lib.sininn_coupling_3x3_scratch_floats(cin, caff,
+                                                                hid),
+                         device=x_in.device)
     n, h, w, _ = x_in.shape
     with torch.cuda.device(x_in.device):
         err = lib.sininn_coupling_3x3(
             int(inverse), x_in.data_ptr(), x_aff.data_ptr(), y.data_ptr(),
             n, h, w, cin, caff, hid, *[t.data_ptr() for t in mats],
-            float(clamp), th,
+            float(clamp), packed.data_ptr(),
             torch.cuda.current_stream(x_in.device).cuda_stream)
     _raise_on(err, lib, "coupling_3x3")
     half_coupling_3x3.launches += 1
     return y
+
+
+def backward_chunks(m: int, cin: int, caff: int, hid: int) -> int:
+    """Gradient slots (chunks of pixels) K8 backward uses for m pixels on
+    the current card."""
+    return _lib("coupling_3x3_bwd").sininn_coupling_3x3_bwd_chunks(
+        m, cin, caff, hid)
 
 
 def half_coupling_3x3_backward(sub_params: Dict, x_in: torch.Tensor,
@@ -297,45 +314,44 @@ def half_coupling_3x3_backward(sub_params: Dict, x_in: torch.Tensor,
     if g.shape != x_aff.shape:
         raise ValueError(f"cotangent {tuple(g.shape)} does not match the "
                          f"output {tuple(x_aff.shape)}")
-    mats = _prep(sub_params)
-    w2t = _flip_t(sub_params["conv2"]["w"].detach()).permute(
-        2, 3, 1, 0).contiguous()                       # (3, 3, cout, hid)
-    w1t = _flip_t(sub_params["conv1"]["w"].detach()).permute(
-        2, 3, 1, 0).contiguous()                       # (3, 3, hid, cin)
+    mats = _weights(sub_params)
     _check_kernel_inputs([x_in, x_aff, g, *mats], caff, hid, cin)
+    lib = _lib("coupling_3x3_bwd")
+    _check_smem(lib.sininn_coupling_3x3_bwd_smem_bytes(cin, caff, hid),
+                f"K8 backward (Cin={cin}, Caff={caff}, hidden={hid})", caff)
     if x_in.numel() == 0:
         return ({c: {k: torch.zeros_like(t) for k, t in conv.items()}
                  for c, conv in sub_params.items()},
                 torch.zeros_like(x_in), torch.zeros_like(x_aff))
-    lib = _lib("coupling_3x3_bwd")
-    th_fwd = _tile_rows(
-        lambda t: lib.sininn_coupling_3x3_smem_bytes(t, cin, hid),
-        f"K8 backward (Cin={cin}, hidden={hid})")
-    th_gz = _tile_rows(lambda t: lib.sininn_conv3x3_smem_bytes(t, 2 * caff),
-                       f"K8 backward (Caff={caff})")
-    th_dx = _tile_rows(lambda t: lib.sininn_conv3x3_smem_bytes(t, hid),
-                       f"K8 backward (hidden={hid})")
     x_in, x_aff, g = x_in.contiguous(), x_aff.contiguous(), g.contiguous()
     n, h, w, _ = x_in.shape
     m = n * h * w
+    hp = -(-hid // 32) * 32
     dev = x_in.device
     dx_in, dx_aff = torch.empty_like(x_in), torch.empty_like(x_aff)
-    h_buf = torch.empty((n, h, w, hid), device=dev)
+    h_buf = torch.empty((n, h, w, hp), device=dev)
     gz_buf = torch.empty_like(h_buf)
     gr_buf = torch.empty((n, h, w, 2 * caff), device=dev)
-    slot = lib.sininn_coupling_3x3_bwd_slot_floats(cin, caff, hid)
-    partials = torch.empty((math.ceil(m / _CHUNK), slot), device=dev)
+    packed = torch.empty(lib.sininn_coupling_3x3_bwd_scratch_floats(
+        cin, caff, hid), device=dev)
     with torch.cuda.device(dev):
+        chunks = backward_chunks(m, cin, caff, hid)
+        if chunks <= 0:
+            raise RuntimeError("coupling_3x3_bwd: no gradient slot plan on "
+                               "this device")
+        partials = torch.empty(
+            (chunks, lib.sininn_coupling_3x3_bwd_slot_floats(cin, caff, hid)),
+            device=dev)
         err = lib.sininn_coupling_3x3_bwd(
             int(inverse), x_in.data_ptr(), x_aff.data_ptr(), g.data_ptr(),
             dx_in.data_ptr(), dx_aff.data_ptr(), h_buf.data_ptr(),
             gz_buf.data_ptr(), gr_buf.data_ptr(), partials.data_ptr(),
-            _CHUNK, n, h, w, cin, caff, hid, *[t.data_ptr() for t in mats],
-            w2t.data_ptr(), w1t.data_ptr(), float(clamp), th_fwd, th_gz,
-            th_dx, torch.cuda.current_stream(dev).cuda_stream)
+            chunks, n, h, w, cin, caff, hid, *[t.data_ptr() for t in mats],
+            float(clamp), packed.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "coupling_3x3_bwd")
     half_coupling_3x3_backward.launches += 1
-    del h_buf, gz_buf, gr_buf
+    del h_buf, gz_buf, gr_buf, packed
     sums = K.reduce_weight_grads(partials)
     n1 = (9 * cin + 1) * hid
     g1 = sums[:n1].view(9 * cin + 1, hid)

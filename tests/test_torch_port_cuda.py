@@ -829,10 +829,11 @@ def _sub3(gen, cin, cout, hidden, dev):
 ])
 def test_k8_matches_plain(dev, shape, cin, hidden):
     """K8 forward and inverse within 1e-4 + 1e-4 |plain| of the plain
-    version; K8 backward within 1e-4 + 1e-4 |plain| (dx) and 1e-3 of each
-    leaf's largest |plain|, each beside the relu gate slack where a gate is
-    within rounding of 0 (``relu_gate_slack``), bitwise the same over two
-    calls."""
+    version and 1e-5 of its norm (a gate one-pass TF32 fails: its products
+    keep 2^-11), bitwise the same over two calls; K8 backward within 1e-4 +
+    1e-4 |plain| (dx) and 1e-3 of each leaf's largest |plain|, each beside
+    the relu gate slack where a gate is within rounding of 0
+    (``relu_gate_slack``), bitwise the same over two calls."""
     from sin_inn_tpu_torch.ops.cuda import coupling3x3 as K8
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -846,9 +847,12 @@ def test_k8_matches_plain(dev, shape, cin, hidden):
     K8.reset_launch_counts()
     for inverse in (False, True):
         got = K8.half_coupling_3x3(sub, x_in, x_aff, CLAMP, inverse)
+        again = K8.half_coupling_3x3(sub, x_in, x_aff, CLAMP, inverse)
         ref = K8.half_coupling_3x3_plain(sub, x_in, x_aff, CLAMP, inverse)
         torch.cuda.synchronize()
         assert ((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()
+        assert (got - ref).norm() <= 1e-5 * ref.norm()
+        assert torch.equal(got, again)
         d1 = K8.half_coupling_3x3_backward(sub, x_in, x_aff, g, CLAMP,
                                            inverse)
         d2 = K8.half_coupling_3x3_backward(sub, x_in, x_aff, g, CLAMP,
@@ -870,7 +874,7 @@ def test_k8_matches_plain(dev, shape, cin, hidden):
                 assert ((a - b).abs() - sl).max() <= 1e-3 * b.abs().max()
                 assert torch.equal(a, d2[0][c][k])
         assert all(torch.equal(a, b) for a, b in zip(d1[1:], d2[1:]))
-    assert K8.launch_counts() == {"half_coupling_3x3": 2,
+    assert K8.launch_counts() == {"half_coupling_3x3": 4,
                                   "half_coupling_3x3_backward": 4}
 
 
@@ -933,6 +937,13 @@ def test_k8_refuses_what_it_cannot_take(dev):
         sub = _sub3(gen, 8, 16, 16, dev)
         K8.half_coupling_3x3(sub, x[..., :8].double(), x[..., 8:].double(),
                              CLAMP)
+    # the x_in window of the narrowest tile (8 x 4 pixels and a 2-pixel
+    # halo) of 1,024 channels is 394 KB; the hidden width is chunked, so it
+    # sets no limit
+    wide = torch.randn((1, 8, 8, 1032), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        K8.half_coupling_3x3(_sub3(gen, 8, 16, 4096, dev), x[..., :8],
-                             x[..., 8:], CLAMP)
+        K8.half_coupling_3x3(_sub3(gen, 1024, 16, 16, dev), wide[..., 8:],
+                             wide[..., :8], CLAMP)
+    with pytest.raises(ValueError, match="Caff up to 384"):
+        K8.half_coupling_3x3(_sub3(gen, 8, 784, 16, dev), wide[..., :8],
+                             wide[..., 8:400], CLAMP)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Times the fused INR forward kernel (K7 forward) and the windowed splat
-(K5, K5 local) of one checkout of the port on one card, so that two
+(K5, K5 local) of one checkout of the port on one card, or with ``--k8``
+the 3x3 GLOW coupling's kernels (K8 forward and backward), so that two
 checkouts can be compared inside one call.
 
-    PYTHONPATH=CHECKOUT python3 tools/time_flow_kernels.py [LABEL]
+    PYTHONPATH=CHECKOUT python3 tools/time_flow_kernels.py [LABEL] [--k8]
 
 Builds ``csrc/inr_fwd.cu`` and ``csrc/splat_region.cu`` of the
 ``sin_inn_tpu_torch`` package found on ``PYTHONPATH``, prints the registers
@@ -20,6 +21,16 @@ and spills ptxas gave each kernel, then at the flow path's shapes:
   10-40 px drift a tile: the same over 20 batches of 10 launches (a batch's
   time over 10, which includes the host's launch path), and the device time
   of a launch (torch.profiler: every kernel and memset it queues) over 50.
+
+With ``--k8``: builds ``csrc/coupling_3x3.cu`` and ``csrc/coupling_3x3_bwd.cu``
+(and the reduction's ``csrc/coupling_1x1_bwd.cu``), prints their registers
+and spills, then at the SRF flagship's two octaves (one half coupling: 88 x
+160, Cin 24 -> 256 -> 48, and 44 x 80, Cin 96 -> 256 -> 192, seeded
+weights and inputs, fp32): K8 forward at batch 8 and 40 and K8 backward
+(with its reduction) at batch 8, the median, least and largest of 10 (5 for
+batch 40 and the backward) calls between CUDA events after a warm-up, and
+the device time of each kernel of a backward call (torch.profiler, the mean
+over 5 calls).
 
 Run a parent checkout (``git archive`` into a git-ignored directory) and the
 working tree in turns: parent, change, change, parent.
@@ -106,14 +117,9 @@ def masks(spec, dev):
             "point": C.spatial_grid_mask_split(ccfg, state, times, H, W)}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("time_flow_kernels: needs a CUDA device", file=sys.stderr)
-        return 1
-    label = sys.argv[1] if len(sys.argv) > 1 else "tree"
-    dev = torch.device("cuda", 0)
-    built = _build.build_all(["inr_fwd", "splat_region"])
-    for name, b in built.items():
+def build(names, label: str) -> None:
+    """Build the named sources; print each kernel's registers and spills."""
+    for name, b in _build.build_all(names).items():
         for block in b.log.split("Compiling entry function '")[1:]:
             kernel = block.split("'", 1)[0]
             regs = block.split("Used ", 1)[1].split(" registers", 1)[0] \
@@ -122,6 +128,84 @@ def main() -> int:
                 "\n", 1)[0] if "bytes stack frame, " in block else "?"
             print(f"[{label}] build {name}: {regs} registers, {spill}: "
                   f"{kernel[:80]}")
+
+
+def kernel_ms(fn, reps: int = 5):
+    """Mean device ms a call of each kernel ``fn`` queues (torch.profiler),
+    by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + e.device_time_total / 1e3
+    return {k: v / reps for k, v in per.items()}
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    import subprocess
+
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.SubprocessError):
+        return torch.cuda.get_device_name(0) + " (power limit not read)"
+
+
+def k8_times(label: str, dev) -> None:
+    from sin_inn_tpu_torch.ops import subnet as S
+    from sin_inn_tpu_torch.ops.cuda import coupling3x3 as K8
+
+    build(["coupling_3x3", "coupling_3x3_bwd", "coupling_1x1_bwd"], label)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    clamp = 1.2
+    for h, w, cin in ((88, 160, 24), (44, 80, 96)):
+        gen = R.root_generator(cin)
+        sub = {k: {n: t.to(dev) for n, t in conv.items()}
+               for k, conv in S.conv_subnet_init(gen, cin, 2 * cin, 3,
+                                                 256).items()}
+        g_dev = torch.Generator(device=dev).manual_seed(cin)
+        for b in (8, 40):
+            x_in = torch.randn((b, h, w, cin), generator=g_dev, device=dev)
+            x_aff = torch.randn((b, h, w, cin), generator=g_dev, device=dev)
+            with torch.no_grad():
+                t = timed(lambda: K8.half_coupling_3x3(sub, x_in, x_aff,
+                                                       clamp),
+                          10 if b == 8 else 5)
+            line(f"K8 forward {b}x{h}x{w} Cin {cin}", label, t)
+            if b != 8:
+                continue
+            g = torch.randn(x_aff.shape, generator=g_dev, device=dev)
+            bwd = lambda: K8.half_coupling_3x3_backward(sub, x_in, x_aff, g,
+                                                        clamp)
+            line(f"K8 backward {b}x{h}x{w} Cin {cin}", label, timed(bwd, 5))
+            for name, ms in sorted(kernel_ms(bwd).items(),
+                                   key=lambda kv: -kv[1]):
+                print(f"[{label}]   K8 backward {b}x{h}x{w} Cin {cin}: "
+                      f"{ms:.4f} ms {name[:90]}")
+    print(f"[{label}] on {card()}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("time_flow_kernels: needs a CUDA device", file=sys.stderr)
+        return 1
+    args = [a for a in sys.argv[1:] if a != "--k8"]
+    label = args[0] if args else "tree"
+    dev = torch.device("cuda", 0)
+    if "--k8" in sys.argv[1:]:
+        k8_times(label, dev)
+        return 0
+    build(["inr_fwd", "splat_region"], label)
     pts = FT.pose_grid(torch.tensor([0.2], device=dev), H,
                        W).reshape(-1, 3).contiguous()
     runs = (("PFF", "ff", ("slab", "point", "const")),
@@ -169,7 +253,7 @@ def main() -> int:
              timed(k5l, 20, 10))
         line("K5 local 1x436x1024x5 local dy 32 dx 128, device", label,
              device_ms(k5l))
-    print(f"[{label}] on {torch.cuda.get_device_name(0)}")
+    print(f"[{label}] on {card()}")
     return 0
 
 
