@@ -193,7 +193,7 @@ Any failed check exits non-zero. The line before the last is a JSON object
 with each kernel's numbers; K1-K4's, K7's and K8's ``bound_ms`` counts
 their products as they run, three TF32 products each on the tensor cores
 (3xTF32), with the fp32 rate's bound beside it (``fp32_bound_ms``); K5's
-rows carry the bytes of their fixed-point scratch. The last line is
+rows carry the bytes of their scratch (the max partials). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -1181,8 +1181,8 @@ def _window_flow(gen, dev):
 
 
 def _splat_scratch_bytes(values) -> int:
-    """Bytes of the fixed-point scratch one K5 launch on ``values``
-    allocates (8 a value, 4 a pixel)."""
+    """Bytes of the scratch one K5 launch on ``values`` allocates (its max
+    partials: c + 1 words of 4 bytes a slot)."""
     from sin_inn_tpu_torch.ops.cuda import splat as K5
 
     return 8 * K5._lib().sininn_splat_region_scratch(*values.shape)
@@ -1288,8 +1288,8 @@ def phase_flow_kernels(dev):
               f" max abs err {r['max_abs_err']:.3e}")
     print(f"[flow kernels] flow beyond the window at {out_y:.1%} (y) and "
           f"{out_x:.1%} (x) of the pixels; K5 and K5 local: two launches "
-          f"bitwise equal, fixed-point scratch "
-          f"{rows['splat_region']['scratch_bytes'] / 1e6:.1f} MB a launch")
+          f"bitwise equal, scratch {rows['splat_region']['scratch_bytes']} "
+          f"bytes a launch")
     return rows
 
 

@@ -15,11 +15,23 @@ the tap: rows [128 i - dy, 128 i - dy + SH), columns [128 j - dx,
 / 128). For |flow_y| <= dy - 1 and |flow_x| <= dx - 1 this is the exact
 ``splat_scatter``; farther taps are dropped.
 
-The kernel sums in 64-bit fixed point with integer atomics, at a scale per
-channel taken from the largest finite |value| on the device, so two launches
-give the same bits, as the plain version and the JAX path do; it takes at
-most 8 channels. Where a value is Inf or NaN, every output pixel and channel
-it reaches is NaN or Inf as in the plain version's fp32 sum.
+The kernel sums in 64-bit fixed point, at a scale per channel taken from
+the largest finite |value| on the device, so two launches give the same
+bits, as the plain version and the JAX path do; it takes at most 8
+channels. Where a value is Inf or NaN, every output pixel and channel it
+reaches is NaN or Inf as in the plain version's fp32 sum.
+
+What bounds it is bytes (21.4 MB a launch at the flow path's shape), and
+what held it back were the sums: 8.9 M scattered 64-bit atomics into a
+19.6 MB global accumulator that had to be zeroed and read back. The window
+rule says before the launch which sources can reach an output tile, so a
+block owns a sub-tile of outputs (:func:`splat_plan`: its rows and shared
+memory by channel count), walks its tile's source window, sums what lands
+in the sub-tile in shared memory and writes each output once. A launch is
+two kernels (a summary of each 128-pixel chunk of a row: its targets' range
+and the per-channel maxima; then the splat, which skips the chunks whose
+targets miss its sub-tile) with a scratch under 64 KB at the flow path's
+shape (:func:`scratch_bytes`), no global accumulator and no global atomic.
 
 ``splat_region`` is differentiable (:class:`SplatRegion`): its backward is
 one launch of the gather kernel's gradient mode (``ops/cuda/gather.py``
@@ -65,6 +77,34 @@ from sin_inn_tpu_torch.ops.splat import softmax_coverage_via, splat_scatter
 
 _B = 128     # output-tile rows and columns
 MAX_CHANNELS = 8    # channels the kernel takes (three flag bits each)
+_MAX_SMEM = 232448 - 1024   # a block's dynamic shared memory, at most
+_QUEUES = 32 * 64 * 4       # a block's 32 warps' queues of 64 hits
+_SLOT_CHUNKS = 16           # chunks of 128 pixels of a row a slot
+
+
+def splat_plan(c: int) -> Tuple[int, int]:
+    """(rows, shared bytes) of a K5 block on ``c`` channels, as
+    ``csrc/splat_region.cu`` ``rows_of`` / ``smem_of`` give them: a sub-tile
+    of rows x 128 outputs, 32 rows where their int64 sums (8 bytes a value),
+    flags (4 a pixel) and the warps' queues fit in shared memory, else
+    16."""
+    if not 0 < c <= MAX_CHANNELS:
+        raise ValueError(f"the splat kernel takes 1 to {MAX_CHANNELS} "
+                         f"channels, got {c}")
+    rows = 32
+    while rows * _B * (8 * c + 4) + _QUEUES > _MAX_SMEM:
+        rows //= 2
+    return rows, rows * _B * (8 * c + 4) + _QUEUES
+
+
+def scratch_bytes(n: int, h: int, w: int, c: int) -> int:
+    """Bytes of a K5 launch's scratch, as ``csrc/splat_region.cu``
+    ``layout_of`` gives them: a summary of 16 bytes (its targets' row and
+    column range) for each chunk of 128 pixels of an image row, then c + 1
+    words of 4 bytes (each channel's largest finite |value|, and whether
+    any value is not finite) for each slot of 16 chunks."""
+    chunks = n * h * -(-w // _B)
+    return chunks * 16 + -(-chunks // _SLOT_CHUNKS) * (c + 1) * 4
 
 
 def window_shape(max_dy: int, max_dx: int) -> Tuple[int, int]:
@@ -121,6 +161,8 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sininn_splat_region_scratch.argtypes = [i32] * 4
     lib.sininn_splat_region_scratch.restype = ctypes.c_longlong
+    lib.sininn_splat_region_plan.argtypes = [i32, ptr]
+    lib.sininn_splat_region_plan.restype = i32
     lib.sininn_splat_region.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.sininn_splat_region.restype = i32
     lib.sininn_splat_region_local.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
@@ -149,7 +191,7 @@ def _check(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
 def _launch(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
             max_dx: int, off_out=None) -> torch.Tensor:
     """One launch of K5, or of K5 local when ``off_out`` is given, with
-    its fixed-point scratch."""
+    the scratch of its max partials."""
     if not (values.is_contiguous() and flow.is_contiguous()):
         raise ValueError("splat kernel needs contiguous NHWC tensors")
     n, h, w, c = values.shape
@@ -158,6 +200,7 @@ def _launch(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
                          f"channels, got {c}")
     sh, sw = window_shape(max_dy, max_dx)
     out = torch.empty_like(values)
+    flow = aligned_offsets(flow)    # read as (dx, dy) pairs, as the offsets
     lib = _lib()
     scratch = torch.empty(lib.sininn_splat_region_scratch(n, h, w, c),
                           dtype=torch.int64, device=values.device)

@@ -29,6 +29,8 @@ fp32 normwise within 1e-5 (one-pass TF32 would give about 1e-4); the
 train step's kernel route within a normwise 1e-3 of autograd's.
 """
 
+import ctypes
+
 import pytest
 import torch
 from torch_port_helpers import k5_local_model, k5_model
@@ -311,11 +313,16 @@ def test_windowed_kernels_match_plain(dev, shape, c, bounds, amp):
     ((1, 200, 300), 5, (8, 8), 20.0),     # the drop rule
     ((2, 130, 260), 3, (13, 70), 30.0),   # unpadded bounds, two images
     ((1, 436, 1024), 5, (64, 128), 90.0),  # the flow path's shape
+    ((2, 180, 200), 1, (8, 16), 20.0),    # ragged in both axes, two
+    ((2, 180, 200), 3, (8, 16), 20.0),    # images, 32-row sub-tiles
+    ((2, 180, 200), 5, (8, 16), 20.0),
+    ((2, 180, 200), 8, (8, 16), 20.0),    # 16-row sub-tiles
+    ((1, 436, 1024), 8, (64, 128), 90.0),
 ])
 def test_splat_kernels_are_their_fixed_point_model(dev, shape, c, bounds,
                                                    amp):
     """K5 and K5 local give the CPU model's bits (fixed-point sums: any
-    order of the atomics gives them), so two launches agree bitwise."""
+    order of the adds gives them), so two launches agree bitwise."""
     from sin_inn_tpu_torch.ops.offsets import tile_flow_offsets
 
     gen = torch.Generator(device=dev).manual_seed(21)
@@ -338,6 +345,64 @@ def test_splat_kernels_are_their_fixed_point_model(dev, shape, c, bounds,
     assert torch.equal(got, again)
     assert torch.equal(got.cpu(), k5_local_model(
         v.cpu(), fl.cpu(), offs.off_out.cpu(), ldy, bounds[1]))
+
+
+@pytest.mark.parametrize("local", [False, True], ids=["static", "local"])
+def test_splat_kernels_non_finite_far_taps(dev, local):
+    """Inf and NaN values, one carried far beyond its window (its dropped
+    taps are NaN in the plain version): K5 and K5 local bit for bit as the
+    CPU model, NaN included."""
+    from sin_inn_tpu_torch.ops.offsets import tile_flow_offsets
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    n, h, w = 2, 180, 200
+    fl = _flow(gen, n, h, w, 20.0, dev)
+    v = torch.rand((n, h, w, 5), generator=gen, device=dev)
+    v[0, 5, 7, 0] = float("inf")
+    v[0, 5, 8, 0] = float("-inf")
+    v[1, 100, 150, 2] = float("nan")
+    v[0, 10, 10, 1] = float("inf")
+    fl[0, 10, 10] = torch.tensor([100.25, 140.5], device=dev)
+    bits = lambda t: t.cpu().view(torch.int32)
+    if local:
+        off = tile_flow_offsets(fl, 128, 128, 16, 0)
+        got = K5.splat_region_local(v, fl, off.off_out, off.off_src, 8, 16)
+        want = k5_local_model(v.cpu(), fl.cpu(), off.off_out.cpu(), 8, 16)
+    else:
+        got = K5.splat_region(v, fl, 8, 16)
+        want = k5_model(v.cpu(), fl.cpu(), 8, 16)
+    torch.cuda.synchronize()
+    assert torch.isnan(want[0, 150, 110, 1])
+    assert torch.equal(bits(got), bits(want))
+
+
+def test_splat_kernel_takes_an_unaligned_flow(dev):
+    """K5 on a flow 4 but not 8 bytes aligned (a view one float into its
+    storage): the same bits as on an aligned copy."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    n, h, w = 1, 40, 200
+    v = torch.rand((n, h, w, 5), generator=gen, device=dev)
+    base = torch.empty(n * h * w * 2 + 1, device=dev)
+    fl = base[1:].view(n, h, w, 2)
+    fl.copy_(_flow(gen, n, h, w, 6.0, dev))
+    assert fl.data_ptr() % 8 == 4
+    assert torch.equal(K5.splat_region(v, fl, 8, 8),
+                       K5.splat_region(v, fl.clone(), 8, 8))
+
+
+def test_splat_scratch_and_plan(dev):
+    """The scratch a launch asks for is the Python mirror's (under 64 KB at
+    the flow path's shape), and so is the kernel's plan."""
+    lib = K5._lib()
+    for shape in ((1, 436, 1024, 5), (2, 180, 200, 8), (300, 240, 8, 3)):
+        nbytes = 8 * lib.sininn_splat_region_scratch(*shape)
+        assert nbytes == -(-K5.scratch_bytes(*shape) // 8) * 8
+    assert 8 * lib.sininn_splat_region_scratch(1, 436, 1024, 5) < 64 * 1024
+    out = (ctypes.c_int * 2)()
+    for c in range(1, K5.MAX_CHANNELS + 1):
+        assert lib.sininn_splat_region_plan(c, out) == 0
+        assert tuple(out) == K5.splat_plan(c)
+    assert lib.sininn_splat_region_plan(K5.MAX_CHANNELS + 1, out) == -1
 
 
 def test_splat_kernel_non_finite_values(dev):

@@ -5,8 +5,9 @@ local form.
 
 The kernel adds each contribution v wr wk (fp32, as the plain version forms
 it) as an integer at the scale 2^q_c of its channel, q_c = 62 - e with
-SH SW max|v_c| < 2^e, with 64-bit integer atomics, and converts each sum
-once to fp32. ``tests/torch_port_helpers.py`` ``splat_fixed_point`` does the
+SH SW max|v_c| < 2^e, to a 64-bit integer sum, and converts each sum once
+to fp32 (``tests/test_torch_port_splat_tiles.py`` holds the kernel's
+decomposition of those sums to this model). ``tests/torch_port_helpers.py`` ``splat_fixed_point`` does the
 same arithmetic with int64 ``index_add_``; the card test
 (``tests/test_torch_port_cuda.py``) holds the kernel to it bit for bit.
 

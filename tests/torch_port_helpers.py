@@ -194,3 +194,137 @@ def k5_local_model(values, flow, off_out, loc_dy: int, loc_dx: int,
                 & _in_window(xs, k, loc_dx, sw, o[..., 0]))
 
     return splat_fixed_point(values, flow, keep, sh * sw, order)
+
+
+def k5_tiles_model(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
+                   max_dx: int, off_out=None) -> torch.Tensor:
+    """K5 (K5 local with ``off_out``, and then the local bounds) as
+    ``csrc/splat_region.cu`` decomposes it. Pass 1: per chunk of 128 pixels
+    of an image row, the range of its targets' floor rows and columns
+    (clamped to [-2, size], a NaN target to -2). Then per block, a
+    sub-tile of ``splat_plan(c)`` rows x 128 outputs of one tile: walk the
+    tile's source window (shifted by -off_out), skip the chunks whose range
+    misses the sub-tile and the sources whose own target does, keep the taps
+    of the rest that land in the sub-tile and sum their fixed-point
+    contributions in int64; the non-finite sources outside the window set
+    NaN at their taps in the sub-tile (the kernel finds them through the
+    slots that pass 1 flags, which hold every one); convert. No keep rule is
+    applied: every tap a block sees is kept by its tile's window."""
+    from sin_inn_tpu_torch.ops.cuda.splat import _B, splat_plan, window_shape
+    from sin_inn_tpu_torch.ops.splat import _hat
+
+    n, h, w, c = values.shape
+    sh, sw = window_shape(max_dy, max_dx)
+    rows, _ = splat_plan(c)
+    wb = -(-w // _B)
+    v = values.float().reshape(n, h * w, c)
+    fl = flow.float().reshape(n, h * w, 2)
+    fin_v = torch.isfinite(v)
+    biggest = torch.where(fin_v, v.abs(), 0.0).amax(dim=(0, 1))
+    qs = []
+    for m in biggest.tolist():
+        q = 0 if m == 0.0 else 62 - math.frexp(sh * sw * m)[1]
+        qs.append(min(max(q, -126), 126))
+    scale = torch.tensor([2.0 ** q for q in qs], dtype=torch.float32)
+    inv = torch.tensor([2.0 ** -q for q in qs], dtype=torch.float64)
+    sy_all = torch.arange(h * w) // w
+    sx_all = torch.arange(h * w) % w
+    ty_all = sy_all.float() + fl[..., 1]
+    tx_all = sx_all.float() + fl[..., 0]
+
+    def floor_clamped(t, size):
+        """floor(t) clamped to [-2, size], NaN to -2: both taps outside."""
+        t0 = torch.floor(t)
+        return torch.clamp(torch.where(torch.isnan(t0), -2.0, t0), -2,
+                           size).long()
+
+    def chunk_range(t, size):
+        """Per (image, row, chunk) the lo / hi of floor_clamped."""
+        lo = hi = floor_clamped(t, size)
+        pad = wb * _B - w
+        lo = torch.nn.functional.pad(lo.reshape(n, h, w), (0, pad),
+                                     value=2 ** 30)
+        hi = torch.nn.functional.pad(hi.reshape(n, h, w), (0, pad),
+                                     value=-2 ** 30)
+        return (lo.reshape(n, h, wb, _B).amin(-1),
+                hi.reshape(n, h, wb, _B).amax(-1))
+
+    rlo, rhi = chunk_range(ty_all, h)
+    clo, chi = chunk_range(tx_all, w)
+
+    def spans(lo, hi, a0, na, size):
+        if a0 == 0:
+            return (lo <= na - 1) | (hi >= size - 1)
+        return (lo <= a0 + na - 1) & (hi >= a0 - 1)
+
+    def taps(t, size, lo, count):
+        """(weight, clamped index, in the sub-tile) of both taps."""
+        t0 = torch.floor(t)
+        out = []
+        for tap in (t0, t0 + 1.0):
+            ok = (tap >= 0) & (tap <= size - 1)
+            idx = torch.where(ok, tap, 0.0).long()
+            out.append((torch.where(ok, _hat(t - tap), 0.0), idx,
+                        (idx >= lo) & (idx < lo + count)))
+        return out
+
+    out = torch.empty((n, h, w, c))
+    for b in range(n):
+        bad = ~fin_v[b].all(1)
+        for r0 in range(0, h, rows):
+            i, nr = r0 // _B, min(rows, h - r0)
+            for j in range(wb):
+                c0 = j * _B
+                nc = min(_B, w - c0)
+                oy = ox = 0
+                if off_out is not None:
+                    ox, oy = (int(-off_out[b, i, j, 0]),
+                              int(-off_out[b, i, j, 1]))
+                wy0, wx0 = i * _B - max_dy + oy, j * _B - max_dx + ox
+                inwin = ((sy_all >= wy0) & (sy_all < wy0 + sh)
+                         & (sx_all >= wx0) & (sx_all < wx0 + sw))
+                k = sx_all // _B
+                near = (spans(rlo[b, sy_all, k], rhi[b, sy_all, k], r0, nr, h)
+                        & spans(clo[b, sy_all, k], chi[b, sy_all, k], c0, nc,
+                                w))
+                ty0 = floor_clamped(ty_all[b], h)
+                tx0 = floor_clamped(tx_all[b], w)
+                near &= (spans(ty0, ty0, r0, nr, h)
+                         & spans(tx0, tx0, c0, nc, w))
+                p = torch.nonzero(inwin & near).reshape(-1)
+                ty, tx, vp = ty_all[b, p], tx_all[b, p], v[b, p]
+                finite = fin_v[b, p].all(1)
+                acc = torch.zeros((nr * _B, c), dtype=torch.int64)
+                kinds = {k: torch.zeros((nr * _B, c), dtype=torch.int64)
+                         for k in ("pos", "neg", "nan")}
+                for wr, ir, in_r in taps(ty, h, r0, nr):
+                    for wk, ik, in_k in taps(tx, w, c0, nc):
+                        hit = in_r & in_k & ~(finite & ((wr == 0)
+                                                        | (wk == 0)))
+                        t = (vp[hit] * wr[hit, None]) * wk[hit, None]
+                        o = (ir[hit] - r0) * _B + ik[hit] - c0
+                        fin = torch.isfinite(t)
+                        acc.index_add_(0, o, torch.round(torch.where(
+                            fin, t, 0.0) * scale).to(torch.int64))
+                        for k, f in (("pos", t == math.inf),
+                                     ("neg", t == -math.inf),
+                                     ("nan", torch.isnan(t))):
+                            kinds[k].index_add_(0, o, f.long())
+                # the non-finite sources outside the window
+                pf = torch.nonzero(bad & ~inwin).reshape(-1)
+                nan = ~fin_v[b, pf]
+                for _, ir, in_r in taps(ty_all[b, pf], h, r0, nr):
+                    for _, ik, in_k in taps(tx_all[b, pf], w, c0, nc):
+                        hit = in_r & in_k
+                        kinds["nan"].index_add_(
+                            0, (ir[hit] - r0) * _B + ik[hit] - c0,
+                            nan[hit].long())
+                res = (acc.double() * inv).float()
+                pos, neg = kinds["pos"] > 0, kinds["neg"] > 0
+                res = torch.where(pos, math.inf, res)
+                res = torch.where(neg, -math.inf, res)
+                res = torch.where((kinds["nan"] > 0) | (pos & neg), math.nan,
+                                  res)
+                out[b, r0:r0 + nr, c0:c0 + nc] = res.reshape(
+                    nr, _B, c)[:, :nc]
+    return out

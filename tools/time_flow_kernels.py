@@ -4,7 +4,7 @@
 the 3x3 GLOW coupling's kernels (K8 forward and backward), so that two
 checkouts can be compared inside one call.
 
-    PYTHONPATH=CHECKOUT python3 tools/time_flow_kernels.py [LABEL] [--k8]
+    PYTHONPATH=CHECKOUT python3 tools/time_flow_kernels.py [LABEL] [--k8 | --k5]
 
 Builds ``csrc/inr_fwd.cu`` and ``csrc/splat_region.cu`` of the
 ``sin_inn_tpu_torch`` package found on ``PYTHONPATH``, prints the registers
@@ -21,6 +21,10 @@ and spills ptxas gave each kernel, then at the flow path's shapes:
   10-40 px drift a tile: the same over 20 batches of 10 launches (a batch's
   time over 10, which includes the host's launch path), and the device time
   of a launch (torch.profiler: every kernel and memset it queues) over 50.
+  With ``--k5``: builds ``csrc/splat_region.cu`` alone, times these two,
+  then K5 on a quarter of that flow and on 0.3 px of noise, with the device
+  time of each of its kernels (``tools/probe_k5_parts.sh`` runs it on
+  copies with a part of K5 switched off).
 
 With ``--k8``: builds ``csrc/coupling_3x3.cu`` and ``csrc/coupling_3x3_bwd.cu``
 (and the reduction's ``csrc/coupling_1x1_bwd.cu``), prints their registers
@@ -39,6 +43,7 @@ working tree in turns: parent, change, change, parent.
 from __future__ import annotations
 
 import math
+import re
 import statistics
 import sys
 
@@ -148,6 +153,12 @@ def kernel_ms(fn, reps: int = 5):
     return {k: v / reps for k, v in per.items()}
 
 
+def short(kernel: str) -> str:
+    """A kernel's name without its namespace and arguments."""
+    m = re.search(r"::(\w+)", kernel)
+    return m.group(1) if m else kernel
+
+
 def card() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     import subprocess
@@ -199,17 +210,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_flow_kernels: needs a CUDA device", file=sys.stderr)
         return 1
-    args = [a for a in sys.argv[1:] if a != "--k8"]
+    args = [a for a in sys.argv[1:] if a not in ("--k8", "--k5")]
     label = args[0] if args else "tree"
     dev = torch.device("cuda", 0)
     if "--k8" in sys.argv[1:]:
         k8_times(label, dev)
         return 0
-    build(["inr_fwd", "splat_region"], label)
+    k5_only = "--k5" in sys.argv[1:]
+    build(["splat_region"] if k5_only else ["inr_fwd", "splat_region"], label)
     pts = FT.pose_grid(torch.tensor([0.2], device=dev), H,
                        W).reshape(-1, 3).contiguous()
-    runs = (("PFF", "ff", ("slab", "point", "const")),
-            ("PRBF", "rbf", ("slab",)), ("RBF", "rbf", ("const",)))
+    runs = () if k5_only else (
+        ("PFF", "ff", ("slab", "point", "const")),
+        ("PRBF", "rbf", ("slab",)), ("RBF", "rbf", ("const",)))
     with torch.inference_mode():
         for net, kind, modes in runs:
             cfg = FlowConfig(net=net, device="cuda")
@@ -253,6 +266,17 @@ def main() -> int:
              timed(k5l, 20, 10))
         line("K5 local 1x436x1024x5 local dy 32 dx 128, device", label,
              device_ms(k5l))
+        if k5_only:
+            # the same static launch on a quarter of the flow and on 0.3 px
+            # of noise (no source converges), with each kernel's device time
+            for tag, f in (("flow", fl), ("flow / 4", fl / 4),
+                           ("0.3 px noise", 0.3 * noise)):
+                f = f.contiguous()
+                k = lambda: K5.splat_region(cat, f, 64, 128)
+                parts = ", ".join(f"{short(n)} {ms:.4f}"
+                                  for n, ms in kernel_ms(k, 20).items())
+                line(f"K5 on the {tag} ({parts}), device", label,
+                     device_ms(k))
     print(f"[{label}] on {card()}")
     return 0
 
