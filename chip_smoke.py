@@ -82,7 +82,10 @@ nothing of JAX or of the JAX package. Phases:
    (the splat's backward), on phase 6's flow and on zero flow (where every
    tap distance is 0 or 1 and both derivatives must be exactly 0 in raw
    coordinates): out, dfx, dfy within 1e-5 + 1e-5 |plain|; K6 local grads
-   in both modes on phase 6's local flow, the same limits; the fused INR
+   in both modes on phase 6's local flow, the same limits; each of the four
+   K6 grads rows timed in turns with ``grid_sampler_2d_backward`` on the
+   same flow and payload asking for the grid gradient only (no window; 200
+   launches each): its library_ms; the fused INR
    backward (K7 backward, constant mask) at N = 446,464 for the ``RBF`` and
    ``FFN`` nets at default widths: every weight and bias gradient within
    1e-3 of the largest |plain| of its leaf in fp32 (sums over 446,464 rows
@@ -188,6 +191,33 @@ nothing of JAX or of the JAX package. Phases:
     ``--import-torch`` into a fresh experiment: the inverse pass within 1e-5
     of the exported run's and the first 40 ``sr test`` frames within one
     level.
+14. the tooling of ``sr train`` at the SRF flagship (HR 352x640, float32,
+    the 204-frame video): ``SRDataset.gather`` takes the native loader
+    (``data/native.py``) and its bytes equal numpy's at lr_window 10,
+    batch 8; ``find_batch_size`` from batch 8 (limit 512) returns the
+    largest batch that ran, twice it ran out of memory or passed the limit,
+    and ``torch.cuda.memory_allocated`` is back within 64 MiB of its value
+    before the probe (the batch, its peak memory and the error are
+    printed); a ``RuntimeError`` planted in the step at batch 32 propagates
+    out of it; ``find_lr`` over its five LRs x 8 steps at batch 8 (4 K1-K4
+    launches a step; each LR's score and the pick printed); and
+    ``run_sr_train`` with ``profile_steps=3`` (6 steps): its trace holds
+    exactly 3 x 4 events of each of K1-K4 by CUDA symbol.
+15. the flow exchange and the dataset entry points at Sintel size:
+    ``run_flow_train`` with ``profile_steps=2`` on the RBF net and the
+    default local windows (its trace holds 2 x each step's launches of K7
+    backward, K5 local, K6 local and K6 local grads, by CUDA symbol); the
+    RBF checkpoint through
+    ``run_flow_export``, ``torch.load`` and a fresh net with
+    ``import_torch``: a pair's flows bitwise equal; a PFF spatial
+    checkpoint of 5 steps the same way: within 1e-5 + 1e-5 |ref| (the mask
+    travels as counts), one K7 forward launch a pair on each side; the
+    Sintel core (``sintel_scene_flows``) on two 6-frame scenes, one from
+    its checkpoint and one from the ``--import-torch`` weights: 5 ``.flo``
+    files each that ``read_flo`` reads back bitwise equal to the returned
+    flows and to ``flow_test_outputs``' flows; the summarize core
+    (``normalized_aepe``) over both scenes with synthetic GT; sintel
+    pairs/s.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each kernel's numbers; K1-K4's, K7's and K8's ``bound_ms`` counts
@@ -313,11 +343,14 @@ def device_ms(fn, reps: int) -> float:
     three times."""
     from torch.profiler import ProfilerActivity, profile
 
+    from sin_inn_tpu_torch.core.profiler import settle
+
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            settle("cuda")
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -347,21 +380,30 @@ def interleaved_device_ms(fns, reps: int):
     B C ...) ``reps`` times under torch.profiler, each call one kernel: per
     name the median over its launches and their spread. In turns, so that
     a drift of the card's clock or of its neighbours' load falls on all of
-    them alike."""
+    them alike. A trace that lost a device event would shift every later
+    launch onto the wrong name, so one that does not hold exactly one event
+    a call is taken again, up to three times (``settle`` keeps the first
+    launches from being lost, ``core/profiler.py``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from sin_inn_tpu_torch.core.profiler import settle
 
     names = list(fns)
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in fns.values():
-                fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            settle("cuda")
+            for _ in range(reps):
+                for fn in fns.values():
+                    fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if len(evs) == reps * len(names):
+            break
     check(len(evs) == reps * len(names),
           f"interleaved timing: {len(evs)} device events for "
           f"{reps} x {len(names)} calls of one kernel each")
@@ -383,12 +425,15 @@ def device_busy(fn, traces: int = 3):
     ``traces`` times and the trace with the most launches is kept."""
     from torch.profiler import ProfilerActivity, profile
 
+    from sin_inn_tpu_torch.core.profiler import settle
+
     fn()
     torch.cuda.synchronize()
     best = None
     for _ in range(traces):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            settle("cuda")
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1739,21 +1784,32 @@ def phase_flow_train_kernels(dev):
         nbytes = px * (3 * c + 2 + 2) * 4
         flops = px * (24 + 24 * c)
         kern = lambda: K6.gather_region_grads(a, fl, q, DY, DX, coord)
+        turns = interleaved_device_ms(
+            {"kernel": kern, "grid_sampler_2d_backward": _grid_grad_call(
+                a, fl, q)}, 200)
         grads_rows.append({
             "shape": [1, FLOW_H, FLOW_W, c], "coord": tag,
-            "max_abs_err": err, "ms": device_ms(kern, 50),
+            "max_abs_err": err, "ms": turns["kernel"]["median_ms"],
             "plain_ms": device_ms(lambda: K6.gather_region_grads_plain(
                 a, fl, q, DY, DX, coord), 10),
-            "library_ms": None, "event_ms": median_ms(kern, 50),
+            "library_ms": turns["grid_sampler_2d_backward"]["median_ms"],
+            "library": "grid_sampler_2d_backward, grid gradient only; no "
+                       "window", "turns": turns,
+            "event_ms": median_ms(kern, 50),
             "bytes": nbytes, "flop": flops,
             "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
             "ops_bound_ms": flops / PEAK_FP32 * 1e3})
         r = grads_rows[-1]
         print(f"[flow train kernels] gather_region_grads {r['shape']} {tag}: "
               f"{r['ms']:.4f} ms on the device, {r['event_ms']:.4f} ms "
-              f"between events (plain {r['plain_ms']:.3f} ms; bound bytes "
+              f"between events (plain {r['plain_ms']:.3f} ms; "
+              f"grid_sampler_2d_backward, grid gradient only, no window, "
+              f"{r['library_ms']:.4f} ms; bound bytes "
               f"{r['bytes_bound_ms']:.4f} / fp32 {r['ops_bound_ms']:.4f} ms) "
               f"max abs err {r['max_abs_err']:.3e}")
+        for n_, t in turns.items():
+            print(f"[flow train kernels] gather_region_grads {tag} in turns: "
+                  f"{_spread_line(n_, t)}")
 
     local_rows = _local_grads_kernels(dev, gen)
 
@@ -1900,22 +1956,52 @@ def _local_grads_kernels(dev, gen):
         flops = px * (24 + 24 * c)
         kern = lambda: K6.gather_region_local_grads(a, fl, q, off, LDY, DX,
                                                     coord)
+        turns = interleaved_device_ms(
+            {"kernel": kern, "grid_sampler_2d_backward": _grid_grad_call(
+                a, fl, q)}, 200)
         rows.append({
             "shape": [1, FLOW_H, FLOW_W, c], "coord": tag,
-            "max_abs_err": err, "ms": device_ms(kern, 50),
+            "max_abs_err": err, "ms": turns["kernel"]["median_ms"],
             "plain_ms": device_ms(lambda: K6.gather_region_grads_plain(
                 a, fl, q, LDY, DX, coord, off_src=off), 10),
-            "library_ms": None, "event_ms": median_ms(kern, 50),
+            "library_ms": turns["grid_sampler_2d_backward"]["median_ms"],
+            "library": "grid_sampler_2d_backward, grid gradient only; no "
+                       "window", "turns": turns,
+            "event_ms": median_ms(kern, 50),
             "bytes": nbytes, "flop": flops,
             "bytes_bound_ms": nbytes / PEAK_BYTES * 1e3,
             "ops_bound_ms": flops / PEAK_FP32 * 1e3})
         r = rows[-1]
         print(f"[flow train kernels] gather_region_local_grads {r['shape']} "
               f"{tag}: {r['ms']:.4f} ms on the device, {r['event_ms']:.4f} ms "
-              f"between events (plain {r['plain_ms']:.3f} ms; bound bytes "
+              f"between events (plain {r['plain_ms']:.3f} ms; "
+              f"grid_sampler_2d_backward, grid gradient only, no window, "
+              f"{r['library_ms']:.4f} ms; bound bytes "
               f"{r['bytes_bound_ms']:.4f} / fp32 {r['ops_bound_ms']:.4f} ms) "
               f"max abs err {r['max_abs_err']:.3e}")
+        for n_, t in turns.items():
+            print(f"[flow train kernels] gather_region_local_grads {tag} in "
+                  f"turns: {_spread_line(n_, t)}")
     return rows
+
+
+def _grid_grad_call(a, fl, q):
+    """The closest single PyTorch call to K6 grads: the backward of
+    ``grid_sample`` (bilinear, zero padding) at the pixels moved by the
+    flow, with the payload as the output's gradient, asking for the grid
+    gradient only (``output_mask`` [False, True]): one kernel, and no
+    window."""
+    _, h, w, _ = a.shape
+    ys, xs = torch.meshgrid(
+        torch.arange(h, device=a.device, dtype=torch.float32),
+        torch.arange(w, device=a.device, dtype=torch.float32), indexing="ij")
+    grid = torch.stack([(xs + fl[0, ..., 0]) / (w - 1) * 2 - 1,
+                        (ys + fl[0, ..., 1]) / (h - 1) * 2 - 1],
+                       -1)[None].contiguous()
+    inp = a.permute(0, 3, 1, 2).contiguous()
+    gout = q.permute(0, 3, 1, 2).contiguous()
+    return lambda: torch.ops.aten.grid_sampler_2d_backward(
+        gout, inp, grid, 0, 0, False, [False, True])
 
 
 def _op_trace(fn):
@@ -3327,6 +3413,408 @@ def phase_irn_exchange(dev, card: str, smi_line: str, srf_cfg):
     return stats
 
 
+# the trace symbol of each kernel: one event a launch
+TRACE_SYMBOLS = {
+    "fused_glow_forward_1x1": r"coupling_1x1_kernel<float, false",
+    "fused_glow_inverse_1x1": r"coupling_1x1_kernel<float, true",
+    # the first of the four row phases of K3 / K4
+    "fused_glow_backward_1x1": r"row_phase_kernel<float, false, 0",
+    "fused_glow_inverse_backward_1x1": r"row_phase_kernel<float, true, 0",
+    "splat_region_local": r"splat_kernel<\d+, true>",
+    "gather_region_local": r"gather_region_kernel<true,",
+    "gather_region_local_grads": r"gather_region_grads_kernel<true>",
+    # K7 backward's fixed-order reduction, once a launch (on a flow train
+    # step no other kernel reduces gradient slots)
+    "fused_inr_backward": r"reduce_partials_kernel",
+}
+
+
+def trace_kernel_counts(path: str, names):
+    """Kernel events of a Chrome trace (``core/profiler.py``'s) by the
+    ``TRACE_SYMBOLS`` of ``names``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    check(kernels, f"trace {path} holds no kernel event")
+    return {n: sum(bool(re.search(TRACE_SYMBOLS[n], k)) for k in kernels)
+            for n in names}, len(kernels)
+
+
+@contextlib.contextmanager
+def _recording(module, name: str, into: list):
+    """Record what ``module.name`` returns while the block runs."""
+    real = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        into.append(real(*a, **kw))
+        return into[-1]
+
+    setattr(module, name, wrapper)
+    try:
+        yield into
+    finally:
+        setattr(module, name, real)
+
+
+def phase_sr_tooling(dev, card: str, smi_line: str, work: str):
+    """14. The tooling of ``sr train`` at the SRF flagship (HR 352x640,
+    float32, the 204-frame synthetic video): the native gather against
+    numpy, ``find_batch_size`` from batch 8 (the memory it gives back, a
+    planted non-OOM fault that must propagate), ``find_lr`` with its launch
+    counts, and ``run_sr_train --profile 3`` with the trace's K1-K4 events
+    against the launch counters."""
+    import gc
+    import os
+    import os.path as path
+
+    from sin_inn_tpu_torch.core import rng as R
+    from sin_inn_tpu_torch.core.config import SRConfig
+    from sin_inn_tpu_torch.data import native
+    from sin_inn_tpu_torch.data import sr_video as SV
+    from sin_inn_tpu_torch.data.synthetic import synthetic_sr_video
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+    from sin_inn_tpu_torch.train import loop as LP
+    from sin_inn_tpu_torch.train import tuner as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stats, counts = {}, {}
+    cfg = SRConfig(scene="chip_smoke_tools", device="cuda",
+                   compute_dtype="float32", working_dir=work,
+                   batch_size=TRAIN_BATCH, epochs=3, print_iter=100,
+                   save_iter=100, profile_steps=3)
+    video = synthetic_sr_video(cfg, num_frames=TRAIN_FRAMES, h=HR_H, w=HR_W)
+    sup, _, _ = SV.make_datasets(video, cfg)
+
+    # the native route, byte for byte the numpy route's
+    check(native.available(), "the native loader is not built (no g++?)")
+    sel = np.arange(TRAIN_BATCH) % len(sup)
+
+    def numpy_gather():
+        win = video.lr[sup.window[sel]]
+        b_, t_, h_, w_, c_ = win.shape
+        return {"lr": np.moveaxis(win, 1, 3).reshape(b_, h_, w_, t_ * c_),
+                "hr": video.hr[sup.indices[sel]]}
+
+    SV.reset_gather_route_counts()
+    got = sup.gather(sel)
+    check(SV.gather_route_counts() == {"native": 1, "numpy": 0},
+          f"gather routes {SV.gather_route_counts()}")
+    ref = numpy_gather()
+    # host ms of each route, 10 calls in turns
+    times = {"native": [], "numpy": []}
+    for _ in range(10):
+        for name, fn in (("native", lambda: sup.gather(sel)),
+                         ("numpy", numpy_gather)):
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    native_ms = statistics.median(times["native"])
+    numpy_ms = statistics.median(times["numpy"])
+    check(got["lr"].shape == (TRAIN_BATCH, HR_H // 8, HR_W // 8, 84)
+          and all(np.array_equal(got[k], ref[k]) for k in ("hr", "lr")),
+          f"the native gather differs from numpy's (lr {got['lr'].shape}, "
+          f"numpy {ref['lr'].shape})")
+    stats["gather_ms"] = {"native": native_ms, "numpy": numpy_ms}
+    print(f"[sr tools] native gather of {TRAIN_BATCH} windows (lr_window "
+          f"{cfg.lr_window}): median {native_ms:.2f} ms, numpy "
+          f"{numpy_ms:.2f} ms (10 calls each in turns, host clock), bytes "
+          f"equal")
+
+    make = lambda b: SV.to_device(sup.gather(np.arange(b) % len(sup)), dev)
+    gen = R.named_fold(R.root_generator(cfg.random_seed, dev), "tune")
+
+    # find_batch_size from batch 8: doubles until out of memory or past 512
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    with _recording(T, "batch_probes", []) as rec:
+        b = T.find_batch_size(cfg, make, gen, start=TRAIN_BATCH, limit=512)
+    probe_s = time.perf_counter() - t0
+    probes = rec[0]
+    ran = [p for p in probes if p["error"] is None]
+    last = probes[-1]
+    check(ran and b == ran[-1]["batch"] and b >= TRAIN_BATCH,
+          f"find_batch_size returned {b}, probes {probes}")
+    check((last["error"] is not None and last["batch"] == 2 * b
+           and last["error"].startswith("OutOfMemoryError"))
+          or (last["error"] is None and 2 * b > 512),
+          f"the doubling stopped otherwise than out of memory or at the "
+          f"limit: {probes}")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - before
+    check(held <= 64 << 20, f"find_batch_size left {held / 2 ** 20:.1f} MiB "
+                            "allocated")
+    peak = ran[-1]["peak_bytes"]
+    stats["batch_probe"] = {"batch": b, "peak_bytes": peak, "seconds":
+                            probe_s, "stopped_by": last["error"] or
+                            "limit 512", "probes": probes,
+                            "held_bytes": held}
+    # the allocator's message up to its account of the card's memory
+    brief = lambda err: err.split(" GPU ")[0] if err else "ran"
+    print(f"[sr tools] find_batch_size from {TRAIN_BATCH}: batch {b}, its "
+          f"peak {peak / 2 ** 30:.2f} GiB, in {probe_s:.1f} s; stopped by "
+          f"{brief(last['error']) if last['error'] else 'the limit 512'}; "
+          f"{held / 2 ** 20:.2f} MiB left allocated; on {card} ({smi_line})")
+    for p in probes:
+        print(f"[sr tools]   probe batch {p['batch']}: peak "
+              f"{(p['peak_bytes'] or 0) / 2 ** 30:.2f} GiB, "
+              f"{brief(p['error'])}")
+
+    # a planted fault that is not out of memory propagates
+    real = T.SR.make_train_step
+
+    def planted(spec, c):
+        step = real(spec, c)
+
+        def run(state, sup_batch, *a, **kw):
+            if sup_batch["hr"].shape[0] == 32:
+                raise RuntimeError("planted fault at batch 32")
+            return step(state, sup_batch, *a, **kw)
+        return run
+
+    T.SR.make_train_step = planted
+    try:
+        T.find_batch_size(cfg, make, gen, start=TRAIN_BATCH, limit=512)
+    except RuntimeError as e:
+        check("planted fault at batch 32" in str(e), f"another error: {e}")
+    else:
+        raise SmokeFailure("find_batch_size swallowed a RuntimeError")
+    finally:
+        T.SR.make_train_step = real
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[sr tools] a RuntimeError planted at batch 32 propagated out of "
+          "find_batch_size")
+
+    # find_lr: the five default LRs, 8 steps each, at batch 8
+    batch = make(TRAIN_BATCH)
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    with _recording(T, "lr_scores", []) as rec:
+        lr = T.find_lr(cfg, batch, gen)
+    torch.cuda.synchronize()
+    lr_s = time.perf_counter() - t0
+    scores = rec[0]
+    steps = sum(r["steps"] for r in scores)
+    run_counts = _all_counts()
+    check([r["lr"] for r in scores] == list(T.DEFAULT_LRS)
+          and all(r["steps"] == 8 or r["score"] == -math.inf
+                  for r in scores), f"find_lr scores {scores}")
+    check(lr == max((r["score"], r["lr"]) for r in scores)[1],
+          f"find_lr picked {lr}")
+    check_counts(run_counts, f"find_lr ({steps} steps)",
+                 fused_glow_forward_1x1=4 * steps,
+                 fused_glow_inverse_1x1=4 * steps,
+                 fused_glow_backward_1x1=4 * steps,
+                 fused_glow_inverse_backward_1x1=4 * steps,
+                 reduce_weight_grads=8 * steps)
+    add_counts(counts, run_counts)
+    stats["find_lr"] = {"lr": lr, "seconds": lr_s, "steps": steps,
+                        "scores": [(r["lr"], r["score"]) for r in scores]}
+    print(f"[sr tools] find_lr: {steps} steps in {lr_s:.2f} s, picked {lr:g};"
+          f" scores " + ", ".join(f"{r['lr']:g}: {r['score']:.6g}"
+                                  for r in scores)
+          + f"; on {card} ({smi_line})")
+    del batch
+
+    # run_sr_train --profile 3: 3 epochs of 2 steps, steps 4-6 traced
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    out = LP.run_sr_train(cfg, video=video)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_counts = _all_counts()
+    n_steps = out["state"].step
+    check(n_steps == 6, f"run_sr_train took {n_steps} steps, want 6")
+    check_counts(run_counts, "run_sr_train --profile 3 (6 steps, 1 eval)",
+                 fused_glow_forward_1x1=4 * 6 + 4,
+                 fused_glow_inverse_1x1=4 * 6 + 4,
+                 fused_glow_backward_1x1=4 * 6,
+                 fused_glow_inverse_backward_1x1=4 * 6,
+                 reduce_weight_grads=8 * 6)
+    add_counts(counts, run_counts)
+    trace = out["trace"]
+    check(trace is not None and trace.startswith(path.join(
+        out["exp_dir"], "checkpoints", "trace")), f"trace at {trace}")
+    in_trace, n_kernels = trace_kernel_counts(trace, COUPLING)
+    check(in_trace == {n: 3 * 4 for n in COUPLING},
+          f"trace of 3 steps: {in_trace}, want 12 of each")
+    stats["profile"] = {"trace_bytes": os.path.getsize(trace),
+                        "kernel_events": n_kernels, "counts": in_trace,
+                        "seconds": run_s}
+    print(f"[sr tools] run_sr_train --profile 3: {run_s:.1f} s; trace "
+          f"{os.path.getsize(trace) / 2 ** 20:.1f} MiB, {n_kernels} kernel "
+          f"events, K1-K4 {in_trace}")
+    return counts, stats
+
+
+def phase_flow_exchange(dev, card: str, smi_line: str):
+    """15. The flow exchange and the dataset entry points at Sintel size:
+    ``flow train --profile 2`` on the RBF net and the default local windows
+    (the trace's kernel events against the launch counters), a PFF spatial
+    checkpoint through ``run_flow_export``, ``torch.load`` and
+    ``--import-torch``, the RBF round trip, the Sintel core on two scenes
+    (one from its checkpoint, one from the imported weights) and the
+    summarize core."""
+    import os
+
+    from sin_inn_tpu_torch.core import rng as R
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.data.flo import read_flo
+    from sin_inn_tpu_torch.data.flow_media import FlowMedia
+    from sin_inn_tpu_torch.data.synthetic import moving_texture_video
+    from sin_inn_tpu_torch.models.inr import flat_leaves
+    from sin_inn_tpu_torch.train import flow as FT
+    from sin_inn_tpu_torch.train import loop as LP
+
+    stats, counts = {}, {}
+    pairs = FLOW_FRAMES - 1
+    init = lambda: R.named_fold(R.root_generator(0), "init")
+    with tempfile.TemporaryDirectory() as work:
+        # flow train --profile 2: one epoch of 5 steps, steps 4-5 traced
+        cfg = FlowConfig(device="cuda", checkpoints_dir=work + "/ck",
+                         results_dir=work + "/results", name="rbf",
+                         epochs=1, profile_steps=2)
+        media = FlowMedia(moving_texture_video(FLOW_FRAMES, FLOW_H, FLOW_W,
+                                               seed=1))
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        out = LP.run_flow_train(cfg, media=media, scene="rbf_scene")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_counts = _all_counts()
+        per_step = dict(splat_region_local=2, gather_region_local=2,
+                        gather_region_local_grads=4, fused_inr_backward=1)
+        check_counts(run_counts, f"flow train --profile 2 ({pairs} steps)",
+                     reduce_weight_grads=pairs,
+                     **{k: v * pairs for k, v in per_step.items()})
+        add_counts(counts, run_counts)
+        in_trace, n_kernels = trace_kernel_counts(out["trace"], per_step)
+        check(in_trace == {k: 2 * v for k, v in per_step.items()},
+              f"trace of 2 steps: {in_trace}, want 2 x {per_step}")
+        stats["profile"] = {"trace_bytes": os.path.getsize(out["trace"]),
+                            "kernel_events": n_kernels, "counts": in_trace}
+        print(f"[flow exchange] flow train --profile 2: {run_s:.1f} s with "
+              f"the trace; {n_kernels} kernel events, "
+              f"{os.path.getsize(out['trace']) / 2 ** 20:.1f} MiB; {in_trace}")
+
+        # the RBF round trip: export, torch.load, import; bitwise
+        path_rbf = LP.run_flow_export(cfg.replace(input_video="x/rbf_scene"))
+        sd = torch.load(path_rbf, weights_only=True)["state_dict"]
+        check(all(k.startswith("net.") for k in sd), f"keys {list(sd)[:3]}")
+        spec, p2, c2, cc2, cs2 = FT.build_flow_model(
+            init(), cfg.replace(import_torch=path_rbf), dev)
+        times = torch.from_numpy(media.times[:1]).to(dev)
+        scale = float(np.float32(media.flow_scale))
+        src = FT.flow_infer(out["spec"], out["state"].params, out["consts"],
+                            times, scale, FLOW_H, FLOW_W)
+        imp = FT.flow_infer(spec, p2, c2, times, scale, FLOW_H, FLOW_W)
+        check(all(torch.equal(a, b) for a, b in zip(src, imp)),
+              "RBF: the imported net's flows differ from the source's")
+        print(f"[flow exchange] RBF export -> torch.load -> import: "
+              f"{len(sd)} tensors, a pair's flows bitwise equal")
+
+        # a PFF spatial checkpoint of a few steps, exported and imported
+        pcfg = FlowConfig(net="PFF", spatially_adaptive=True, device="cuda",
+                          checkpoints_dir=work + "/ck",
+                          results_dir=work + "/results", name="pff",
+                          epochs=1, splat_local_dy="off")
+        media_a = FlowMedia(moving_texture_video(FLOW_FRAMES, FLOW_H, FLOW_W,
+                                                 seed=4))
+        _reset_all_counts()
+        LP.run_flow_train(pcfg, media=media_a, scene="scene_a")
+        torch.cuda.synchronize()
+        add_counts(counts, _all_counts())
+        path_pff = LP.run_flow_export(pcfg.replace(input_video="x/scene_a"))
+        sd = torch.load(path_pff, weights_only=True)["state_dict"]
+        check(sd["net.mask_stashed"].shape == (125000,),
+              f"mask counts {tuple(sd['net.mask_stashed'].shape)}")
+        spec, pa, ca, _, _, ccfg, csa = LP._flow_create_and_restore(
+            pcfg, init(), "scene_a", require="no checkpoint")
+        _, pb, cb, ccb, csb = FT.build_flow_model(
+            init(), pcfg.replace(import_torch=path_pff), dev)
+        _reset_all_counts()
+        times = torch.from_numpy(media_a.times[:1]).to(dev)
+        src = FT.flow_infer(spec, pa, ca, times, scale, FLOW_H, FLOW_W, ccfg,
+                            csa)
+        imp = FT.flow_infer(spec, pb, cb, times, scale, FLOW_H, FLOW_W, ccb,
+                            csb)
+        torch.cuda.synchronize()
+        run_counts = _all_counts()
+        check_counts(run_counts, "a PFF spatial pair from the checkpoint and "
+                                 "from the import", fused_inr_forward=2)
+        add_counts(counts, run_counts)
+        err = max((a - b).abs().max().item() for a, b in zip(src, imp))
+        check(all(bool(((a - b).abs() <= 1e-5 + 1e-5 * a.abs()).all())
+                  for a, b in zip(src, imp)),
+              f"PFF spatial: the imported flows differ by {err:.3e}")
+        check(all(torch.equal(x, y) for (_, x), (_, y) in
+                  zip(flat_leaves(pa), flat_leaves(pb))),
+              "PFF spatial: imported params differ")
+        stats["pff_max_abs_err"] = err
+        print(f"[flow exchange] PFF spatial export -> torch.load -> import "
+              f"({len(sd)} tensors, the mask as 125,000 counts): a pair's "
+              f"flows within {err:.3e} (limit 1e-5 + 1e-5 |ref|), one K7 "
+              f"forward each")
+
+        # the Sintel core: scene_a from its checkpoint, scene_b from the
+        # --import-torch weights; 5 .flo a scene
+        media_b = FlowMedia(moving_texture_video(FLOW_FRAMES, FLOW_H, FLOW_W,
+                                                 seed=5))
+        rng = np.random.RandomState(7)
+        gts = {s: rng.randn(pairs, FLOW_H, FLOW_W, 2).astype(np.float32) * 3
+               for s in ("scene_a", "scene_b")}
+        models = {"scene_a": (pcfg, (spec, pa, ca, ccfg, csa))}
+        bcfg = pcfg.replace(import_torch=path_pff)
+        sb = LP._flow_create_and_restore(bcfg, init(), "scene_b",
+                                         require="no checkpoint")
+        check(sb[4] == 0, "scene_b restored a checkpoint")
+        models["scene_b"] = (bcfg, (sb[0], sb[1], sb[2], sb[5], sb[6]))
+        results, sintel_s = [], 0.0
+        _reset_all_counts()
+        for scene, m in (("scene_a", media_a), ("scene_b", media_b)):
+            c, model = models[scene]
+            outdir = os.path.join(work, "sintel", "final", scene)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flows = LP.sintel_scene_flows(c, m, *model, outdir=outdir)
+            sintel_s += time.perf_counter() - t0
+            names = sorted(os.listdir(outdir))
+            check(names == [f"frame_{i + 1:04d}.flo" for i in range(pairs)],
+                  f"{scene}: {names}")
+            test = LP.flow_test_outputs(c, FlowMedia(m.video,
+                                                     flow=gts[scene]),
+                                        *model)
+            for i, name in enumerate(names):
+                back = read_flo(os.path.join(outdir, name))
+                check(np.array_equal(back, flows[i])
+                      and np.array_equal(back, test["flow12"][i]),
+                      f"{scene}/{name}: the .flo differs from the flows")
+            epe = np.mean([np.sqrt(((flows[i] - gts[scene][i]) ** 2).sum(-1)
+                                   ).mean() for i in range(pairs)])
+            check(abs(test["epe"] - epe) <= 1e-5 * epe,
+                  f"{scene}: EPE {test['epe']} against {epe} from the .flo")
+            results.append({"epe": test["epe"], "num_frames": pairs})
+        torch.cuda.synchronize()
+        run_counts = _all_counts()
+        check_counts(run_counts, "the sintel and test cores, 2 scenes",
+                     fused_inr_forward=4 * pairs)
+        add_counts(counts, run_counts)
+        aepe = LP.normalized_aepe(results)
+        want = sum(r["epe"] * r["num_frames"] for r in results) / (2 * pairs)
+        check(abs(aepe - want) <= 1e-12 * want, f"AEPE {aepe}, want {want}")
+        stats["sintel_pairs_per_sec"] = 2 * pairs / sintel_s
+        stats["aepe"] = aepe
+        print(f"[flow exchange] sintel core: 2 scenes x {pairs} .flo, read "
+              f"back bitwise equal to the flows and to flow_test_outputs'; "
+              f"{stats['sintel_pairs_per_sec']:.2f} pairs/s with the writes, "
+              f"on {card} ({smi_line}); summarize core: AEPE {aepe:.6f} "
+              f"over per-scene EPEs {[r['epe'] for r in results]}")
+    return counts, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3350,15 +3838,19 @@ def main() -> int:
         prog_counts, prog = phase_prog_path(dev, card, smi_line)
         k8_rows, k8_serve_rows, k8_counts = phase_k8(dev, card, smi_line)
         irn = phase_irn_exchange(dev, card, smi_line, train["cfg"])
+        tool_counts, tools = phase_sr_tooling(dev, card, smi_line, work)
+        fx_counts, fx = phase_flow_exchange(dev, card, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
     add_counts(counts, train_counts)
+    add_counts(counts, tool_counts)
     flow_counts = dict(flow["counts"])
     add_counts(flow_counts, ft_counts)
     add_counts(flow_counts, prog_counts)
+    add_counts(flow_counts, fx_counts)
     kernels = []
     for n in COUPLING:
         # K1/K2: the eval/infer shapes (batch 40), as before, with the
@@ -3473,6 +3965,14 @@ def main() -> int:
           f"frames/s, {irn['ms_per_step']:.2f} ms/step, sr test "
           f"{irn['test_frames_per_sec']:.2f} frames/s, on {card} "
           f"({smi_line})")
+    bp = tools["batch_probe"]
+    print(f"[sr tools] find_batch_size: batch {bp['batch']} (peak "
+          f"{bp['peak_bytes'] / 2 ** 30:.2f} GiB, {bp['seconds']:.1f} s); "
+          f"find_lr: {tools['find_lr']['lr']:g} in "
+          f"{tools['find_lr']['seconds']:.2f} s; on {card} ({smi_line})")
+    print(f"[flow exchange] sintel {fx['sintel_pairs_per_sec']:.2f} pairs/s "
+          f"(PFF spatial, with the .flo writes), AEPE {fx['aepe']:.6f}, on "
+          f"{card} ({smi_line})")
     print(f"[done] sr test {fps:.2f} frames/s; train "
           f"{train['frames_per_sec']:.2f} frames/s; bf16 err {bf16_err:.3e}"
           f" (K3 {bwd_bf16_err:.3e}); total "

@@ -13,12 +13,15 @@ their backward passes as hand-written CUDA kernels
 ``csrc/coupling_1x1_bwd.cu``); the GLOW coupling with 3x3-conv subnets as
 CUDA kernels reached through its own module (``ops/cuda/coupling3x3.py``,
 ``csrc/coupling_3x3.cu``, ``csrc/coupling_3x3_bwd.cu``); and the flow
-pipeline on the global and local windows, ``flow train``, ``flow test`` and
-``flow interpolate``, for every
+pipeline on the global and local windows, ``flow train``, ``flow test``,
+``flow interpolate``, ``flow export``, ``flow summarize`` and ``flow
+sintel`` (with the flow half of ``--import-torch``), for every
 INR of the registry, the progressive ones under their linear or spatially
 adaptive controller (``models/controllers.py``), with the windowed splat and
 gather and the fused INR's forward and backward as hand-written CUDA
 kernels (``ops/cuda/splat.py``, ``ops/cuda/gather.py``, ``ops/cuda/inr.py``;
 ``csrc/splat_region.cu``, ``csrc/gather_region.cu``, ``csrc/inr_fwd.cu``,
-``csrc/inr_bwd.cu``).
+``csrc/inr_bwd.cu``); and the tooling of both training commands: the
+auto-tuner (``train/tuner.py``), the profiler (``core/profiler.py``) and the
+native batch loader (``data/native.py``).
 """

@@ -2,16 +2,19 @@
 
 ``python -m sin_inn_tpu_torch.cli sr {train,test,export} ...`` takes the
 reference's ``sr`` flags (``--architecture SRF`` or ``IRN``,
-``--import-torch`` a reference checkpoint, ``--export-out``) plus
-``--device`` (default ``cuda``; a CUDA request without a card fails) and
-``--remat``. ``python -m sin_inn_tpu_torch.cli
-flow {train,test,interpolate} ...`` takes the reference's data, net,
-training, occlusion, controller (``--spatially-adaptive``,
-``--spatial-res``) and window flags (the global and local bounds,
-``--window-refit``, the windowed forms' chunks), ``--use-kernel`` and
-``--device``; ``flow train`` runs the test pass on the trained net when it
-is done, as the reference does. ``flow {export,summarize,sintel}`` are not
-ported yet and exit with code 2.
+``--import-torch`` a reference checkpoint, ``--export-out``, ``--wandb``),
+the tuning and profiling flags (``--auto_batch``, ``--auto_lr``,
+``--profile N``) plus ``--device`` (default ``cuda``; a CUDA request
+without a card fails) and ``--remat``. ``python -m sin_inn_tpu_torch.cli
+flow {train,test,interpolate,export,summarize,sintel} ...`` takes the
+reference's data, net, training, occlusion, controller
+(``--spatially-adaptive``, ``--spatial-res``) and window flags (the global
+and local bounds, ``--window-refit``, the windowed forms' chunks),
+``--import-torch``, ``--export-out``, ``--wandb``, ``--profile N``,
+``--use-kernel`` and ``--device``; ``flow train`` runs the test pass on the
+trained net when it is done, as the reference does. Not ported:
+``--flow-producer``, the mesh and multi-host flags, ``prepare`` and
+``scene-space``.
 """
 
 from __future__ import annotations
@@ -21,9 +24,6 @@ import sys
 from typing import List, Optional
 
 from sin_inn_tpu_torch.core.config import COMPUTE_DTYPES, FlowConfig, SRConfig
-
-_NOT_PORTED = {"flow": ("export", "summarize", "sintel")}
-
 
 def _sr_parser(sub):
     ap = sub.add_parser("sr", help="INN space-time super-resolution")
@@ -67,6 +67,15 @@ def _sr_parser(sub):
     ap.add_argument("--tcr_stop_grad", action="store_true",
                     help="gradient-free TCR warp (reference parity)")
     ap.add_argument("-t", "--temp", type=float, default=0.8)
+    ap.add_argument("--wandb", action="store_true",
+                    help="log metrics and sample frames to wandb too")
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="write one torch.profiler trace of N train steps "
+                         "into <checkpoints>/trace")
+    ap.add_argument("--auto_lr", action="store_true",
+                    help="LR range test before training (auto_lr_find)")
+    ap.add_argument("--auto_batch", action="store_true",
+                    help="probe the largest batch that fits the card")
     ap.add_argument("--val_batch_size", type=int, default=40)
     ap.add_argument("--hidden_channels", type=int, default=256)
     ap.add_argument("--dense_gc", type=int, default=32)
@@ -101,6 +110,7 @@ def sr_config_from_args(a) -> SRConfig:
         hidden_channels=a.hidden_channels, dense_gc=a.dense_gc,
         compute_dtype=a.compute_dtype,
         use_kernel=a.use_kernel, device=a.device, remat=a.remat,
+        profile_steps=a.profile, auto_lr=a.auto_lr, auto_batch=a.auto_batch,
     )
 
 
@@ -116,6 +126,9 @@ def _flow_parser(sub):
     ap.add_argument("operation",
                     choices=["train", "test", "summarize", "sintel",
                              "export", "interpolate"])
+    ap.add_argument("--export-out", default=None, metavar="CKPT",
+                    help="flow export: output path for the reference-"
+                         "loadable torch state_dict")
     ap.add_argument("--interp-factor", type=int, default=2, metavar="N",
                     help="flow interpolate: temporal upsampling factor "
                          "(N-1 synthesized frames per adjacent pair)")
@@ -187,6 +200,18 @@ def _flow_parser(sub):
                          "windowed forms for the warps and splats)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default), cuda:N or cpu")
+    ap.add_argument("--wandb", action="store_true",
+                    help="log metrics and the flow / occlusion videos to "
+                         "wandb too")
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="write one torch.profiler trace of N train steps "
+                         "into <checkpoints>/<scene>/<name>/trace")
+    ap.add_argument("--import-torch", default=None, metavar="CKPT",
+                    help="seed weights, encoding buffers and the controller "
+                         "mask from a reference torch/Lightning flow "
+                         "checkpoint; a framework checkpoint on disk takes "
+                         "precedence (train resume and every other "
+                         "operation), with a warning")
 
 
 def flow_config_from_args(a) -> FlowConfig:
@@ -207,7 +232,8 @@ def flow_config_from_args(a) -> FlowConfig:
         splat_chunk=a.splat_chunk, splat_max_dx=a.splat_max_dx,
         splat_col_chunk=a.splat_col_chunk, splat_local_dy=a.splat_local_dy,
         splat_local_dx=a.splat_local_dx, window_refit=a.window_refit,
-        flow_dir=a.flow_dir, device=a.device,
+        flow_dir=a.flow_dir, device=a.device, profile_steps=a.profile,
+        import_torch=a.import_torch,
     )
 
 
@@ -217,37 +243,41 @@ def main(argv: Optional[List[str]] = None) -> int:
     _sr_parser(sub)
     _flow_parser(sub)
     a = parser.parse_args(argv)
-
-    if a.operation in _NOT_PORTED.get(a.command, ()):
-        print(f"{a.command} {a.operation}: not ported yet to "
-              "sin_inn_tpu_torch (use python -m sin_inn_tpu.cli)",
-              file=sys.stderr)
-        return 2
     from sin_inn_tpu_torch.train import loop as L
 
     if a.command == "flow":
         cfg = flow_config_from_args(a)
         if a.operation == "train":
-            out = L.run_flow_train(cfg)
+            out = L.run_flow_train(cfg, use_wandb=a.wandb, keep_writer=True)
             eff = out["cfg"]
             if eff.test_size != eff.size:
                 # the bounds were resolved at the train frame size: another
                 # test size starts again from the values given
                 eff = eff.replace(**{k: getattr(cfg, k) for k in
                                      FlowConfig.WINDOW_BOUND_KEYS})
-            print(L.run_flow_test(eff, scene=out["scene"], spec=out["spec"],
-                                  params=out["state"].params,
-                                  consts=out["consts"],
-                                  ctrl_cfg=out["state"].ctrl_cfg,
-                                  ctrl_state=out["state"].ctrl_state))
+            try:
+                print(L.run_flow_test(
+                    eff, scene=out["scene"], spec=out["spec"],
+                    params=out["state"].params, consts=out["consts"],
+                    ctrl_cfg=out["state"].ctrl_cfg,
+                    ctrl_state=out["state"].ctrl_state,
+                    writer=out["writer"]))
+            finally:
+                out["writer"].close()
         elif a.operation == "test":
-            print(L.run_flow_test(cfg))
+            print(L.run_flow_test(cfg, use_wandb=a.wandb))
+        elif a.operation == "export":
+            print(L.run_flow_export(cfg, out=a.export_out))
+        elif a.operation == "summarize":
+            L.run_flow_summarize(cfg)
+        elif a.operation == "sintel":
+            print(L.run_flow_sintel(cfg))
         else:
             print(L.run_flow_interpolate(cfg, factor=a.interp_factor))
         return 0
     cfg = sr_config_from_args(a)
     if a.operation == "train":
-        out = L.run_sr_train(cfg)
+        out = L.run_sr_train(cfg, use_wandb=a.wandb)
         print(out["exp_dir"])
         return 0
     if a.operation == "export":

@@ -8,22 +8,20 @@
 * ``use_kernel`` replaces ``use_pallas``: ``"auto"`` routes every 1x1 GLOW
   coupling through the fused kernels (except in ``float32_highest``),
   ``"off"`` keeps them on plain convolutions.
-* The multi-chip, profiling and auto-tuning fields are left out until their
-  slices are ported.
+* The multi-chip fields are left out until their slice is ported.
 * ``donate_state`` has no counterpart: the Adam step updates the
   parameters and its moments in place, so no second copy of the state is
   ever made.
 
 ``FlowConfig`` is the reference's ``FlowConfig`` narrowed to the fields
-that ``flow train``, ``flow test`` and ``flow interpolate`` read, with the
-same ``device`` field and ``use_kernel`` in place of ``use_pallas``. With
+that the ``flow`` operations read, with the same ``device`` field and
+``use_kernel`` in place of ``use_pallas``. With
 both window bounds set, the splat and the metric warps run the windowed
 kernels on CUDA tensors and their plain versions on CPU tensors: the local
 ones (K5 local, K6 local) when the local row bound is set, else the static
 ones (K5, K6); ``use_kernel="off"`` takes the windowed forms of
-``ops/warp.py`` and ``ops/splat.py`` instead. The pseudo-GT producer,
-checkpoint import, profiling and multi-chip fields come with the code that
-reads them.
+``ops/warp.py`` and ``ops/splat.py`` instead. The pseudo-GT producer and
+multi-chip fields come with the code that reads them.
 """
 
 from __future__ import annotations
@@ -103,6 +101,13 @@ class SRConfig:
     device: str = "cuda"
     # per-coupling activation recompute in the backward (torch checkpoint)
     remat: bool = False
+    # --profile N: one torch.profiler trace of N train steps after a warm-up,
+    # into <checkpoints>/trace (a Chrome trace TensorBoard reads)
+    profile_steps: int = 0
+    # auto-tuning before the fit (the reference enables Lightning's
+    # auto_lr_find / auto_scale_batch_size): train/tuner.py
+    auto_lr: bool = False
+    auto_batch: bool = False
 
     def __post_init__(self):
         if self.architecture not in ("SRF", "IRN"):
@@ -263,6 +268,13 @@ class FlowConfig:
     use_kernel: str = "auto"
     # torch device string; entry points never fall back from 'cuda'
     device: str = "cuda"
+    # --profile N: one torch.profiler trace of N train steps after a warm-up,
+    # into <checkpoints>/trace
+    profile_steps: int = 0
+    # seed params, encoding buffers and the controller mask from a reference
+    # torch / Lightning flow checkpoint (models/torch_import.py); a framework
+    # checkpoint on disk (resume) takes precedence over the import
+    import_torch: Optional[str] = None
 
     def __post_init__(self):
         if self.edge_func not in ("exp", "gauss"):

@@ -3,9 +3,11 @@
 Counterpart of ``sin_inn_tpu/core/metrics.py``. Scalars go to
 ``<directory>/<run_name>.metrics.jsonl`` (one record per ``log``) and the
 hyperparameters to ``<run_name>.config.json``. wandb is imported only when
-``use_wandb`` is set, and a missing or failing wandb leaves the local logs
-alone. Single-process runs are always the primary process (multi-GPU runs
-come with their slice).
+``use_wandb`` is set (scalars, sample frames, the flow and occlusion
+videos), and a missing or failing wandb leaves the local logs alone;
+``log_artifact`` writes a metadata sidecar beside an artifact.
+Single-process runs are always the primary process (multi-GPU runs come
+with their slice).
 """
 
 from __future__ import annotations
@@ -55,10 +57,32 @@ class MetricsWriter:
         if self._wandb is not None:
             self._wandb.log(scalars, step=step)
 
+    def log_artifact(self, path: str, metadata: Dict[str, Any]):
+        """Write a metadata JSON sidecar beside an artifact file."""
+        with open(path + ".json", "w") as f:
+            json.dump({k: _to_py(v) for k, v in metadata.items()}, f,
+                      indent=2)
+
     @property
     def wants_media(self) -> bool:
         """True when media logging would reach wandb."""
         return self._wandb is not None
+
+    def log_media(self, step: int, name: str, frames, fps: int = 4):
+        """Log a video (``frames``: (T, H, W, C) uint8) to wandb when
+        enabled; the local GIFs are the callers' own."""
+        if self._wandb is None:
+            return
+        import numpy as np
+        import wandb
+
+        arr = np.asarray(frames)
+        if arr.ndim == 3:
+            arr = arr[None]
+        # wandb.Video takes (T, C, H, W)
+        self._wandb.log({name: wandb.Video(arr.transpose(0, 3, 1, 2),
+                                           fps=fps, format="gif")},
+                        step=step)
 
     def log_image(self, step: int, name: str, image):
         """Log one image to wandb when enabled."""

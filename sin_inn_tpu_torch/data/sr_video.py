@@ -1,9 +1,11 @@
 """Single-video SR datasets: host-cached frames, device feeding.
 
-Counterpart of ``sin_inn_tpu/data/sr_video.py`` with the numpy gather path
-(the native loader comes later). The whole video is decoded once into host
-uint8 arrays; batches are fancy indexing. Frames go to the device as uint8
-from pinned memory (``non_blocking``) and are normalized there.
+Counterpart of ``sin_inn_tpu/data/sr_video.py``. The whole video is decoded
+once into host uint8 arrays. A batch is assembled by the native loader
+(``data/native.py``, one pass over the frame cache) where it is built, else
+by numpy fancy indexing; :func:`gather_route_counts` tells which route each
+gather took. Frames go to the device as uint8 from pinned memory
+(``non_blocking``) and are normalized there.
 
 Index semantics are the reference's:
   * train (supervised): every ``120 // fps``-th frame in
@@ -26,6 +28,19 @@ import numpy as np
 import torch
 
 from sin_inn_tpu_torch.core.config import SRConfig
+from sin_inn_tpu_torch.data import native
+
+# gathers taken by each route since the last reset
+_GATHER_ROUTES = {"native": 0, "numpy": 0}
+
+
+def gather_route_counts() -> Dict[str, int]:
+    return dict(_GATHER_ROUTES)
+
+
+def reset_gather_route_counts() -> None:
+    for k in _GATHER_ROUTES:
+        _GATHER_ROUTES[k] = 0
 
 
 def _read_frames(directory: str, dtype=np.uint8) -> np.ndarray:
@@ -115,12 +130,34 @@ class SRDataset:
         return len(self.indices)
 
     def gather(self, sel: np.ndarray) -> Dict[str, np.ndarray]:
-        """Assemble a batch for sample positions ``sel`` (uint8 arrays)."""
-        lr = self.video.lr[self.window[sel]]        # (B, 2w+1, h, w, 4)
+        """Assemble a batch for sample positions ``sel`` (uint8 arrays): the
+        native loader where it is built, else numpy."""
+        win = self.window[sel]                      # (B, 2w+1)
+        if native.available():
+            _GATHER_ROUTES["native"] += 1
+            return {"hr": native.gather_frames(self.video.hr,
+                                               self.indices[sel]),
+                    "lr": native.gather_windows(self.video.lr, win)}
+        _GATHER_ROUTES["numpy"] += 1
+        lr = self.video.lr[win]                     # (B, 2w+1, h, w, 4)
         b, t, h, w, c = lr.shape
         lr = np.moveaxis(lr, 1, 3).reshape(b, h, w, t * c)
         hr = self.video.hr[self.indices[sel]]
         return {"hr": hr, "lr": lr}
+
+    def native_prefetch(self, batch_size: int,
+                        shuffle: Optional[bool] = None
+                        ) -> Optional[native.Prefetcher]:
+        """The batches of one pass in the dataset's order (shuffled by its
+        own stream when ``shuffle``, default the dataset's), assembled
+        ahead by the native loader's thread; None where it is not built."""
+        if not native.available():
+            return None
+        order = np.arange(len(self))
+        if self.shuffle if shuffle is None else shuffle:
+            self._rng.shuffle(order)
+        return native.Prefetcher(self.video.lr, self.video.hr, self.window,
+                                 self.indices, order, batch_size)
 
     def device_cache(self, batch_size: int, device) -> List[Dict[str, torch.Tensor]]:
         """Pre-gather every batch (in order) and keep it on ``device``."""

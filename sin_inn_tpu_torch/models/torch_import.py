@@ -1,12 +1,13 @@
-"""Import and export reference (torch / PyTorch-Lightning) SR checkpoints.
+"""Import and export reference (torch / PyTorch-Lightning) checkpoints.
 
-Counterpart of the SR half of ``sin_inn_tpu/models/torch_import.py``. The
-reference trains ``SingleVideoINN`` Lightning modules that hold the network
-at ``self.inn``; this module maps such a ``state_dict`` onto the params list
-of the matching :func:`sin_inn_tpu_torch.models.inn.build_inn_spec` spec
-(``sr test --import-torch ckpt`` renders with reference-trained weights,
-``sr train --import-torch`` fine-tunes from them), and writes a params list
-back out in the same schema (``sr export``). Two families:
+Counterpart of ``sin_inn_tpu/models/torch_import.py``, its SR half and its
+flow half. The reference trains ``SingleVideoINN`` Lightning modules that
+hold the network at ``self.inn``; this module maps such a ``state_dict``
+onto the params list of the matching
+:func:`sin_inn_tpu_torch.models.inn.build_inn_spec` spec (``sr test
+--import-torch ckpt`` renders with reference-trained weights, ``sr train
+--import-torch`` fine-tunes from them), and writes a params list back out
+in the same schema (``sr export``). Two families:
 
 * **IRN** (``InvRescaleNet``): ``operations.{i}.haar_weights`` for each
   parameter-free Haar squeeze (checked against the fixed bank it is built
@@ -24,8 +25,20 @@ back out in the same schema (``sr export``). Two families:
 The port keeps ``torch.nn.Conv2d``'s OIHW weights, so no weight is
 transposed either way. Imported params are float32 CPU tensors. A framework
 checkpoint on disk takes precedence over ``--import-torch``
-(``train/loop.py``): the import seeds a run, resume continues one. The flow
-checkpoints' half of the reference module is not ported.
+(``train/loop.py``): the import seeds a run, resume continues one.
+
+Flow checkpoints are the reference's ``FlowTrainer`` state dicts, the net at
+``net.`` (``net.model.`` inside a progressive controller): the MLP's
+``nn.Linear`` layers at ``model.model.{2j}`` (a SIREN's sine layers at
+``model.{j}.linear``, its last linear bare at ``model.{n}``), the encoding's
+buffers at ``encode.<name>`` (``_ENC_BUFFERS``), and for a progressive net
+the controller's mask as its stashed counts ``net.mask_stashed`` (a
+spatial controller adds ``in_progress``, ``log_buffer``, ``log_counter``).
+The port's INR keeps the JAX package's (fan_in, fan_out) layout, so the
+mapping is the JAX package's: each linear weight is transposed. The dense
+mask is rebuilt from the counts by the reference's ``load_mask`` rule
+(:func:`mask_from_counts`); the controller's iteration and block pointers,
+which the reference does not save, start fresh, as in a reference reload.
 """
 
 from __future__ import annotations
@@ -332,6 +345,183 @@ def renumber_module_list(sd: Dict[str, torch.Tensor],
                  f"{m.group(3)}")
         out[k] = v
     return out
+
+
+# ===========================================================================
+# Flow checkpoints
+# ===========================================================================
+
+# spec.encoding -> [(reference buffer name, the port's, trainable?), ...]
+_ENC_BUFFERS = {
+    "gaussian_ff": [("frequencies", "frequencies", False)],
+    "uniform_ff": [("frequencies", "frequencies", False)],
+    "rotated_ff": [("frequencies", "frequencies", True),
+                   ("magnitudes", "magnitudes", False)],
+    "positional": [("freqs", "freqs", False)],
+    "rbf": [("centres", "centres", False), ("sigma", "sigma", False)],
+    "rbf_grid_random": [("offsets", "offsets", False),
+                        ("sigma", "sigma", False)],
+    "rbf_grid_uniform": [("offsets", "offsets", False),
+                         ("sigma", "sigma", False)],
+    "piecewise_gaussian": [("frequencies", "frequencies", False)],
+    "piecewise_uniform": [("frequencies", "frequencies", False)],
+}
+
+
+def mask_from_counts(counts, encoding_dim: int) -> torch.Tensor:
+    """The reference's ``load_mask``: counts (cells,) -> the soft mask
+    (cells, encoding_dim), ones below floor(count) and the count's fraction
+    at channel floor(count). float32 on the CPU."""
+    counts = torch.as_tensor(counts, dtype=torch.float32).reshape(-1).cpu()
+    idx = torch.arange(encoding_dim)[None, :]
+    fl = torch.floor(counts)[:, None]
+    mask = (idx < fl).to(torch.float32)
+    boundary = (idx == fl) & (counts[:, None] < encoding_dim)
+    return torch.where(boundary, torch.remainder(counts, 1.0)[:, None], mask)
+
+
+def _linear(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """A torch ``nn.Linear`` at ``prefix`` -> {'w': (in, out), 'b': (out,)}."""
+    wk, bk = f"{prefix}.weight", f"{prefix}.bias"
+    for k in (wk, bk):
+        if k not in sd:
+            raise TorchImportError(f"missing key {k!r}")
+    w = sd[wk]
+    if w.dim() != 2:
+        raise TorchImportError(f"{wk}: expected a 2-D linear weight, got "
+                               f"shape {tuple(w.shape)}")
+    return {"w": w.t().contiguous(), "b": sd[bk]}
+
+
+def _like(v: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    return v.to(device=want.device, dtype=want.dtype)
+
+
+def _mlp_prefix(spec, mp: str, j: int, n: int) -> str:
+    """The reference key prefix of MLP layer j of n."""
+    if spec.kind == "siren":
+        # sine layers wrap their linear; the last linear sits bare
+        return f"{mp}model.{j}" if j == n - 1 else f"{mp}model.{j}.linear"
+    return f"{mp}model.model.{2 * j}"
+
+
+def import_flow_state_dict(spec, ctrl_cfg, ctrl_state, params, consts, ckpt):
+    """Import a reference flow checkpoint onto (params, consts, ctrl_state).
+
+    ``spec``, ``ctrl_cfg`` and the templates come from
+    ``train/flow.py`` ``build_flow_model``; every imported tensor is
+    shape-checked against its template and lands on its device and dtype.
+    Returns the updated (params, consts, ctrl_state); the templates are left
+    as they were."""
+    from sin_inn_tpu_torch.models import controllers as ctrl
+
+    sd = {(k[len("net."):] if k.startswith("net.") else k): v
+          for k, v in flatten_checkpoint(ckpt).items()}
+    wrapped = "mask_stashed" in sd
+    if wrapped and not spec.is_progressive:
+        raise TorchImportError(
+            f"checkpoint is controller-wrapped (mask_stashed present) but "
+            f"--net {spec.name} is not progressive")
+    if spec.is_progressive and not wrapped:
+        raise TorchImportError(
+            f"--net {spec.name} is progressive but the checkpoint has no "
+            f"controller mask — was it trained with a non-progressive net?")
+    mp = "model." if wrapped else ""
+    consumed = set()
+    params = {k: ([dict(layer) for layer in v] if k == "mlp" else dict(v))
+              for k, v in params.items()}
+    consts = {k: dict(v) for k, v in consts.items()}
+
+    def take(dst, dst_key, src_key):
+        if src_key not in sd:
+            raise TorchImportError(f"missing key {src_key!r}")
+        v, want = sd[src_key], dst[dst_key]
+        if tuple(v.shape) != tuple(want.shape):
+            raise TorchImportError(
+                f"{src_key}: shape {tuple(v.shape)}, expected "
+                f"{tuple(want.shape)} — wrong --num-frequencies/"
+                f"--hidden-dim/--num-layers for this checkpoint?")
+        dst[dst_key] = _like(v, want)
+        consumed.add(src_key)
+
+    mlp = params["mlp"]
+    for j in range(len(mlp)):
+        prefix = _mlp_prefix(spec, mp, j, len(mlp))
+        lin = _linear(sd, prefix)
+        _check_shapes(j, lin, mlp[j])
+        mlp[j] = {k: _like(lin[k], mlp[j][k]) for k in lin}
+        consumed.update({f"{prefix}.weight", f"{prefix}.bias"})
+
+    if spec.kind == "encoded":
+        for ref_name, ours, trainable in _ENC_BUFFERS[spec.encoding]:
+            take(params["enc"] if trainable else consts["enc"], ours,
+                 f"{mp}encode.{ref_name}")
+
+    if wrapped:
+        mask = mask_from_counts(sd["mask_stashed"], spec.encoding_dim)
+        consumed.add("mask_stashed")
+        if isinstance(ctrl_state, ctrl.SpatialState):
+            if mask.shape[0] != ctrl_cfg.cells:
+                raise TorchImportError(
+                    f"spatial mask has {mask.shape[0]} cells, config grid "
+                    f"has {ctrl_cfg.cells} (res {ctrl_cfg.res}^"
+                    f"{ctrl_cfg.mask_dim}) — wrong --spatial-res?")
+            repl = {"mask": _like(mask, ctrl_state.mask)}
+            for name in ("in_progress", "log_buffer", "log_counter"):
+                if name in sd:
+                    v, tmpl = sd[name], getattr(ctrl_state, name)
+                    if tuple(v.shape) != tuple(tmpl.shape):
+                        raise TorchImportError(
+                            f"{name}: shape {tuple(v.shape)}, expected "
+                            f"{tuple(tmpl.shape)}")
+                    repl[name] = _like(v, tmpl)
+                    consumed.add(name)
+            ctrl_state = ctrl_state._replace(**repl)
+        else:
+            if mask.shape[0] != 1:
+                raise TorchImportError(
+                    f"checkpoint mask is spatial ({mask.shape[0]} cells) but "
+                    f"--spatially-adaptive is off")
+            ctrl_state = ctrl_state._replace(
+                mask=_like(mask[0], ctrl_state.mask))
+
+    _check_leftovers(sd, consumed)
+    return params, consts, ctrl_state
+
+
+def load_flow_reference_checkpoint(path: str, spec, ctrl_cfg, ctrl_state,
+                                   params, consts):
+    """torch.load a reference flow checkpoint and import it onto the
+    templates of ``build_flow_model``."""
+    return import_flow_state_dict(spec, ctrl_cfg, ctrl_state, params, consts,
+                                  _torch_load(path))
+
+
+def export_flow_state_dict(spec, ctrl_state, params,
+                           consts) -> Dict[str, torch.Tensor]:
+    """A flow INR (and its controller) -> a reference ``FlowTrainer``
+    state_dict (keys ``net.*``, float32 CPU tensors). The controller mask
+    leaves as the reference's own stashed counts, ``mask.sum(-1)``."""
+    from sin_inn_tpu_torch.models import controllers as ctrl
+
+    cpu = lambda t: t.detach().to("cpu", torch.float32).contiguous()
+    sd: Dict[str, torch.Tensor] = {}
+    mp = "net.model." if ctrl_state is not None else "net."
+    mlp = params["mlp"]
+    for j, lin in enumerate(mlp):
+        prefix = _mlp_prefix(spec, mp, j, len(mlp))
+        sd[f"{prefix}.weight"] = cpu(lin["w"].t())
+        sd[f"{prefix}.bias"] = cpu(lin["b"])
+    if spec.kind == "encoded":
+        for ref_name, ours, trainable in _ENC_BUFFERS[spec.encoding]:
+            src = params["enc"] if trainable else consts["enc"]
+            sd[f"{mp}encode.{ref_name}"] = cpu(src[ours])
+    if ctrl_state is not None:
+        sd["net.mask_stashed"] = cpu(ctrl_state.mask).sum(-1).reshape(-1)
+        if isinstance(ctrl_state, ctrl.SpatialState):
+            for name in ("in_progress", "log_buffer", "log_counter"):
+                sd[f"net.{name}"] = cpu(getattr(ctrl_state, name))
+    return sd
 
 
 def save_reference_checkpoint(path: str, sd: Dict[str, torch.Tensor]) -> str:

@@ -3,7 +3,8 @@
 Counterpart of ``sin_inn_tpu/train/flow.py``: ``pose_grid``,
 ``flow_forward`` (with the controller's mask for a progressive net),
 ``_splat_ops`` and ``_flow_offsets`` (the routes of the warps and splats),
-the training side (``FlowTrainState``, ``build_flow_model``,
+the training side (``FlowTrainState``, ``build_flow_model`` with the
+``--import-torch`` branch of ``create_flow_state``,
 ``photometric_flow_loss`` with the window monitors, ``flow_loss``,
 ``create_flow_state``, ``make_flow_train_step`` with the controller's
 transition), ``flow_infer`` (the function ``make_flow_infer`` jits),
@@ -93,10 +94,18 @@ def controller_init(ctrl_cfg, device="cpu"):
 
 def build_flow_model(gen: torch.Generator, cfg: FlowConfig, device="cpu"):
     """(spec, params, consts, ctrl_cfg, ctrl_state): the config's net and,
-    for a progressive one, its controller."""
+    for a progressive one, its controller. With ``cfg.import_torch`` the
+    weights, encoding buffers and controller mask come from that reference
+    checkpoint, every tensor shape-checked against the config's."""
     spec, params, consts = build_inr(gen, cfg.net, cfg, device)
     ctrl_cfg = controller_config(spec, cfg)
-    return spec, params, consts, ctrl_cfg, controller_init(ctrl_cfg, device)
+    ctrl_state = controller_init(ctrl_cfg, device)
+    if cfg.import_torch:
+        from sin_inn_tpu_torch.models.torch_import import \
+            load_flow_reference_checkpoint
+        params, consts, ctrl_state = load_flow_reference_checkpoint(
+            cfg.import_torch, spec, ctrl_cfg, ctrl_state, params, consts)
+    return spec, params, consts, ctrl_cfg, ctrl_state
 
 
 def pose_grid(times: torch.Tensor, h: int, w: int,

@@ -1,20 +1,25 @@
 """Entry points: SR (``sr train``, ``sr test``, ``sr export``) and flow
-(``flow train``, ``flow test``, ``flow interpolate``).
+(``flow train``, ``flow test``, ``flow interpolate``, ``flow export``,
+``flow summarize``, ``flow sintel``).
 
 Counterpart of ``sin_inn_tpu/train/loop.py`` on one device: for SR,
-``sr_dirs``, ``_warn_ckpt_overrides_import``, ``_sr_create_and_restore``
-(with the ``--import-torch`` branch), ``run_sr_train``, ``run_sr_test`` and
-``run_sr_export``; for flow, ``flow_ckpt_dir``, ``_flow_create_and_restore``,
-the window bounds (``_q16``, ``_q8p``, the sidecar ``_save_window_bounds``,
+``sr_dirs``, ``_warn_ckpt_overrides_import`` (the one precedence rule of
+``--import-torch`` for both pipelines), ``_sr_create_and_restore`` (with the
+``--import-torch`` branch), ``run_sr_train`` (with ``--auto_batch``,
+``--auto_lr`` and ``--profile``), ``run_sr_test`` and ``run_sr_export``;
+for flow, ``flow_ckpt_dir``, ``_flow_create_and_restore`` (with the
+``--import-torch`` branch), ``_scene_flow_dir``, the window bounds
+(``_q16``, ``_q8p``, the sidecar ``_save_window_bounds``,
 ``_load_window_bounds``, ``_load_window_hist``, ``_inference_bounds``, the
 GT-flow probe ``_resolve_and_probe_splat_bounds`` and the mid-training
-refit ``_refit_window_bounds``), ``run_flow_train``, ``run_flow_test`` and
-``run_flow_interpolate``. The frame loops are factored out as in-memory
-cores (:func:`sr_test_frames`, :func:`flow_test_outputs`,
-:func:`interpolate_frames`) that return numpy arrays and uint8 frames
-without touching imageio or ffmpeg. The pseudo-GT producers are not ported,
-nor are the mesh, tuner and profiler branches, the flow half of
-``--import-torch`` and ``flow {export,summarize,sintel}``.
+refit ``_refit_window_bounds``), ``run_flow_train`` (with ``--profile``),
+``run_flow_test`` (with the wandb media), ``run_flow_interpolate``,
+``run_flow_export``, ``run_flow_summarize`` and ``run_flow_sintel``. The
+frame loops are factored out as in-memory cores (:func:`sr_test_frames`,
+:func:`flow_test_outputs`, :func:`interpolate_frames`,
+:func:`sintel_scene_flows`, :func:`normalized_aepe`) that return numpy
+arrays and uint8 frames without touching imageio or ffmpeg. The pseudo-GT
+producers (``--flow-producer``) and the mesh branches are not ported.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ from sin_inn_tpu_torch.core.config import FlowConfig, SRConfig
 from sin_inn_tpu_torch.core.device import resolve_device
 from sin_inn_tpu_torch.core.metrics import MetricsWriter
 from sin_inn_tpu_torch.core.preempt import GracefulStop
+from sin_inn_tpu_torch.core.profiler import TraceWindow
 from sin_inn_tpu_torch.data import flow_media
+from sin_inn_tpu_torch.data.flo import write_flo
 from sin_inn_tpu_torch.data.flow_viz import flow_to_image
 from sin_inn_tpu_torch.data.sr_video import (SRVideo, make_datasets,
                                              prefetch_to_device, to_device)
@@ -76,19 +83,18 @@ def _check_params(fresh, restored) -> None:
 _log = logging.getLogger(__name__)
 
 
-def _warn_ckpt_overrides_import(cfg: SRConfig, store: CheckpointStore
-                                ) -> SRConfig:
-    """One precedence rule for train, test and export: a framework
-    checkpoint on disk wins over ``--import-torch`` (the import seeds a run,
-    resume continues one), loudly, and the reference file is then not
-    read at all."""
+def _warn_ckpt_overrides_import(cfg, store: CheckpointStore):
+    """One precedence rule for every entry point of both pipelines (an
+    ``SRConfig`` or a ``FlowConfig``): a framework checkpoint on disk wins
+    over ``--import-torch`` (the import seeds a run, resume continues one),
+    loudly, and the reference file is then not read at all."""
     step = store.latest_step()
     if cfg.import_torch and step is not None:
         _log.warning(
             "--import-torch %s ignored: framework checkpoint at %s (step %d) "
             "takes precedence. Delete that checkpoint dir or point "
-            "--resume_state elsewhere to run from the imported weights.",
-            cfg.import_torch, store.directory, step)
+            "--resume_state / --name elsewhere to run from the imported "
+            "weights.", cfg.import_torch, store.directory, step)
         return cfg.replace(import_torch=None)
     return cfg
 
@@ -131,6 +137,20 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
     sup, unsup, val = make_datasets(video, cfg)
 
     root = R.root_generator(cfg.random_seed)
+    dev_root = R.root_generator(cfg.random_seed, device)
+    # auto-tuning before the fit (the reference's auto_scale_batch_size,
+    # then auto_lr_find), on the first windows of the supervised set
+    probe = lambda b: to_device(sup.gather(np.arange(b) % max(len(sup), 1)),
+                                device)
+    if cfg.auto_batch:
+        from sin_inn_tpu_torch.train.tuner import find_batch_size
+        cfg = cfg.replace(batch_size=find_batch_size(
+            cfg, probe, R.named_fold(dev_root, "tune"),
+            start=cfg.batch_size))
+    if cfg.auto_lr:
+        from sin_inn_tpu_torch.train.tuner import find_lr
+        cfg = cfg.replace(learning_rate=find_lr(
+            cfg, probe(cfg.batch_size), R.named_fold(dev_root, "tune")))
     spec, state, store, start_epoch = _sr_create_and_restore(
         cfg, R.named_fold(root, "init"))
     step = SR.make_train_step(spec, cfg)
@@ -144,7 +164,6 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
                            use_wandb=use_wandb, wandb_project="sin-inn",
                            hyperparams=cfg.__dict__)
 
-    dev_root = R.root_generator(cfg.random_seed, device)
     step_gen = R.named_fold(dev_root, "train")
     val_gen = R.named_fold(dev_root, "val")
     use_tcr = cfg.lambda_bwd_tcr > 0
@@ -157,6 +176,9 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
     # once, and replay them each epoch with no host work
     cached = sup.device_cache(cfg.batch_size, device)
     val_cached = val.device_cache(cfg.val_batch_size, device)
+    # --profile N: one trace of N train steps after two warm-up steps
+    tracer = TraceWindow(path.join(store.directory, "trace"),
+                         cfg.profile_steps, device=device)
     stop = GracefulStop().install()
     try:
         for epoch in range(start_epoch, cfg.epochs):
@@ -165,6 +187,7 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
                     unsup.random_batch(sup_batch["hr"].shape[0]), device)
                     if use_tcr else None)
                 aux = step(state, sup_batch, unsup_batch, step_gen)
+                tracer.tick()
                 frames_done += int(sup_batch["hr"].shape[0])
 
             if (epoch + 1) % cfg.print_iter == 0 or epoch == cfg.epochs - 1:
@@ -201,9 +224,12 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
                 break
     finally:
         stop.restore()
+        tracer.close()
         writer.close()
     return {"state": state, "spec": spec, "metrics": last_metrics,
-            "exp_dir": exp_dir, "start_epoch": start_epoch}
+            "exp_dir": exp_dir, "start_epoch": start_epoch,
+            # the batch size and LR after any auto-tuning; the trace file
+            "cfg": cfg, "trace": tracer.path}
 
 
 def sr_test_frames(cfg: SRConfig, video: SRVideo, state,
@@ -333,14 +359,17 @@ def _restored_ctrl_state(fresh, restored: Dict, device):
 
 
 def _flow_restore(cfg: FlowConfig, init_gen, scene: str):
-    """The config's INR with its controller, and the latest checkpoint of
-    ``flow_ckpt_dir`` shape-checked against them. Returns (spec, params,
+    """The config's INR with its controller (imported from
+    ``cfg.import_torch`` unless a checkpoint wins), and the latest
+    checkpoint of ``flow_ckpt_dir`` shape-checked against them. Returns (spec, params,
     consts, ctrl_cfg, ctrl_state, store, restored or None, step); the
     controller state is the checkpoint's when there is a checkpoint."""
     device = resolve_device(cfg.device)
     store = CheckpointStore(flow_ckpt_dir(cfg, scene))
+    # with --import-torch and no checkpoint, the fresh net carries the
+    # reference checkpoint's weights, encoding buffers and controller mask
     spec, params, consts, ctrl_cfg, ctrl_state = FT.build_flow_model(
-        init_gen, cfg, device)
+        init_gen, _warn_ckpt_overrides_import(cfg, store), device)
     restored, step = store.restore(map_location=device)
     if restored is not None:
         _check_tree(params, restored["params"], "params")
@@ -354,14 +383,15 @@ def _flow_create_and_restore(cfg: FlowConfig, init_gen, scene: str,
     """The config's INR, then the latest checkpoint of ``flow_ckpt_dir``
     restored over it (its params, consts and controller state; a training
     checkpoint's optimizer state is left aside). ``require`` (an error
-    message) makes a missing checkpoint fatal. Returns (spec, params,
-    consts, store, step, ctrl_cfg, ctrl_state)."""
+    message) makes a missing checkpoint fatal unless ``--import-torch``
+    supplied the weights. Returns (spec, params, consts, store, step,
+    ctrl_cfg, ctrl_state)."""
     (spec, params, consts, ctrl_cfg, ctrl_state, store, restored,
      step) = _flow_restore(cfg, init_gen, scene)
     if restored is not None:
         return (spec, restored["params"], restored["consts"], store,
                 int(step), ctrl_cfg, ctrl_state)
-    if require:
+    if require and not cfg.import_torch:
         raise FileNotFoundError(require)
     return spec, params, consts, store, 0, ctrl_cfg, ctrl_state
 
@@ -379,6 +409,16 @@ def _flow_train_create_and_restore(cfg: FlowConfig, init_gen, scene: str):
     state = FT.train_state(restored["params"], cfg, restored.get("opt"),
                            int(restored["step"]), ctrl_cfg, ctrl_state)
     return spec, state, restored["consts"], store, int(step)
+
+
+def _scene_flow_dir(flow_dir: Optional[str], scene: str) -> Optional[str]:
+    """The multi-scene entry points read an explicit ``flow_dir`` as a root
+    of per-scene subdirectories (Sintel's ``flow/<scene>``): one flat .flo
+    directory is never attached to every scene."""
+    if not flow_dir:
+        return None
+    sub = path.join(flow_dir, scene)
+    return sub if path.isdir(sub) else None
 
 
 def _q16(v) -> int:
@@ -678,6 +718,13 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
     writer = MetricsWriter(store.directory, run_name=f"{scene}_{cfg.name}",
                            use_wandb=use_wandb, wandb_project="optical_flow",
                            hyperparams=cfg.__dict__)
+    if writer.wants_media:
+        # the source video and its GT flow, once at the start
+        writer.log_media(0, "media/source", (np.clip(media.video, 0.0, 1.0)
+                                             * 255).astype(np.uint8), fps=4)
+        if media.gt_available:
+            writer.log_media(0, "media/gt_flow", np.stack(
+                [flow_to_image(f) for f in media.flow]), fps=4)
     do_val = (val_media is not None and val_media.gt_available
               and cfg.effective_val_iter <= cfg.epochs)
     if do_val:
@@ -690,6 +737,9 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
     t0 = time.time()
     pairs_done = 0
     cached = [_to_device_batch(b, device) for b in media.batches(cfg.batch)]
+    # --profile N: one trace of N train steps after two warm-up steps
+    tracer = TraceWindow(path.join(store.directory, "trace"),
+                         cfg.profile_steps, device=device)
     stop = GracefulStop().install()
     window_warned = False
     # the refit monitor: the running maximum of [fy, fx(, dvy, dvx)] over
@@ -704,6 +754,7 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
             for bi in rng.permutation(len(cached)):
                 batch = cached[bi]
                 m = step(state, consts, batch)
+                tracer.tick()
                 pairs_done += int(batch["frame1"].shape[0])
                 if refit_on and "flow_max_y" in m:
                     mon_epoch.append(torch.stack(
@@ -775,12 +826,13 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
                 break
     finally:
         stop.restore()
+        tracer.close()
         if not keep_writer:
             writer.close()
     out = {"state": state, "spec": spec, "consts": consts, "metrics": last,
            "scene": scene, "start_epoch": start_epoch,
            # the effective config: the probed and refitted window bounds
-           "cfg": cfg}
+           "cfg": cfg, "trace": tracer.path}
     if keep_writer:
         out["writer"] = writer
     return out
@@ -818,11 +870,15 @@ def flow_test_outputs(cfg: FlowConfig, media: flow_media.FlowMedia, spec,
 
 def run_flow_test(cfg: FlowConfig, media=None, scene: str = "scene",
                   spec=None, params=None, consts=None, ctrl_cfg=None,
-                  ctrl_state=None) -> Dict:
+                  ctrl_state=None, use_wandb: bool = False,
+                  writer: Optional[MetricsWriter] = None) -> Dict:
     """``flow test``: predicted flows (Middlebury colours) and occlusion
     masks of every pair written as GIFs with a JSON sidecar, and the EPE
     against the GT when there is one. Restores the scene's checkpoint
-    unless a model is given."""
+    (or, without one, the ``--import-torch`` weights) unless a model is
+    given. With a ``writer`` (the training run's) or ``use_wandb`` the flow
+    GIF gets a metadata sidecar and, where wandb is on, the flow and
+    occlusion videos are logged as media."""
     resolve_device(cfg.device)
     if media is None:
         _, media, scene = flow_media.get_video(
@@ -843,22 +899,38 @@ def run_flow_test(cfg: FlowConfig, media=None, scene: str = "scene",
     os.makedirs(cfg.results_dir, exist_ok=True)
     tag = f"{scene}_{cfg.name}"
     mean_epe = out["epe"] if out["epe"] is not None else 0.0
+    flow_imgs = np.stack([flow_to_image(f) for f in out["flow12"]])
     with VideoWriter(path.join(cfg.results_dir,
                                f"flow_{tag}_epe_{mean_epe:.3f}.gif"),
                      fps=4) as vw:
-        for f in out["flow12"]:
-            vw.add(flow_to_image(f))
+        for f in flow_imgs:
+            vw.add(f)
     import json
     with open(path.join(cfg.results_dir, f"flow_{tag}.json"), "w") as fh:
         json.dump({"epe": mean_epe, "frames": len(out["flow12"]),
                    "scene": scene, "name": cfg.name}, fh)
-    occl_path = None
+    occl_path, mask_imgs = None, None
     if out["masks"] is not None:
+        mask_imgs = (out["masks"].repeat(3, -1) * 255).astype(np.uint8)
         with VideoWriter(path.join(cfg.results_dir, f"occl_{tag}.gif"),
                          fps=4) as ow:
-            for m in out["masks"]:
-                ow.add((m.repeat(3, -1) * 255).astype(np.uint8))
+            for m in mask_imgs:
+                ow.add(m)
         occl_path = ow.path
+
+    own_writer = writer is None and use_wandb
+    if own_writer:
+        writer = MetricsWriter(cfg.results_dir, run_name=f"test_{tag}",
+                               use_wandb=True, wandb_project="optical_flow")
+    if writer is not None:
+        writer.log_artifact(vw.path, {"epe": mean_epe, "scene": scene})
+        if writer.wants_media:
+            # past the training epochs: wandb drops steps that go back
+            writer.log_media(cfg.epochs, f"flow/{tag}", flow_imgs, fps=4)
+            if mask_imgs is not None:
+                writer.log_media(cfg.epochs, f"occl/{tag}", mask_imgs, fps=4)
+        if own_writer:
+            writer.close()
     return {"epe": mean_epe, "num_frames": len(out["flow12"]),
             "flow_path": vw.path, "occl_path": occl_path}
 
@@ -922,3 +994,94 @@ def run_flow_interpolate(cfg: FlowConfig, factor: int = 2, media=None,
                    "frames_in": int(len(media.video)),
                    "frames_out": len(frames)}, fh)
     return {"path": vw.path, "num_frames": len(frames)}
+
+
+def run_flow_export(cfg: FlowConfig, out: Optional[str] = None) -> str:
+    """``flow export``: the scene's latest checkpoint (or, without one, the
+    ``--import-torch`` weights) as a reference-loadable torch state_dict,
+    the reverse of ``--import-torch``; the controller mask leaves as the
+    reference's stashed counts. Returns the file's path."""
+    from sin_inn_tpu_torch.models import torch_import as TI
+
+    # the scene's name only: no frame is read
+    scene = path.splitext(path.basename(cfg.input_video))[0]
+    init = R.named_fold(R.root_generator(cfg.random_seed), "init")
+    spec, params, consts, store, _, _, ctrl_state = _flow_create_and_restore(
+        cfg, init, scene, require=f"no checkpoint for scene {scene}")
+    out = out or path.join(store.directory, f"{cfg.name}_export.ckpt")
+    return TI.save_reference_checkpoint(
+        out, TI.export_flow_state_dict(spec, ctrl_state, params, consts))
+
+
+def normalized_aepe(results) -> float:
+    """The dataset's average end-point error: each scene's mean EPE
+    (``run_flow_test``'s ``epe``) weighted by its ``num_frames``."""
+    results = list(results)
+    frames = sum(r["num_frames"] for r in results)
+    return sum(r["epe"] * r["num_frames"] for r in results) / max(frames, 1)
+
+
+def run_flow_summarize(cfg: FlowConfig) -> float:
+    """``flow summarize``: ``flow test`` on every scene beside
+    ``input_video`` (its parent directory's entries, in order), then the
+    frame-weighted AEPE over them (:func:`normalized_aepe`), printed and
+    returned. The per-scene results come from the metadata, never from
+    file names."""
+    root = path.dirname(cfg.input_video)
+    results = []
+    for scene in sorted(os.listdir(root)):
+        results.append(run_flow_test(cfg.replace(
+            input_video=path.join(root, scene),
+            flow_dir=_scene_flow_dir(cfg.flow_dir, scene))))
+    aepe = normalized_aepe(results)
+    print(f"Normalized AEPE: {aepe}")
+    return aepe
+
+
+def sintel_scene_flows(cfg: FlowConfig, media: flow_media.FlowMedia, spec,
+                       params, consts, ctrl_cfg=None, ctrl_state=None,
+                       outdir: Optional[str] = None) -> np.ndarray:
+    """The flow of every frame pair of ``media``, one pair per INR query,
+    as (P, H, W, 2) float32; with ``outdir`` each is also written there as
+    ``frame_%04d.flo`` (Sintel's submission layout)."""
+    device = resolve_device(cfg.device)
+    h, w = media.video.shape[1:3]
+    if outdir is not None:
+        os.makedirs(outdir, exist_ok=True)
+    flows = []
+    for i, batch in enumerate(media.batches(1)):
+        f12, _ = FT.flow_infer(spec, params, consts,
+                               torch.from_numpy(batch["times"]).to(device),
+                               float(batch["scale"]), h, w, ctrl_cfg,
+                               ctrl_state)
+        flows.append(f12[0].cpu().numpy())
+        if outdir is not None:
+            write_flo(path.join(outdir, f"frame_{i + 1:04d}.flo"), flows[-1])
+    return np.stack(flows)
+
+
+def run_flow_sintel(cfg: FlowConfig,
+                    outroot: str = "sintel_submission") -> str:
+    """``flow sintel``: the Sintel submission. For every scene beside
+    ``input_video``, its checkpoint (or, without one, the ``--import-torch``
+    weights) renders each pair's flow into
+    ``<outroot>/<clean|final>/<scene>/frame_%04d.flo`` (``clean`` when the
+    run's ``--name`` ends in it). Returns the submission's directory."""
+    resolve_device(cfg.device)
+    root = path.dirname(cfg.input_video)
+    sub = path.join(outroot, "clean" if cfg.name.endswith("clean")
+                    else "final")
+    for scene in sorted(os.listdir(root)):
+        scene_cfg = cfg.replace(input_video=path.join(root, scene),
+                                flow_dir=_scene_flow_dir(cfg.flow_dir, scene))
+        _, media, name = flow_media.get_video(
+            scene_cfg.input_video, cfg.size, cfg.test_size, cfg.end, cfg.step,
+            flow_dir=scene_cfg.flow_dir)
+        spec, params, consts, _, _, ctrl_cfg, ctrl_state = \
+            _flow_create_and_restore(
+                scene_cfg, R.named_fold(R.root_generator(cfg.random_seed),
+                                        "init"),
+                name, require=f"no checkpoint for {name}")
+        sintel_scene_flows(scene_cfg, media, spec, params, consts, ctrl_cfg,
+                           ctrl_state, outdir=path.join(sub, name))
+    return sub

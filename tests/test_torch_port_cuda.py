@@ -30,6 +30,7 @@ train step's kernel route within a normwise 1e-3 of autograd's.
 """
 
 import ctypes
+import os
 
 import pytest
 import torch
@@ -1012,3 +1013,139 @@ def test_k8_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="Caff up to 384"):
         K8.half_coupling_3x3(_sub3(gen, 8, 784, 16, dev), wide[..., :8],
                              wide[..., 8:400], CLAMP)
+
+
+# -- the tooling and the flow exchange on the card -----------------------------
+
+def _tiny_sr(dev, **kw):
+    import numpy as np
+
+    from sin_inn_tpu_torch.core.config import SRConfig
+    from sin_inn_tpu_torch.data import sr_video as SV
+    from sin_inn_tpu_torch.data.synthetic import synthetic_sr_video
+
+    cfg = SRConfig(scale=2, lr_window=1, num_coupling=2, hidden_channels=16,
+                   fps=30, device=str(dev), **kw)
+    sup, _, _ = SV.make_datasets(synthetic_sr_video(cfg, h=16, w=16), cfg)
+    return cfg, lambda b: SV.to_device(sup.gather(np.arange(b) % len(sup)),
+                                       dev)
+
+
+def _planted_step(monkeypatch, dev, exc):
+    """Train steps of batch >= 8 raise ``exc`` while they hold 256 MiB."""
+    from sin_inn_tpu_torch.train import tuner as T
+
+    real = T.SR.make_train_step
+
+    def make_step(spec, c):
+        step = real(spec, c)
+
+        def run(state, sup, *a, **kw):
+            if sup["hr"].shape[0] >= 8:
+                held = torch.empty(64 << 20, device=dev)
+                raise exc(f"planted at batch 8 ({held.numel()} floats)")
+            return step(state, sup, *a, **kw)
+        return run
+
+    monkeypatch.setattr(T.SR, "make_train_step", make_step)
+    return T
+
+
+def test_batch_probe_releases_the_card(dev, monkeypatch):
+    """A probe that runs out of memory while it holds 256 MiB gives it all
+    back."""
+    T = _planted_step(monkeypatch, dev, torch.cuda.OutOfMemoryError)
+    cfg, make = _tiny_sr(dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    probes = T.batch_probes(cfg, make, R.root_generator(0, dev), start=2)
+    assert [(p["batch"], p["error"] is None) for p in probes] == [
+        (2, True), (4, True), (8, False)]
+    assert all(p["peak_bytes"] > 0 for p in probes[:2])
+    assert torch.cuda.memory_allocated(dev) - before <= 1 << 20
+
+
+def test_batch_probe_lets_a_runtime_error_through(dev, monkeypatch):
+    T = _planted_step(monkeypatch, dev, RuntimeError)
+    cfg, make = _tiny_sr(dev)
+    with pytest.raises(RuntimeError, match="planted"):
+        T.batch_probes(cfg, make, R.root_generator(0, dev), start=2)
+
+
+def test_trace_window_records_the_card_kernels(dev, tmp_path):
+    """A traced sr train step holds one coupling_1x1_kernel event per K1 /
+    K2 launch and one phase-0 row_phase_kernel per K3 / K4 launch."""
+    import json
+    import re
+
+    from sin_inn_tpu_torch.core.profiler import TraceWindow
+    from sin_inn_tpu_torch.train import sr as TSR
+
+    cfg, make = _tiny_sr(dev)
+    spec, state = TSR.create_train_state(R.root_generator(0), cfg)
+    step = TSR.make_train_step(spec, cfg)
+    batch, gen = make(2), R.root_generator(1, dev)
+    tw = TraceWindow(str(tmp_path), 2, warmup=1, device=dev)
+    for i in range(4):
+        if i == 2:
+            K.reset_launch_counts()
+        step(state, batch, None, gen)
+        tw.tick()
+    counts = K.launch_counts()
+    with open(tw.path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    count = lambda pat: sum(bool(re.search(pat, n)) for n in names)
+    assert count(r"coupling_1x1_kernel<float, false") == \
+        counts["fused_glow_forward_1x1"] > 0
+    assert count(r"coupling_1x1_kernel<float, true") == \
+        counts["fused_glow_inverse_1x1"] > 0
+    assert count(r"row_phase_kernel<float, false, 0") == \
+        counts["fused_glow_backward_1x1"] > 0
+    assert count(r"row_phase_kernel<float, true, 0") == \
+        counts["fused_glow_inverse_backward_1x1"] > 0
+
+
+def test_trace_sessions_hold_every_launch(dev, tmp_path):
+    """Twenty ``trace`` sessions of 400 one-kernel calls queued at once
+    after the start: each trace holds all 400 kernel events (``settle``)."""
+    import json
+
+    from sin_inn_tpu_torch.core import profiler as P
+
+    x = torch.ones(1 << 16, device=dev)
+    x.add_(1.0)
+    for i in range(20):
+        with P.trace(str(tmp_path / str(i)), device=dev):
+            for _ in range(400):
+                x.add_(1.0)
+        (name,) = os.listdir(tmp_path / str(i))
+        with open(tmp_path / str(i) / name) as f:
+            kernels = [e for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        assert len(kernels) == 400, (i, len(kernels))
+
+
+def test_flow_exchange_round_trip_on_the_card(dev, tmp_path):
+    """PFF spatial (the fused forward's slabs at W = 64) through export and
+    --import-torch: flows within 1e-5 + 1e-5 |ref| (the mask travels as
+    counts), one K7 forward launch a pair on each side."""
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.models import torch_import as TTI
+    from sin_inn_tpu_torch.train import flow as TF
+
+    cfg = FlowConfig(net="PFF", spatially_adaptive=True, spatial_res=5,
+                     num_frequencies=16, hidden_dim=32, device=str(dev))
+    spec, p, c, ccfg, st = TF.build_flow_model(R.root_generator(0), cfg, dev)
+    ref = str(tmp_path / "ref.ckpt")
+    TTI.save_reference_checkpoint(ref, TTI.export_flow_state_dict(
+        spec, st, p, c))
+    spec2, p2, c2, ccfg2, st2 = TF.build_flow_model(
+        R.root_generator(1), cfg.replace(import_torch=ref), dev)
+    times = torch.tensor([0.25], device=dev)
+    K7.reset_launch_counts()
+    a, _ = TF.flow_infer(spec, p, c, times, 1.0, 16, 64, ccfg, st)
+    b, _ = TF.flow_infer(spec2, p2, c2, times, 1.0, 16, 64, ccfg2, st2)
+    torch.cuda.synchronize()
+    assert K7.launch_counts()["fused_inr_forward"] == 2
+    assert ((a - b).abs() <= 1e-5 + 1e-5 * a.abs()).all()

@@ -25,7 +25,6 @@ from sin_inn_tpu.core.config import FlowConfig as JaxFlowConfig
 from sin_inn_tpu.models import inr as JI
 from sin_inn_tpu.ops import occlusion as JO
 from sin_inn_tpu.train import flow as JFT
-from sin_inn_tpu_torch import cli
 from sin_inn_tpu_torch.core import rng as R
 from sin_inn_tpu_torch.core.checkpoint import CheckpointStore
 from sin_inn_tpu_torch.core.config import FlowConfig
@@ -282,12 +281,6 @@ def test_flow_cli_end_to_end(tmp_path, video):
     with open(results / "interp_clip_temp_x2.json") as f:
         assert json.load(f)["frames_out"] == 7
     assert (results / "occl_clip_temp.gif").is_file()
-
-
-@pytest.mark.parametrize("operation", ["export", "summarize", "sintel"])
-def test_flow_cli_unported_operations_fail(operation, capsys):
-    assert cli.main(["flow", operation, "--device", "cpu"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
 
 
 def test_flow_cuda_request_without_card_raises(monkeypatch, tmp_path, video):

@@ -64,6 +64,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from sin_inn_tpu_torch.core import rng as R  # noqa: E402
 from sin_inn_tpu_torch.core.config import SRConfig  # noqa: E402
+from sin_inn_tpu_torch.core.profiler import settle  # noqa: E402
 from sin_inn_tpu_torch.ops.cuda import _build  # noqa: E402
 from sin_inn_tpu_torch.ops.cuda import coupling as K  # noqa: E402
 from sin_inn_tpu_torch.train import sr as SR  # noqa: E402
@@ -91,6 +92,7 @@ def _profile(name, fn, out_dir, match=None):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        settle("cuda")
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()

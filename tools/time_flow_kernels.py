@@ -51,6 +51,7 @@ import torch
 
 from sin_inn_tpu_torch.core import rng as R
 from sin_inn_tpu_torch.core.config import FlowConfig
+from sin_inn_tpu_torch.core.profiler import settle
 from sin_inn_tpu_torch.models import controllers as C
 from sin_inn_tpu_torch.models.inr import build_inr
 from sin_inn_tpu_torch.ops.cuda import _build
@@ -91,6 +92,7 @@ def device_ms(fn, reps: int = 50):
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            settle("cuda")
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -143,6 +145,7 @@ def kernel_ms(fn, reps: int = 5):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        settle("cuda")
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
