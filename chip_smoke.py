@@ -219,6 +219,31 @@ nothing of JAX or of the JAX package. Phases:
     (``normalized_aepe``) over both scenes with synthetic GT; sintel
     pairs/s.
 
+16. RAFT, the pseudo-GT producer (``models/raft.py``; no port kernel, none
+    launched): the committed goldens ``tests/goldens/raft_{basic,small}.npz``
+    on the card with TF32 off through ``load_torch_weights`` of the goldens'
+    seeded release-schema checkpoint (``raft_state_dict_np``, a copy of
+    ``tools/goldens.py``'s draw), both lookups, within 2e-3 + 1e-2
+    |golden|; the matmul lookup against the take lookup within 1e-5 + 1e-5
+    |take|; both variants at 436x1024 (padded to 440x1024), 20 iterations,
+    batch 1 and 4, both lookups, the TF32 route and TF32 off: ms a pair
+    (CUDA events, median of 10 after 2 warm-ups), peak memory, the TF32
+    route within a normwise 2e-2 of TF32 off.
+17. ``flow train --flow-producer raft:<ckpt>@20``: phase 9's 6-frame
+    436x1024 video through ``run_flow_train`` for 1 epoch; 5 ``.flo`` files
+    in the cache the JAX package names the same, ``flow_scale`` 1, the
+    attached flow equal to the producer's; the probe of the RAFT flow must
+    engage the local windows, and the 5 steps launch exactly K5 local 2, K6
+    local 2, K6 local grads 4, K7 backward 1 (and a reduction) each; a
+    second run reuses the cache with no ``raft_flow`` call; the producer's
+    pairs/s with the ``.flo`` writes.
+18. the scene-space gather (``scene_space/gather.py``; no port kernel) on
+    ``synth_scene(24, 480, 640)``, patch 3: the windowed one-hot read
+    within 1e-5 + 1e-5 |exact| of the exact gather, the drift guard
+    silent, both forms' ms (median of 5 after a warm-up) and peak memory;
+    the card within 1e-5 of the CPU on ``synth_scene(4, 64, 224)`` with the
+    side-plane filter off.
+
 Any failed check exits non-zero. The line before the last is a JSON object
 with each kernel's numbers; K1-K4's, K7's and K8's ``bound_ms`` counts
 their products as they run, three TF32 products each on the tensor cores
@@ -296,10 +321,42 @@ FLOW_FRAMES = 6
 DY, DX = 64, 128               # resolve_splat_bounds at 436x1024
 LDY, CAPY = 32, 64             # its local row bound and the offsets' cap
 FLOW_TRAIN_EPOCHS = 2
+SCENE = (24, 480, 640)         # the scene gather's frames, height, width
+
+
+RAFT_SEED = {"basic": 5, "small": 7}   # the committed goldens' draws
 
 
 class SmokeFailure(Exception):
     pass
+
+
+def raft_state_dict_np(variant: str = "basic"):
+    """The goldens' deterministic RAFT checkpoint in the official release
+    schema (``module.`` prefix, OIHW kernels, ``num_batches_tracked``),
+    drawn from numpy's ``RandomState`` in the order of the sorted schema, as
+    ``tools/goldens.py`` ``raft_state_dict_np`` draws it (a CPU test holds
+    the two bitwise equal); built from the port's schema."""
+    from sin_inn_tpu_torch.models.raft import param_schema
+
+    rng = np.random.RandomState(RAFT_SEED[variant])
+    sd = {}
+    for name, shape in sorted(param_schema(variant).items()):
+        if name.endswith("running_var"):
+            arr = rng.rand(*shape) + 0.5
+        elif name.endswith(("running_mean", "bias")):
+            arr = 0.1 * rng.randn(*shape)
+        elif len(shape) == 1:               # batch-norm weight
+            arr = rng.rand(*shape) + 0.5
+        else:                               # conv kernel, drawn HWIO
+            o, i, kh, kw = shape
+            arr = 0.3 * rng.randn(kh, kw, i, o) / np.sqrt(max(kh * kw * i, 1))
+            arr = arr.transpose(3, 2, 0, 1)
+        sd[f"module.{name}"] = np.asarray(arr, np.float32)
+        if name.endswith("running_mean"):
+            base = name[: -len("running_mean")]
+            sd[f"module.{base}num_batches_tracked"] = np.asarray(100, np.int64)
+    return sd
 
 
 def check(cond: bool, what: str) -> None:
@@ -3815,6 +3872,346 @@ def phase_flow_exchange(dev, card: str, smi_line: str):
     return counts, stats
 
 
+def event_ms(fn, reps: int = 10, warm: int = 2) -> float:
+    """Median ms of ``reps`` calls of ``fn`` between CUDA events, after
+    ``warm`` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in marks)
+
+
+def _allclose(got, ref, atol: float, rtol: float) -> bool:
+    return bool(torch.all((got - ref).abs() <= atol + rtol * ref.abs()))
+
+
+def _normwise(got, ref) -> float:
+    return float((got - ref).norm() / ref.norm())
+
+
+def _raft_ckpt(variant: str, path: str) -> str:
+    torch.save({k: torch.from_numpy(v) for k, v in
+                raft_state_dict_np(variant).items()}, path)
+    return path
+
+
+def phase_raft(dev, card: str, smi_line: str, work: str):
+    """16. RAFT, the pseudo-GT producer: the committed goldens on the card
+    with TF32 off, the two lookups against each other, both variants at
+    Sintel size (ms a pair, peak memory, the default route against TF32
+    off), and no launch of a port kernel."""
+    import os
+
+    from sin_inn_tpu_torch.data.synthetic import moving_texture_video
+    from sin_inn_tpu_torch.models import raft as TR
+
+    golden_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "goldens")
+    stats = {}
+    _reset_all_counts()
+    video = moving_texture_video(5, FLOW_H, FLOW_W, seed=1) * 255.0
+    for variant in ("basic", "small"):
+        params = TR.load_torch_weights(
+            _raft_ckpt(variant, os.path.join(work, f"raft-{variant}.pth")),
+            device=dev)
+        check(TR.detect_variant(params) == variant, "variant detection")
+        z = np.load(os.path.join(golden_dir, f"raft_{variant}.npz"))
+        i1 = torch.from_numpy(z["img1"]).to(dev)
+        i2 = torch.from_numpy(z["img2"]).to(dev)
+        ref = torch.from_numpy(z["flow"]).to(dev)
+        flows = {lk: TR.raft_flow(params, i1, i2, iters=int(z["iters"]),
+                                  variant=variant, lookup=lk,
+                                  lookup_precision="highest")
+                 for lk in TR.LOOKUPS}
+        for lk, f in flows.items():
+            err = float((f - ref).abs().max())
+            check(_allclose(f, ref, 2e-3, 1e-2),
+                  f"RAFT {variant} ({lk}) against the golden: max err {err}")
+            stats[f"{variant}_golden_err_{lk}"] = err
+        # the lookups on the golden pair's pyramid and a spread of points,
+        # in and out of frame
+        fm = TR._small_encoder if variant == "small" else TR._encoder
+        with TR._cudnn_tf32(False):
+            fmaps = fm(params, "fnet",
+                       2.0 * (torch.cat([i1, i2]) / 255.0) - 1.0, "instance")
+        pyr = TR.build_corr_pyramid(*torch.chunk(fmaps, 2))
+        b, h, w, _ = fmaps[:1].shape
+        gen = torch.Generator(device=dev).manual_seed(16)
+        coords = (torch.rand((1, h, w, 2), generator=gen, device=dev)
+                  * torch.tensor([w + 16.0, h + 16.0], device=dev) - 8.0)
+        r = TR.S_CORR_RADIUS if variant == "small" else TR.CORR_RADIUS
+        mm = TR.lookup_corr_matmul(pyr, coords, r=r, precision="highest")
+        tk = TR.lookup_corr(pyr, coords, r=r)
+        look_err = float((mm - tk).abs().max())
+        check(_allclose(mm, tk, 1e-5, 1e-5),
+              f"RAFT {variant}: matmul against take lookup {look_err}")
+        flow_gap = float((flows["matmul"] - flows["take"]).abs().max())
+        print(f"[raft] {variant}: the goldens (128x160, "
+              f"{int(z['iters'])} iterations, TF32 off) within "
+              f"{stats[f'{variant}_golden_err_matmul']:.3e} (matmul) / "
+              f"{stats[f'{variant}_golden_err_take']:.3e} (take) px of "
+              f"2e-3 + 1e-2 |golden|; lookups matmul against take "
+              f"{look_err:.3e} (limit 1e-5 + 1e-5 |take|), their flows "
+              f"{flow_gap:.3e} px apart")
+
+        # Sintel size, 20 iterations
+        for batch in (1, 4):
+            f1 = torch.from_numpy(video[:batch]).to(dev)
+            f2 = torch.from_numpy(video[1:batch + 1]).to(dev)
+            f1, pads = TR.pad_to_multiple(f1)
+            f2, _ = TR.pad_to_multiple(f2)
+            out = {}
+            for lk in TR.LOOKUPS:
+                for prec in (None, "highest"):
+                    call = lambda: TR.raft_flow(params, f1, f2, iters=20,
+                                                variant=variant, lookup=lk,
+                                                lookup_precision=prec)
+                    # the first call autotunes the TF32-off route (its
+                    # trial workspaces are not the route's memory)
+                    flow = TR.unpad(call(), pads)
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    ms = event_ms(call)
+                    peak = torch.cuda.max_memory_allocated(dev) - base
+                    check(bool(torch.isfinite(flow).all())
+                          and flow.shape == (batch, FLOW_H, FLOW_W, 2),
+                          f"RAFT {variant} at Sintel size: {flow.shape}")
+                    out[(lk, prec)] = (flow, ms, peak)
+            for lk in TR.LOOKUPS:
+                flow, ms, peak = out[(lk, None)]
+                flow_h, ms_h, peak_h = out[(lk, "highest")]
+                err = _normwise(flow, flow_h)
+                check(err <= 2e-2, f"RAFT {variant} {lk} batch {batch}: "
+                                   f"TF32 route {err} from TF32 off")
+                stats[f"{variant}_b{batch}_{lk}"] = {
+                    "ms_per_pair": ms / batch, "ms_per_pair_tf32_off":
+                        ms_h / batch, "peak_gib": peak / 2 ** 30,
+                    "peak_gib_tf32_off": peak_h / 2 ** 30,
+                    "normwise_vs_tf32_off": err,
+                    "max_abs_flow": float(flow_h.abs().max())}
+                print(f"[raft] {variant} {FLOW_H}x{FLOW_W} (padded to "
+                      f"{f1.shape[1]}x{f1.shape[2]}), 20 iterations, batch "
+                      f"{batch}, lookup {lk}: {ms / batch:.2f} ms a pair "
+                      f"(TF32 off: {ms_h / batch:.2f}), peak "
+                      f"{peak / 2 ** 30:.2f} GiB (TF32 off "
+                      f"{peak_h / 2 ** 30:.2f}), default route normwise "
+                      f"{err:.3e} from TF32 off (limit 2e-2), max |flow| "
+                      f"{float(flow_h.abs().max()):.2f} px; median of 10 "
+                      f"after 2 warm-ups, CUDA events, on {card} "
+                      f"({smi_line})")
+        del params, pyr, fmaps
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "RAFT left allow_tf32 on")
+    counts = _all_counts()
+    check(not any(counts.values()), f"RAFT launched port kernels: {counts}")
+    return stats
+
+
+def phase_pseudo_gt(dev, card: str, smi_line: str, work: str):
+    """17. ``flow train --flow-producer raft:<ckpt>@20`` at Sintel size: the
+    pseudo-GT cache (its name, 5 ``.flo`` files, flow_scale 1), the probe's
+    bounds from the RAFT flow and the launches they dictate, a second run
+    that reuses the cache without running RAFT, and the producer's
+    pairs/s with the writes."""
+    import hashlib
+    import os
+
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.data import flow_media as FM
+    from sin_inn_tpu_torch.data.flo import read_flo
+    from sin_inn_tpu_torch.data.synthetic import moving_texture_video
+    from sin_inn_tpu_torch.models import raft as TR
+    from sin_inn_tpu_torch.train import loop as LP
+
+    pairs = FLOW_FRAMES - 1
+    ckpt = _raft_ckpt("basic", os.path.join(work, "raft-pgt.pth"))
+    spec = f"raft:{ckpt}@20"
+    cfg = FlowConfig(device="cuda", checkpoints_dir=os.path.join(work, "ck"),
+                     results_dir=os.path.join(work, "results"), name="pgt",
+                     epochs=1, flow_producer=spec)
+    video = moving_texture_video(FLOW_FRAMES, FLOW_H, FLOW_W, seed=1)
+    scene = "chip_smoke_pgt"
+    # the cache name the JAX package gives the same run
+    tag = hashlib.sha1(f"{spec}|step=None|end=None".encode()).hexdigest()[:8]
+    cache = os.path.join(cfg.checkpoints_dir, "pseudo_gt",
+                         f"{scene}_h{FLOW_H}_{tag}")
+    names = [f"frame_{i:04d}.flo" for i in range(1, pairs + 1)]
+
+    producer = FM.resolve_producer(spec, device="cuda")
+    check(producer.batch_pairs == 4, "the producer's batch_pairs")
+    FM.generate_pseudo_gt(video[:5], producer, os.path.join(work, "warm"))
+    t0 = time.perf_counter()
+    flows = FM.generate_pseudo_gt(video, producer, os.path.join(work, "pgt"))
+    pgt_s = time.perf_counter() - t0
+
+    media = FM.FlowMedia(video)
+    _reset_all_counts()
+    t0 = time.perf_counter()
+    out = LP.run_flow_train(cfg, media=media, scene=scene)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _all_counts()
+    check(sorted(os.listdir(cache)) == names,
+          f"pseudo-GT cache {cache}: {sorted(os.listdir(cache))}")
+    check(media.flow_scale == 1.0 and media.flow.shape == (
+        pairs, FLOW_H, FLOW_W, 2) and np.array_equal(media.flow, flows),
+          "the attached pseudo-GT flow")
+    keys = FlowConfig.WINDOW_BOUND_KEYS
+    bounds = lambda c: tuple(getattr(c, k) for k in keys)
+    probed = LP._resolve_and_probe_splat_bounds(cfg, media, FLOW_H, FLOW_W)
+    steps = pairs
+    if isinstance(probed.splat_local_dy, int):
+        want = dict(splat_region_local=2 * steps,
+                    gather_region_local=2 * steps,
+                    gather_region_local_grads=4 * steps)
+    elif probed.splat_max_dy is not None:
+        want = dict(splat_region=2 * steps, gather_region=2 * steps,
+                    gather_region_grads=4 * steps)
+    else:
+        want = {}
+    check(isinstance(probed.splat_local_dy, int),
+          f"the probe of the RAFT flow left the local windows: "
+          f"{bounds(probed)}")
+    check_counts(counts, f"pseudo-GT flow train, {steps} steps on the "
+                         f"probed bounds {bounds(probed)}",
+                 fused_inr_backward=steps, reduce_weight_grads=steps, **want)
+    check(out["state"].step == steps
+          and all(math.isfinite(v) for v in out["metrics"].values()),
+          f"pseudo-GT flow train: step {out['state'].step}, metrics "
+          f"{out['metrics']}")
+    print(f"[pseudo-GT] producer raft@20 (batch_pairs 4): {pairs} pairs in "
+          f"{pgt_s:.3f} s = {pairs / pgt_s:.2f} pairs/s with the .flo "
+          f"writes, max |flow| {np.abs(flows[..., 0]).max():.2f} / "
+          f"{np.abs(flows[..., 1]).max():.2f} px (x / y), on {card} "
+          f"({smi_line})")
+    print(f"[pseudo-GT] flow train {steps} steps in {run_s:.2f} s with the "
+          f"producer and set-up; cache {os.path.basename(cache)} (5 .flo, "
+          f"flow_scale 1); probed bounds (dy, dx, local dy, local dx) "
+          f"{bounds(probed)}, after the refit at the save "
+          f"{bounds(out['cfg'])}; launches {counts}")
+
+    # a second run on a fresh media: the cache, no RAFT
+    calls = []
+    real = TR.raft_flow
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    TR.raft_flow = counted
+    try:
+        media2 = FM.FlowMedia(video)
+        _reset_all_counts()
+        LP.run_flow_train(cfg.replace(name="pgt2"), media=media2, scene=scene)
+        torch.cuda.synchronize()
+        counts2 = _all_counts()
+    finally:
+        TR.raft_flow = real
+    check(not calls and np.array_equal(media2.flow, media.flow)
+          and media2.flow_scale == 1.0,
+          f"the rerun ran RAFT {len(calls)} times")
+    check(counts2 == counts, f"the rerun's launches {counts2}")
+    for i, n in enumerate(names):
+        check(np.array_equal(read_flo(os.path.join(cache, n)), flows[i]),
+              f"{n} differs from the producer's flow")
+    print(f"[pseudo-GT] a second run reused the cache: {len(calls)} "
+          f"raft_flow calls, the same flow and launches")
+    add_counts(counts, counts2)
+    return counts, {"pairs_per_sec": pairs / pgt_s,
+                    "probed": bounds(probed), "refit": bounds(out["cfg"])}
+
+
+def phase_scene_gather(dev, card: str, smi_line: str):
+    """18. The scene-space gather on ``synth_scene(24, 480, 640)``, patch 3:
+    the windowed read against the exact gather, the card against the CPU on
+    a small scene, times and peak memory of both forms, the drift guard
+    silent, no launch of a port kernel."""
+    import logging
+
+    from sin_inn_tpu_torch.data.synthetic import synth_scene
+    from sin_inn_tpu_torch.scene_space import gather as SG
+
+    class Records(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.seen = []
+
+        def emit(self, record):
+            self.seen.append(record.getMessage())
+
+    guard = Records()
+    logging.getLogger(SG.__name__).addHandler(guard)
+    _reset_all_counts()
+    try:
+        n, sh, sw = SCENE
+        imgs, depths, poses, bds = synth_scene(n, sh, sw)
+        ti = torch.from_numpy(imgs).to(dev)
+        td = torch.from_numpy(depths).to(dev)
+        stats = {}
+        outs = {}
+        for window in ("off", "on"):
+            call = lambda: SG.gather_scene(ti, td, poses, bds, patch=3,
+                                           window=window)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            outs[window] = call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            ms = median_ms(call, 5)
+            stats[window] = {"ms": ms, "peak_gib": peak / 2 ** 30}
+        off, on = outs["off"], outs["on"]
+        check(off.shape == (sh, sw, 3) and bool(torch.isfinite(off).all()),
+              f"gather output {off.shape}")
+        err = float((on - off).abs().max())
+        check(_allclose(on, off, 1e-5, 1e-5),
+              f"windowed gather against exact: {err}")
+        geo = SG._host_window_geometry(poses, bds, sh, sw, 3, 0, 32, 112)
+        check(not guard.seen, f"the drift guard warned: {guard.seen}")
+        # the card against the CPU on a small scene, side-plane filter off
+        # (the reference frame's corner candidates sit on its planes: a sign
+        # test at a tie, which two devices may break either way)
+        small = synth_scene(4, 64, 224)
+        cpu = {w: SG.gather_scene(torch.from_numpy(small[0]),
+                                  torch.from_numpy(small[1]), *small[2:],
+                                  window=w, _plane_filter=False)
+               for w in ("off", "on")}
+        gpu_cpu = 0.0
+        for w, ref in cpu.items():
+            got = SG.gather_scene(torch.from_numpy(small[0]).to(dev),
+                                  torch.from_numpy(small[1]).to(dev),
+                                  *small[2:], window=w,
+                                  _plane_filter=False).cpu()
+            gpu_cpu = max(gpu_cpu, float((got - ref).abs().max()))
+            check(_allclose(got, ref, 1e-5, 0.0),
+                  f"gather {w}: the card against the CPU {gpu_cpu}")
+        counts = _all_counts()
+        check(not any(counts.values()),
+              f"the gather launched port kernels: {counts}")
+    finally:
+        logging.getLogger(SG.__name__).removeHandler(guard)
+    print(f"[scene gather] synth_scene{SCENE}, patch 3: exact "
+          f"{stats['off']['ms']:.2f} ms (peak {stats['off']['peak_gib']:.2f}"
+          f" GiB), windowed {stats['on']['ms']:.2f} ms (peak "
+          f"{stats['on']['peak_gib']:.2f} GiB; K0 {geo['K0']}, KX0 "
+          f"{geo['KX0']}); windowed within {err:.3e} of exact (limit 1e-5 "
+          f"+ 1e-5 |exact|); drift guard silent; the card within "
+          f"{gpu_cpu:.3e} of the CPU on synth_scene(4, 64, 224) (side-plane "
+          f"filter off, limit 1e-5); median of 5 after a warm-up, CUDA "
+          f"events, on {card} ({smi_line})")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3840,6 +4237,9 @@ def main() -> int:
         irn = phase_irn_exchange(dev, card, smi_line, train["cfg"])
         tool_counts, tools = phase_sr_tooling(dev, card, smi_line, work)
         fx_counts, fx = phase_flow_exchange(dev, card, smi_line)
+        raft = phase_raft(dev, card, smi_line, work)
+        pgt_counts, pgt = phase_pseudo_gt(dev, card, smi_line, work)
+        scene = phase_scene_gather(dev, card, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3851,6 +4251,7 @@ def main() -> int:
     add_counts(flow_counts, ft_counts)
     add_counts(flow_counts, prog_counts)
     add_counts(flow_counts, fx_counts)
+    add_counts(flow_counts, pgt_counts)
     kernels = []
     for n in COUPLING:
         # K1/K2: the eval/infer shapes (batch 40), as before, with the
@@ -3973,6 +4374,15 @@ def main() -> int:
     print(f"[flow exchange] sintel {fx['sintel_pairs_per_sec']:.2f} pairs/s "
           f"(PFF spatial, with the .flo writes), AEPE {fx['aepe']:.6f}, on "
           f"{card} ({smi_line})")
+    r = raft["basic_b4_matmul"]
+    print(f"[raft] basic {FLOW_H}x{FLOW_W}, 20 iterations, batch 4, matmul "
+          f"lookup: {r['ms_per_pair']:.2f} ms a pair, peak "
+          f"{r['peak_gib']:.2f} GiB; small "
+          f"{raft['small_b4_matmul']['ms_per_pair']:.2f} ms a pair; "
+          f"pseudo-GT producer {pgt['pairs_per_sec']:.2f} pairs/s with the "
+          f"writes (probed bounds {pgt['probed']}); scene gather exact "
+          f"{scene['off']['ms']:.2f} ms, windowed {scene['on']['ms']:.2f} "
+          f"ms; on {card} ({smi_line})")
     print(f"[done] sr test {fps:.2f} frames/s; train "
           f"{train['frames_per_sec']:.2f} frames/s; bf16 err {bf16_err:.3e}"
           f" (K3 {bwd_bf16_err:.3e}); total "

@@ -11,10 +11,14 @@ reference's data, net, training, occlusion, controller
 (``--spatially-adaptive``, ``--spatial-res``) and window flags (the global
 and local bounds, ``--window-refit``, the windowed forms' chunks),
 ``--import-torch``, ``--export-out``, ``--wandb``, ``--profile N``,
-``--use-kernel`` and ``--device``; ``flow train`` runs the test pass on the
-trained net when it is done, as the reference does. Not ported:
-``--flow-producer``, the mesh and multi-host flags, ``prepare`` and
-``scene-space``.
+``--use-kernel``, ``--flow-producer`` (pseudo-GT flow for a video without
+GT: ``raft:<ckpt.pth>[@iters]`` runs the port's RAFT on ``--device``) and
+``--device``; ``flow train`` runs the test pass on the trained net when it
+is done, as the reference does. ``python -m sin_inn_tpu_torch.cli
+scene-space {read_matrices,depth_information,reproject,gather} --scene-dir
+DIR`` runs the scene-space operations (``--out``, ``--frame``, ``--patch``,
+``--window``, ``--device``). Not ported: the mesh and multi-host flags and
+``prepare``.
 """
 
 from __future__ import annotations
@@ -194,6 +198,11 @@ def _flow_parser(sub):
                          "tighten once settled); 'off' = static bounds")
     ap.add_argument("--flow-dir", default=None,
                     help="precomputed GT flow dir (.flo/.npy)")
+    ap.add_argument("--flow-producer", default=None,
+                    help="pseudo-GT producer when no GT exists: "
+                         "'raft:<ckpt.pth>[@iters]' (the port's RAFT on "
+                         "--device), 'py:<module>:<fn>', or a "
+                         "'{f1} {f2} {out}' command")
     ap.add_argument("--use-kernel", default="auto", choices=["auto", "off"],
                     help="the fused INR and windowed CUDA kernels ('off': "
                          "ordinary autograd through the plain INR and the "
@@ -232,9 +241,26 @@ def flow_config_from_args(a) -> FlowConfig:
         splat_chunk=a.splat_chunk, splat_max_dx=a.splat_max_dx,
         splat_col_chunk=a.splat_col_chunk, splat_local_dy=a.splat_local_dy,
         splat_local_dx=a.splat_local_dx, window_refit=a.window_refit,
-        flow_dir=a.flow_dir, device=a.device, profile_steps=a.profile,
+        flow_dir=a.flow_dir, flow_producer=a.flow_producer,
+        device=a.device, profile_steps=a.profile,
         import_torch=a.import_torch,
     )
+
+
+def _scene_space_parser(sub):
+    ap = sub.add_parser("scene-space", help="COLMAP poses + multi-view gather")
+    ap.add_argument("operation",
+                    choices=["read_matrices", "depth_information",
+                             "reproject", "gather"])
+    ap.add_argument("--scene-dir", required=True)
+    ap.add_argument("--out", default="scene_space_out")
+    ap.add_argument("--frame", type=int, default=0)
+    ap.add_argument("--patch", type=int, default=3)
+    ap.add_argument("--window", default="auto", choices=("auto", "on", "off"),
+                    help="gather: 'on' = the windowed one-hot candidate "
+                         "read, 'off' and 'auto' = the exact gather")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default), cuda:N or cpu")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -242,7 +268,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
     _sr_parser(sub)
     _flow_parser(sub)
+    _scene_space_parser(sub)
     a = parser.parse_args(argv)
+    if a.command == "scene-space":
+        from sin_inn_tpu_torch.scene_space.cli import run
+
+        run(a)
+        return 0
     from sin_inn_tpu_torch.train import loop as L
 
     if a.command == "flow":

@@ -20,8 +20,10 @@ both window bounds set, the splat and the metric warps run the windowed
 kernels on CUDA tensors and their plain versions on CPU tensors: the local
 ones (K5 local, K6 local) when the local row bound is set, else the static
 ones (K5, K6); ``use_kernel="off"`` takes the windowed forms of
-``ops/warp.py`` and ``ops/splat.py`` instead. The pseudo-GT producer and
-multi-chip fields come with the code that reads them.
+``ops/warp.py`` and ``ops/splat.py`` instead. ``flow_producer`` names the
+pseudo-GT producer of a video without GT flow (the port's RAFT, a Python
+callable or a command template). The multi-chip fields come with the code
+that reads them.
 """
 
 from __future__ import annotations
@@ -187,6 +189,11 @@ class FlowConfig:
     test_batch: int = 1
     # precomputed GT flow directory (.flo/.npy per frame pair)
     flow_dir: Optional[str] = None
+    # pseudo-GT producer when the video has no GT flow:
+    # 'raft:<ckpt.pth>[@iters]' (models/raft.py on ``device``),
+    # 'py:<module>:<fn>', or a '{f1} {f2} {out}' command template
+    # (data/flow_media.py resolve_producer)
+    flow_producer: Optional[str] = None
 
     # Network
     net: str = "RBF"

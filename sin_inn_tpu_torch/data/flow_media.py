@@ -4,9 +4,12 @@ A copy of ``FlowMedia``, ``load_images``, ``load_video_clip``,
 ``load_flow_dir`` and ``get_video`` of ``sin_inn_tpu/data/flow_media.py``:
 frames resized to a target short side, Sintel ``.flo`` GT found under
 ``../../flow/<scene>`` (or an explicit ``flow_dir``) and rescaled, and the
-``flow_scale = W / 5`` heuristic. ``imageio`` and ``cv2`` are imported inside
-the functions that read files or resize, so in-memory media need neither.
-The pseudo-GT producers (RAFT and friends) come with a later slice.
+``flow_scale = W / 5`` heuristic; and the pseudo-GT producers of
+``--flow-producer`` (``generate_pseudo_gt``, ``FLOW_PRODUCERS``,
+``resolve_producer``, ``attach_pseudo_gt``), whose ``raft:`` scheme runs the
+port's RAFT (``models/raft.py``) on the device the caller names. ``imageio``
+and ``cv2`` are imported inside the functions that read or write files or
+resize, so in-memory media need neither.
 """
 
 from __future__ import annotations
@@ -129,6 +132,135 @@ def load_flow_dir(flow_dir: str, num: int) -> np.ndarray:
         else:
             raise FileNotFoundError(f"no flow file for frame {i+1} in {flow_dir}")
     return np.stack(flows)
+
+
+def generate_pseudo_gt(video: np.ndarray, producer, out_dir: str) -> np.ndarray:
+    """Pseudo-GT flow over consecutive frame pairs, written to ``out_dir``
+    as ``frame_%04d.flo`` (the layout :func:`load_flow_dir` reads) and
+    returned as an (N-1, H, W, 2) array.
+
+    ``producer`` is either
+      * a callable ``(frame1, frame2) -> (H, W, 2) float array`` (frames
+        (H, W, 3) float32 in [0, 1]); with a ``batch_pairs`` attribute above
+        1 it is handed that many consecutive pairs a call as (B, H, W, 3)
+        stacks, the ragged tail padded by repeating the last pair; or
+      * a subprocess command template with ``{f1} {f2} {out}`` placeholders,
+        run once a pair on PNG paths and an output ``.flo`` path (any
+        external flow tool).
+    """
+    from sin_inn_tpu_torch.data.flo import write_flo
+
+    os.makedirs(out_dir, exist_ok=True)
+    bp = int(getattr(producer, "batch_pairs", 0) or 0)
+    if callable(producer) and bp > 1 and len(video) > 2:
+        flows = []
+        n_pairs = len(video) - 1
+        for s in range(0, n_pairs, bp):
+            f1s = video[s:min(s + bp, n_pairs)]
+            f2s = video[s + 1:min(s + bp, n_pairs) + 1]
+            pad = bp - len(f1s)
+            if pad:
+                f1s = np.concatenate([f1s, np.repeat(f1s[-1:], pad, 0)])
+                f2s = np.concatenate([f2s, np.repeat(f2s[-1:], pad, 0)])
+            fls = np.asarray(producer(f1s, f2s), np.float32)
+            if fls.shape != f1s.shape[:3] + (2,):
+                raise ValueError(
+                    f"batched producer returned {fls.shape}, want "
+                    f"{f1s.shape[:3] + (2,)}")
+            for k in range(len(f1s) - pad):
+                write_flo(path.join(out_dir, f"frame_{s + k + 1:04d}.flo"),
+                          fls[k])
+                flows.append(fls[k])
+        return np.stack(flows)
+
+    flows = []
+    for i in range(len(video) - 1):
+        f1, f2 = video[i], video[i + 1]
+        if callable(producer):
+            fl = np.asarray(producer(f1, f2), np.float32)
+        else:
+            import shlex
+            import subprocess
+            import tempfile
+
+            import imageio.v2 as io
+
+            with tempfile.TemporaryDirectory() as td:
+                p1 = path.join(td, "f1.png")
+                p2 = path.join(td, "f2.png")
+                # the tool writes to a temporary path and only a validated
+                # result reaches out_dir: a failing producer leaves no
+                # partial frame_%04d.flo behind
+                po = path.join(td, "out.flo")
+                io.imwrite(p1, (np.clip(f1, 0, 1) * 255).astype(np.uint8))
+                io.imwrite(p2, (np.clip(f2, 0, 1) * 255).astype(np.uint8))
+                # an argument list, no shell: a path with spaces stays one
+                argv = [a.format(f1=p1, f2=p2, out=po)
+                        for a in shlex.split(producer)]
+                subprocess.run(argv, check=True)
+                fl = read_flo(po)
+        if fl.shape != f1.shape[:2] + (2,):
+            raise ValueError(
+                f"producer returned {fl.shape}, want {f1.shape[:2] + (2,)}")
+        write_flo(path.join(out_dir, f"frame_{i+1:04d}.flo"), fl)
+        flows.append(fl)
+    return np.stack(flows)
+
+
+def _raft_producer_factory(arg: str, device="cuda"):
+    from sin_inn_tpu_torch.models.raft import make_raft_producer
+
+    ckpt, _, iters = arg.partition("@")
+    return make_raft_producer(ckpt, iters=int(iters) if iters else 20,
+                              device=device)
+
+
+def _py_producer_factory(arg: str, device="cuda"):
+    import importlib
+
+    mod, _, fn = arg.rpartition(":")
+    return getattr(importlib.import_module(mod), fn)
+
+
+#: producer-spec schemes of --flow-producer (see :func:`resolve_producer`)
+FLOW_PRODUCERS = {
+    "raft": _raft_producer_factory,   # raft:<ckpt.pth>[@iters]: the port's RAFT
+    "py": _py_producer_factory,       # py:<module>:<function>: any callable
+}
+
+
+def resolve_producer(spec, device="cuda"):
+    """A producer spec -> the callable or template :func:`generate_pseudo_gt`
+    takes.
+
+    Specs: ``raft:<ckpt.pth>[@iters]`` (``models/raft.py`` on ``device``),
+    ``py:<module>:<function>`` (any importable callable), or a subprocess
+    command template holding ``{f1} {f2} {out}``. A callable passes through.
+    """
+    if callable(spec):
+        return spec
+    scheme, _, arg = spec.partition(":")
+    if arg and scheme in FLOW_PRODUCERS:
+        return FLOW_PRODUCERS[scheme](arg, device=device)
+    if "{f1}" in spec and "{f2}" in spec and "{out}" in spec:
+        return spec
+    raise ValueError(
+        f"flow producer spec {spec!r} is neither a registered scheme "
+        f"({sorted(FLOW_PRODUCERS)}) nor a {{f1}}/{{f2}}/{{out}} template")
+
+
+def attach_pseudo_gt(media: FlowMedia, producer, out_dir: str) -> FlowMedia:
+    """Attach producer-made pseudo-GT flow to ``media``, reusing the files
+    in ``out_dir`` when they are complete. The flow is in pixels at the
+    training resolution, so ``flow_scale`` drops to 1."""
+    num = len(media.video) - 1
+    try:
+        flow = load_flow_dir(out_dir, num)
+    except FileNotFoundError:
+        flow = generate_pseudo_gt(media.video, producer, out_dir)
+    media.flow = flow.astype(np.float32)
+    media.flow_scale = 1.0
+    return media
 
 
 def get_video(input_video: str, size: int, test_size: int,

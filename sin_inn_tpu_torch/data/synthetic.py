@@ -1,8 +1,9 @@
-"""Synthetic single-video fixtures for tests and the chip smoke run.
+"""Synthetic fixtures for tests and the chip smoke run.
 
-Copies of the SR fixtures of ``sin_inn_tpu/data/synthetic.py``: a moving
-texture HR video whose LR RGGB stream comes from the same bayer-binning math
-as the offline preparation, so (HR, LR) pairs are physically consistent.
+Copies of fixtures of ``sin_inn_tpu/data/synthetic.py``: a moving texture
+HR video whose LR RGGB stream comes from the same bayer-binning math as the
+offline preparation, so (HR, LR) pairs are physically consistent, and
+``synth_scene``, the dense multi-view scene of the scene-space gather.
 """
 
 from __future__ import annotations
@@ -27,6 +28,38 @@ def moving_texture_video(num_frames: int, h: int, w: int,
                 + np.roll(base, 1, 1) + np.roll(base, -1, 1)) / 5.0
     frames = np.stack([base[i:i + h, i:i + w] for i in range(num_frames)])
     return np.clip(frames, 0.0, 1.0)
+
+
+def _smooth_texture(h: int, w: int, seed: int, blur: int = 2) -> np.ndarray:
+    rng = np.random.RandomState(seed)
+    base = rng.rand(h, w, 3).astype(np.float32)
+    for _ in range(blur):
+        base = (base
+                + np.roll(base, 1, 0) + np.roll(base, -1, 0)
+                + np.roll(base, 1, 1) + np.roll(base, -1, 1)) / 5.0
+    return base
+
+
+def synth_scene(n: int, h: int, w: int, seed: int = 0):
+    """Dense multi-view scene for the scene-space gather: N noisy views of
+    one textured constant-depth plane, a per-frame camera y-translation and
+    an off-center principal point. Returns (imgs, depths, poses, bds) in
+    ``gather_scene``'s input layout (numpy)."""
+    # the noise stream must not replay the texture's MT19937 prefix
+    rng = np.random.RandomState(seed + 1)
+    base = _smooth_texture(h, w, seed)
+    imgs = np.clip(base[None] + 0.08 * rng.randn(n, h, w, 3), 0, 1
+                   ).astype(np.float32)
+    depths = np.full((n, h, w), 10.0, np.float32)
+    poses = np.zeros((n, 3, 6), np.float32)
+    for i in range(n):
+        poses[i, :, :3] = np.eye(3)
+        poses[i, 0, 3] = 0.02 * (i - n / 2)      # slight y translation
+        poses[i, 0, 4], poses[i, 1, 4] = h, w
+        poses[i, 2, 4] = 2.0 * max(h, w)          # focal
+        poses[i, 0, 5], poses[i, 1, 5] = w / 2 + 3.5, h / 2 - 2.25  # cx, cy
+    bds = np.tile(np.array([[8.0, 12.0]], np.float32), (n, 1))
+    return imgs, depths, poses, bds
 
 
 def natural_texture_video(num_frames: int, h: int, w: int, seed: int = 0,

@@ -94,3 +94,18 @@ def ctrl_state_from_jax(state_np, device="cpu"):
         raise ValueError(f"not a controller state: {name}")
     fields = {k: np.asarray(v) for k, v in state_np._asdict().items()}
     return C.state_from_dict({"kind": kinds[name], **fields}, device)
+
+
+def raft_params_from_jax(params_np: Dict, device="cpu",
+                         dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """RAFT params of the JAX package (a flat dict keyed by the official
+    module paths, conv kernels HWIO) -> the port's (the same keys, conv
+    kernels OIHW as in the official checkpoints)."""
+    out = {}
+    for k, v in params_np.items():
+        a = np.asarray(v)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        out[k] = torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                              device=device)
+    return out

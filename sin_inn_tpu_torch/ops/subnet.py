@@ -35,12 +35,31 @@ def compute_mode(compute_dtype: str):
             "bfloat16": torch.bfloat16}[compute_dtype]
 
 
-def _cudnn_tf32(allow: bool):
+def _cudnn_tf32(allow: bool, benchmark: Optional[bool] = None):
+    """cuDNN's TF32 switched to ``allow`` (and its autotuning to
+    ``benchmark``, where given) for the block, restored after it."""
     cudnn = torch.backends.cudnn
-    if cudnn.allow_tf32 == allow:
+    bench = cudnn.benchmark if benchmark is None else benchmark
+    if cudnn.allow_tf32 == allow and cudnn.benchmark == bench:
         return contextlib.nullcontext()
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=bench,
                        deterministic=cudnn.deterministic, allow_tf32=allow)
+
+
+@contextlib.contextmanager
+def _matmul_tf32(allow: bool):
+    """TF32 of cuBLAS's fp32 products switched to ``allow`` for the block
+    and restored after it (PyTorch's default is off)."""
+    m = torch.backends.cuda.matmul
+    before = m.allow_tf32
+    if before == allow:
+        yield
+        return
+    m.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        m.allow_tf32 = before
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,

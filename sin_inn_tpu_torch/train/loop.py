@@ -18,8 +18,10 @@ refit ``_refit_window_bounds``), ``run_flow_train`` (with ``--profile``),
 frame loops are factored out as in-memory cores (:func:`sr_test_frames`,
 :func:`flow_test_outputs`, :func:`interpolate_frames`,
 :func:`sintel_scene_flows`, :func:`normalized_aepe`) that return numpy
-arrays and uint8 frames without touching imageio or ffmpeg. The pseudo-GT
-producers (``--flow-producer``) and the mesh branches are not ported.
+arrays and uint8 frames without touching imageio or ffmpeg.
+``_maybe_pseudo_gt`` attaches the ``--flow-producer`` pseudo-GT flow (the
+port's RAFT under ``raft:``) to media without GT, in ``flow train`` and
+``flow test``. The mesh branches are not ported.
 """
 
 from __future__ import annotations
@@ -668,6 +670,28 @@ def _warn_if_outgrown(cfg: FlowConfig, m: Dict, epoch: int) -> bool:
     return False
 
 
+def _maybe_pseudo_gt(cfg: FlowConfig, media, scene: str):
+    """Attach producer-made pseudo-GT flow when the media has no GT flow,
+    on ``cfg.device``. The cache directory,
+    ``<checkpoints_dir>/pseudo_gt/<scene>_h<H>_<tag>``, is keyed by the
+    scene, the frame height, the frame sampling (step, end) and the
+    producer spec, exactly as the JAX package keys it: a rerun reuses the
+    ``.flo`` files, and any change of the frame pairs or the producer makes
+    new ones."""
+    if (media is None or not cfg.flow_producer
+            or getattr(media, "gt_available", False)):
+        return media
+    import hashlib
+
+    producer = flow_media.resolve_producer(cfg.flow_producer,
+                                           device=cfg.device)
+    key = f"{cfg.flow_producer}|step={cfg.step}|end={cfg.end}"
+    tag = hashlib.sha1(key.encode()).hexdigest()[:8]
+    out = path.join(cfg.checkpoints_dir, "pseudo_gt",
+                    f"{scene}_h{media.video.shape[1]}_{tag}")
+    return flow_media.attach_pseudo_gt(media, producer, out)
+
+
 def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
                    use_wandb: bool = False, val_media=None,
                    keep_writer: bool = False) -> Dict:
@@ -695,6 +719,9 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
         media, val_media, scene = flow_media.get_video(
             cfg.input_video, cfg.size, cfg.test_size, cfg.end, cfg.step,
             flow_dir=cfg.flow_dir)
+    same = val_media is media
+    media = _maybe_pseudo_gt(cfg, media, scene)
+    val_media = media if same else _maybe_pseudo_gt(cfg, val_media, scene)
     fh, fw = media.video.shape[1:3]
     ckpt_dir = flow_ckpt_dir(cfg, scene)
     # the bounds left on 'auto': only these may move, in the probe and in
@@ -884,6 +911,7 @@ def run_flow_test(cfg: FlowConfig, media=None, scene: str = "scene",
         _, media, scene = flow_media.get_video(
             cfg.input_video, cfg.size, cfg.test_size, cfg.end, cfg.step,
             flow_dir=cfg.flow_dir)
+    media = _maybe_pseudo_gt(cfg, media, scene)
     # the training run's bounds; without them no local window engages
     cfg, _ = _load_window_bounds(cfg, flow_ckpt_dir(cfg, scene),
                                  *media.video.shape[1:3])

@@ -470,10 +470,11 @@ def test_flow_config_training_fields():
     assert cfg.replace(val_iter=7).effective_val_iter == 7
     with pytest.raises(ValueError, match="edge_func"):
         FlowConfig(edge_func="box")
-    for gone in ("flow_producer", "mesh_data"):
+    for gone in ("mesh_data",):
         assert not hasattr(cfg, gone)
-    # the import and profiling fields came with the flow exchange and tooling
-    for f in ("import_torch", "profile_steps"):
+    # the import and profiling fields came with the flow exchange and
+    # tooling, the pseudo-GT producer with RAFT
+    for f in ("import_torch", "profile_steps", "flow_producer"):
         assert getattr(cfg, f) == getattr(jcfg, f), f
     # the local-window and refit fields came with the local windows
     for f in ("splat_local_dy", "splat_local_dx", "window_refit",
