@@ -243,6 +243,21 @@ nothing of JAX or of the JAX package. Phases:
     silent, both forms' ms (median of 5 after a warm-up) and peak memory;
     the card within 1e-5 of the CPU on ``synth_scene(4, 64, 224)`` with the
     side-plane filter off.
+19. distributed (``parallel/``) in a world of one on this card, NCCL:
+    ``initialize_distributed`` at an explicit ``127.0.0.1`` coordinator,
+    ``make_mesh(1, 1)`` (``resolve_mesh`` gives None for 1 x 1, as JAX
+    does); the data-parallel ``sr train`` step at the SRF flagship (batch 8,
+    HR 352x640, phase 5's batch and draws: the gradients all-reduced over
+    the data group) against the non-distributed step from the same seeded
+    state, both on cuDNN's deterministic algorithms: the loss within 1e-6
+    relative and every updated param within 1e-6, then a step with both
+    MMD terms (over the gathered batch) the same way; the spread of two
+    non-distributed steps on the default algorithms beside it; its exact
+    K1-K4 launches; both steps' frames/s (default algorithms); then
+    ``run_scenes`` over two synthetic 128x256 scenes with GT flow (K5 / K6
+    and K7 backward launched), ``aggregate_aepe`` against the frame-weighted
+    mean of the two EPEs. The process group is destroyed after it. More
+    than one rank runs only on CPU processes (the tests' gloo worlds).
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each kernel's numbers; K1-K4's, K7's and K8's ``bound_ms`` counts
@@ -1268,6 +1283,7 @@ def phase_train(dev, card: str, smi_line: str, work: str):
               f"HR {HR_H}x{HR_W}, float32), peak device memory "
               f"{stats['peak_gib']:.2f} GiB, on {card} ({smi_line})")
         stats["cfg"] = cfg.replace(epochs=3)
+        stats["batch"] = batch
     return counts, stats
 
 
@@ -4212,6 +4228,188 @@ def phase_scene_gather(dev, card: str, smi_line: str):
     return stats
 
 
+DIST_SCENE = (4, 128, 256)     # the launcher's scenes: frames, height, width
+
+
+def phase_distributed(dev, card: str, smi_line: str, train: dict):
+    """19. The parallel package on this card in a world of one, NCCL: the
+    data-parallel flagship ``sr train`` step against the non-distributed
+    one, its K1-K4 launches and frames/s, and ``run_scenes`` with
+    ``aggregate_aepe``. The process group is destroyed at the end."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.data.flow_media import FlowMedia
+    from sin_inn_tpu_torch.data.synthetic import moving_texture_video
+    from sin_inn_tpu_torch.models.inn import flat_params
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+    from sin_inn_tpu_torch.parallel import launcher as PL
+    from sin_inn_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                 make_mesh)
+    from sin_inn_tpu_torch.parallel.sharding import place_batch, place_state
+    from sin_inn_tpu_torch.train import loop as LP
+    from sin_inn_tpu_torch.train import sr as SR
+
+    counts: dict = {}
+    stats: dict = {}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    many = initialize_distributed(f"127.0.0.1:{port}", 1, 0, timeout_s=120,
+                                  device="cuda")
+    try:
+        check(not many and dist.is_initialized()
+              and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              "initialize_distributed: not an NCCL world of one")
+        mesh = make_mesh(1, 1)
+        check(mesh.shape == {"data": 1, "model": 1} and mesh.primary,
+              f"make_mesh(1, 1): {mesh}")
+        check(LP.resolve_mesh(None, 1, batch_size=TRAIN_BATCH) is None,
+              "resolve_mesh in a world of one is not None")
+        init_s = time.perf_counter() - t0
+
+        cfg, batch = train["cfg"], train["batch"]
+        b, h, w, _ = batch["lr"].shape
+        draws = SR.draw_sr_noise(torch.Generator(device=dev).manual_seed(3),
+                                 cfg, b, h, w)
+        seed = lambda: torch.Generator(device=dev).manual_seed(21)
+        spec, _ = SR.create_train_state(seed(), cfg)
+        step_one = SR.make_train_step(spec, cfg)
+        step_dp = SR.make_train_step(spec, cfg, mesh)
+        params = lambda st: flat_params(st.params)
+        diff = lambda a, c: max((x - y).abs().max().item()
+                                for x, y in zip(params(a), params(c)))
+
+        # two non-distributed steps from one state, cuDNN's default
+        # algorithms: Adam's first step moves a weight by lr g / (|g| +
+        # eps), so a weight gradient near 0 summed in another order may
+        # move it by up to 2 lr
+        one, one2 = (SR.create_train_state(seed(), cfg)[1] for _ in "ab")
+        step_one(one, batch, None, draws=draws)
+        step_one(one2, batch, None, draws=draws)
+        spread = diff(one, one2)
+        del one, one2
+        # so the comparison takes cuDNN's deterministic algorithms (K1-K4
+        # sum in a fixed order)
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True,
+                allow_tf32=torch.backends.cudnn.allow_tf32):
+            one = SR.create_train_state(seed(), cfg)[1]
+            dp = place_state(mesh, SR.create_train_state(seed(), cfg)[1])
+            pb = place_batch(mesh, batch)
+            aux_one = step_one(one, batch, None, draws=draws)
+            K.reset_launch_counts()
+            aux_dp = step_dp(dp, pb, None, draws=draws)
+            torch.cuda.synchronize()
+            run_counts = K.launch_counts()
+            lo, ld = aux_one["loss"].item(), aux_dp["loss"].item()
+            perr = diff(dp, one)
+            # both MMD terms: the N x N kernels over the batch gathered from
+            # the data group
+            mcfg = cfg.replace(lambda_fwd_mmd=1.0, lambda_bwd_mmd=1.0)
+            mmd_one = SR.make_train_step(spec, mcfg)(one, batch, None,
+                                                     draws=draws)
+            mmd_dp = SR.make_train_step(spec, mcfg, mesh)(dp, pb, None,
+                                                          draws=draws)
+            mo, md = mmd_one["loss"].item(), mmd_dp["loss"].item()
+            mmd_perr = diff(dp, one)
+        check_counts(run_counts, "one data-parallel train step",
+                     fused_glow_forward_1x1=4, fused_glow_inverse_1x1=4,
+                     fused_glow_backward_1x1=4,
+                     fused_glow_inverse_backward_1x1=4,
+                     reduce_weight_grads=8)
+        add_counts(counts, run_counts)
+        loss_rel = abs(ld - lo) / abs(lo)
+        mmd_rel = abs(md - mo) / abs(mo)
+        check(math.isfinite(ld) and loss_rel <= 1e-6,
+              f"DP step loss {ld} against {lo}")
+        check(perr <= 1e-6, f"DP step params differ by {perr:.3e}")
+        check(math.isfinite(md) and mmd_rel <= 1e-6 and mmd_perr <= 1e-6,
+              f"DP MMD step: loss {md} against {mo}, params {mmd_perr:.3e}")
+        stats.update(loss_rel=loss_rel, param_err=perr, init_s=init_s,
+                     mmd_loss_rel=mmd_rel, mmd_param_err=mmd_perr,
+                     default_spread=spread)
+
+        def rate(step, state, b_):
+            for _ in range(2):
+                step(state, b_, None, draws=draws)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(10):
+                step(state, b_, None, draws=draws)
+            torch.cuda.synchronize()
+            return 10 * TRAIN_BATCH / (time.perf_counter() - t)
+
+        K.reset_launch_counts()
+        stats["dp_fps"] = rate(step_dp, dp, pb)
+        stats["one_fps"] = rate(step_one, one, batch)
+        torch.cuda.synchronize()
+        add_counts(counts, K.launch_counts())
+        print(f"[distributed] NCCL world of one up in {init_s:.1f} s; DP "
+              f"flagship step against the non-distributed step: loss "
+              f"{ld:.7g} vs {lo:.7g} (relative {loss_rel:.3e}, limit 1e-6),"
+              f" params within {perr:.3e} (limit 1e-6); with both MMD "
+              f"terms loss relative {mmd_rel:.3e}, params within "
+              f"{mmd_perr:.3e} (cuDNN deterministic; two non-distributed "
+              f"steps on its default algorithms differ by {spread:.3e}); "
+              f"launches {run_counts}")
+        print(f"[distributed] DP step {stats['dp_fps']:.2f} train frames/s, "
+              f"non-distributed {stats['one_fps']:.2f} (phase 5: "
+              f"{train['frames_per_sec']:.2f}), batch {TRAIN_BATCH}, HR "
+              f"{HR_H}x{HR_W}, on {card} ({smi_line})")
+        del one, dp
+
+        # the launcher over two synthetic scenes with GT flow
+        n, sh, sw = DIST_SCENE
+        rng = np.random.RandomState(9)
+        media = {}
+        for i, scene in enumerate(("scene_a", "scene_b")):
+            gt = np.repeat(rng.uniform(-2, 2, (n - 1, 1, 1, 2)), sh, 1)
+            gt = np.repeat(gt, sw, 2).astype(np.float32)
+            m = FlowMedia(moving_texture_video(n, sh, sw, seed=11 + i),
+                          flow=gt)
+            media[scene] = (m, m)
+        with tempfile.TemporaryDirectory() as work:
+            fcfg = FlowConfig(device="cuda", name="dist", epochs=2,
+                              checkpoints_dir=work + "/ck",
+                              results_dir=work + "/results",
+                              input_video=work + "/scenes/scene_a")
+            _reset_all_counts()
+            t0 = time.perf_counter()
+            results = PL.run_scenes(fcfg, media=media)
+            torch.cuda.synchronize()
+            scenes_s = time.perf_counter() - t0
+        fc = _all_counts()
+        aepe = PL.aggregate_aepe(results)
+        frames = sum(r.num_frames for r in results)
+        want = sum(r.epe * r.num_frames for r in results) / frames
+        check([r.scene for r in results] == ["scene_a", "scene_b"]
+              and all(r.num_frames == n - 1 for r in results)
+              and all(math.isfinite(r.epe) and r.epe > 0 for r in results),
+              f"run_scenes results {results}")
+        check(abs(aepe - want) <= 1e-12 * max(abs(want), 1.0),
+              f"aggregate_aepe {aepe} against the frame-weighted mean {want}")
+        check(fc.get("fused_inr_backward", 0) > 0 and
+              (fc.get("splat_region", 0) + fc.get("splat_region_local", 0))
+              > 0 and (fc.get("gather_region", 0)
+                       + fc.get("gather_region_local", 0)) > 0,
+              f"run_scenes launched {fc}")
+        stats.update(aepe=aepe, scenes_s=scenes_s,
+                     epes=[r.epe for r in results])
+        print(f"[distributed] run_scenes over 2 synthetic {sh}x{sw} scenes "
+              f"({n} frames, GT flow) in {scenes_s:.1f} s: EPEs "
+              f"{[round(r.epe, 6) for r in results]}, aggregate_aepe "
+              f"{aepe:.6f} = the frame-weighted mean; launches "
+              f"{ {k: v for k, v in fc.items() if v} }")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived the phase")
+    return counts, fc, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4240,6 +4438,8 @@ def main() -> int:
         raft = phase_raft(dev, card, smi_line, work)
         pgt_counts, pgt = phase_pseudo_gt(dev, card, smi_line, work)
         scene = phase_scene_gather(dev, card, smi_line)
+        dist_counts, dist_flow_counts, dist = phase_distributed(
+            dev, card, smi_line, train)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4247,7 +4447,9 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     add_counts(counts, train_counts)
     add_counts(counts, tool_counts)
+    add_counts(counts, dist_counts)
     flow_counts = dict(flow["counts"])
+    add_counts(flow_counts, dist_flow_counts)
     add_counts(flow_counts, ft_counts)
     add_counts(flow_counts, prog_counts)
     add_counts(flow_counts, fx_counts)
@@ -4383,6 +4585,9 @@ def main() -> int:
           f"writes (probed bounds {pgt['probed']}); scene gather exact "
           f"{scene['off']['ms']:.2f} ms, windowed {scene['on']['ms']:.2f} "
           f"ms; on {card} ({smi_line})")
+    print(f"[distributed] DP flagship step {dist['dp_fps']:.2f} train "
+          f"frames/s beside phase 5's {train['frames_per_sec']:.2f}; "
+          f"launcher AEPE {dist['aepe']:.6f}; on {card} ({smi_line})")
     print(f"[done] sr test {fps:.2f} frames/s; train "
           f"{train['frames_per_sec']:.2f} frames/s; bf16 err {bf16_err:.3e}"
           f" (K3 {bwd_bf16_err:.3e}); total "

@@ -17,8 +17,16 @@ GT: ``raft:<ckpt.pth>[@iters]`` runs the port's RAFT on ``--device``) and
 is done, as the reference does. ``python -m sin_inn_tpu_torch.cli
 scene-space {read_matrices,depth_information,reproject,gather} --scene-dir
 DIR`` runs the scene-space operations (``--out``, ``--frame``, ``--patch``,
-``--window``, ``--device``). Not ported: the mesh and multi-host flags and
-``prepare``.
+``--window``, ``--device``). ``python -m sin_inn_tpu_torch.cli prepare
+VIDEO`` writes the SR dataset folders (host work, no ``--device``).
+
+Multi-GPU: one process per GPU, launched as PyTorch users do, e.g.
+``torchrun --nproc_per_node=N -m sin_inn_tpu_torch.cli sr train ...
+--mesh_data N`` (``--mesh_model M`` adds tensor parallelism over the GLOW
+subnets' hidden channels, ``--distributed`` initialises the process group
+from torchrun's environment or from ``--dist_coordinator HOST:PORT
+--dist_num_processes P --dist_process_id I``); ``flow train`` takes
+``--mesh-data`` and the ``--dist-*`` flags.
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ import argparse
 import sys
 from typing import List, Optional
 
-from sin_inn_tpu_torch.core.config import COMPUTE_DTYPES, FlowConfig, SRConfig
+from sin_inn_tpu_torch.core.config import (COMPUTE_DTYPES, FlowConfig,
+                                          PrepareConfig, SRConfig)
+
 
 def _sr_parser(sub):
     ap = sub.add_parser("sr", help="INN space-time super-resolution")
@@ -93,6 +103,20 @@ def _sr_parser(sub):
                     help="torch device: cuda (default), cuda:N or cpu")
     ap.add_argument("--save_images", action="store_true",
                     help="sr test: dump PNG frames instead of a video")
+    ap.add_argument("--mesh_data", type=int, default=None,
+                    help="data-parallel mesh axis (default: every process "
+                         "of the group)")
+    ap.add_argument("--mesh_model", type=int, default=1,
+                    help="tensor-parallel mesh axis over the GLOW subnets' "
+                         "hidden channels")
+    ap.add_argument("--distributed", action="store_true",
+                    help="initialise torch.distributed first (from "
+                         "torchrun's environment, or the --dist_* flags)")
+    ap.add_argument("--dist_coordinator", default=None, metavar="HOST:PORT",
+                    help="explicit rendezvous address; requires "
+                         "--dist_num_processes and --dist_process_id")
+    ap.add_argument("--dist_num_processes", type=int, default=None)
+    ap.add_argument("--dist_process_id", type=int, default=None)
 
 
 def sr_config_from_args(a) -> SRConfig:
@@ -115,6 +139,10 @@ def sr_config_from_args(a) -> SRConfig:
         compute_dtype=a.compute_dtype,
         use_kernel=a.use_kernel, device=a.device, remat=a.remat,
         profile_steps=a.profile, auto_lr=a.auto_lr, auto_batch=a.auto_batch,
+        mesh_data=a.mesh_data, mesh_model=a.mesh_model,
+        distributed=a.distributed, dist_coordinator=a.dist_coordinator,
+        dist_num_processes=a.dist_num_processes,
+        dist_process_id=a.dist_process_id,
     )
 
 
@@ -221,6 +249,14 @@ def _flow_parser(sub):
                          "checkpoint; a framework checkpoint on disk takes "
                          "precedence (train resume and every other "
                          "operation), with a warning")
+    ap.add_argument("--mesh-data", type=int, default=None,
+                    help="data-parallel mesh axis over the frame-pair batch "
+                         "(default: every process of the group)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="initialise torch.distributed first")
+    ap.add_argument("--dist-coordinator", default=None, metavar="HOST:PORT")
+    ap.add_argument("--dist-num-processes", type=int, default=None)
+    ap.add_argument("--dist-process-id", type=int, default=None)
 
 
 def flow_config_from_args(a) -> FlowConfig:
@@ -243,8 +279,25 @@ def flow_config_from_args(a) -> FlowConfig:
         splat_local_dx=a.splat_local_dx, window_refit=a.window_refit,
         flow_dir=a.flow_dir, flow_producer=a.flow_producer,
         device=a.device, profile_steps=a.profile,
-        import_torch=a.import_torch,
+        import_torch=a.import_torch, mesh_data=a.mesh_data,
+        distributed=a.distributed, dist_coordinator=a.dist_coordinator,
+        dist_num_processes=a.dist_num_processes,
+        dist_process_id=a.dist_process_id,
     )
+
+
+def _prepare_parser(sub):
+    ap = sub.add_parser("prepare", help="extract HR/LR frames from a video")
+    ap.add_argument("video")
+    ap.add_argument("-d", "--downsampling", default=1.0, type=float)
+    ap.add_argument("-p", "--operator", default="binning",
+                    choices=["binning", "linear", "cubic", "lanczos4",
+                             "nearest", "area"])
+    ap.add_argument("-r", "--reduction", choices=["mean", "sum"],
+                    default="mean")
+    ap.add_argument("-s", "--scale", type=int, default=4)
+    ap.add_argument("-b", "--bayer", action="store_true")
+    ap.add_argument("-n", "--noise", type=float)
 
 
 def _scene_space_parser(sub):
@@ -268,8 +321,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
     _sr_parser(sub)
     _flow_parser(sub)
+    _prepare_parser(sub)
     _scene_space_parser(sub)
     a = parser.parse_args(argv)
+    if a.command == "prepare":
+        from sin_inn_tpu_torch.data.prepare import prepare_video
+
+        print(prepare_video(PrepareConfig(
+            video=a.video, downsampling=a.downsampling, operator=a.operator,
+            reduction=a.reduction, scale=a.scale, bayer=a.bayer,
+            noise=a.noise)))
+        return 0
     if a.command == "scene-space":
         from sin_inn_tpu_torch.scene_space.cli import run
 
@@ -281,6 +343,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg = flow_config_from_args(a)
         if a.operation == "train":
             out = L.run_flow_train(cfg, use_wandb=a.wandb, keep_writer=True)
+            if not out["primary"]:
+                # on a mesh, rank 0 runs the test pass and writes
+                if "writer" in out:
+                    out["writer"].close()
+                return 0
             eff = out["cfg"]
             if eff.test_size != eff.size:
                 # the bounds were resolved at the train frame size: another
@@ -310,7 +377,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = sr_config_from_args(a)
     if a.operation == "train":
         out = L.run_sr_train(cfg, use_wandb=a.wandb)
-        print(out["exp_dir"])
+        if out["primary"]:
+            print(out["exp_dir"])
         return 0
     if a.operation == "export":
         print(L.run_sr_export(cfg, out=a.export_out))

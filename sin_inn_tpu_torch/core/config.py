@@ -8,7 +8,9 @@
 * ``use_kernel`` replaces ``use_pallas``: ``"auto"`` routes every 1x1 GLOW
   coupling through the fused kernels (except in ``float32_highest``),
   ``"off"`` keeps them on plain convolutions.
-* The multi-chip fields are left out until their slice is ported.
+* The multi-chip fields (``data_axis``, ``mesh_data``, ``mesh_model``,
+  ``distributed``, ``dist_*``) keep the reference's names and defaults and
+  mean one process per GPU over ``torch.distributed`` (``parallel/``).
 * ``donate_state`` has no counterpart: the Adam step updates the
   parameters and its moments in place, so no second copy of the state is
   ever made.
@@ -22,8 +24,9 @@ ones (K5 local, K6 local) when the local row bound is set, else the static
 ones (K5, K6); ``use_kernel="off"`` takes the windowed forms of
 ``ops/warp.py`` and ``ops/splat.py`` instead. ``flow_producer`` names the
 pseudo-GT producer of a video without GT flow (the port's RAFT, a Python
-callable or a command template). The multi-chip fields come with the code
-that reads them.
+callable or a command template). Its multi-chip fields are the reference's
+(``mesh_data``, ``distributed``, ``dist_*``, ``data_axis``); the flow
+pipeline has no model axis. ``PrepareConfig`` is the reference's, unchanged.
 """
 
 from __future__ import annotations
@@ -110,6 +113,23 @@ class SRConfig:
     # auto_lr_find / auto_scale_batch_size): train/tuner.py
     auto_lr: bool = False
     auto_batch: bool = False
+    # Multi-GPU, one process per GPU (parallel/): the batch is sharded over
+    # the mesh's ``data`` axis; mesh_data=None uses every process of the
+    # group when there are several (the largest divisor of the batch), 1
+    # forces one process. mesh_model > 1 also shards the GLOW subnets'
+    # hidden channels (TP, parallel/sharding.py). data_axis keeps the
+    # reference's field; the port's mesh has the one batch axis "data", and
+    # any other name raises.
+    data_axis: str = "data"
+    mesh_data: Optional[int] = None
+    mesh_model: int = 1
+    # init the process group first: from the dist_* fields when given
+    # (tcp://HOST:PORT, NCCL on CUDA, gloo on the CPU), else from torchrun's
+    # environment
+    distributed: bool = False
+    dist_coordinator: Optional[str] = None
+    dist_num_processes: Optional[int] = None
+    dist_process_id: Optional[int] = None
 
     def __post_init__(self):
         if self.architecture not in ("SRF", "IRN"):
@@ -129,6 +149,9 @@ class SRConfig:
         if self.use_kernel not in ("auto", "off"):
             raise ValueError(f"use_kernel must be 'auto' or 'off', got "
                              f"{self.use_kernel!r}")
+        if self.data_axis != "data":
+            raise ValueError(f"data_axis names the mesh's batch axis, which "
+                             f"is 'data'; got {self.data_axis!r}")
 
     # ---- derived fields ----
 
@@ -200,6 +223,7 @@ class FlowConfig:
     domain_dim: int = 3
     num_frequencies: int = 256
     std: float = 25.0
+    power: int = 20               # polynomial encoding degree
     num_layers: int = 3
     hidden_dim: int = 256
     output_channels: int = 4
@@ -282,6 +306,14 @@ class FlowConfig:
     # torch / Lightning flow checkpoint (models/torch_import.py); a framework
     # checkpoint on disk (resume) takes precedence over the import
     import_torch: Optional[str] = None
+    # Multi-GPU: the frame-pair batch is sharded over the ``data`` axis, one
+    # process per GPU; data_axis, mesh_data and dist_* as in SRConfig
+    data_axis: str = "data"
+    mesh_data: Optional[int] = None
+    distributed: bool = False
+    dist_coordinator: Optional[str] = None
+    dist_num_processes: Optional[int] = None
+    dist_process_id: Optional[int] = None
 
     def __post_init__(self):
         if self.edge_func not in ("exp", "gauss"):
@@ -290,6 +322,9 @@ class FlowConfig:
         if self.use_kernel not in ("auto", "off"):
             raise ValueError(f"use_kernel must be 'auto' or 'off', got "
                              f"{self.use_kernel!r}")
+        if self.data_axis != "data":
+            raise ValueError(f"data_axis names the mesh's batch axis, which "
+                             f"is 'data'; got {self.data_axis!r}")
         if self.occl not in ("brox", "wang", None):
             raise ValueError(f"occl must be 'brox'|'wang'|None, got {self.occl}")
         for name in self.WINDOW_BOUND_KEYS:
@@ -374,5 +409,38 @@ class FlowConfig:
         ``val_iter`` is set, as in the reference."""
         return self.val_iter if self.val_iter else self.epochs + 1
 
+    def model_params(self) -> dict:
+        return dict(
+            domain_dim=self.domain_dim,
+            num_frequencies=self.num_frequencies,
+            std=self.std,
+            power=self.power,
+            num_layers=self.num_layers,
+            hidden_dim=self.hidden_dim,
+            output_channels=self.output_channels,
+            num_frequencies_pe=self.num_frequencies_pe,
+            std_rbf=self.std_rbf,
+        )
+
     def replace(self, **kw) -> "FlowConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class PrepareConfig:
+    """Config for offline dataset preparation (``prepare``)."""
+
+    video: str = ""
+    downsampling: float = 1.0
+    operator: str = "binning"   # binning | linear | cubic | lanczos4 | nearest | area
+    reduction: str = "mean"     # mean | sum (binning only)
+    scale: int = 4
+    bayer: bool = False
+    noise: Optional[float] = None
+
+    def __post_init__(self):
+        ops = ("binning", "linear", "cubic", "lanczos4", "nearest", "area")
+        if self.operator not in ops:
+            raise ValueError(f"operator must be one of {ops}")
+        if self.reduction not in ("mean", "sum"):
+            raise ValueError("reduction must be 'mean' or 'sum'")

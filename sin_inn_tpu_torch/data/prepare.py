@@ -1,15 +1,24 @@
-"""Bayer extraction and binning (host-side numpy).
+"""Offline dataset preparation: bayer extraction, binning, demosaic
+(host-side numpy / cv2 / scipy).
 
-Copies of ``extract_bayer`` and ``binning`` from
-``sin_inn_tpu/data/prepare.py``; the rest of the offline preparation comes
-with a later slice.
+Counterpart of ``sin_inn_tpu/data/prepare.py``, function for function:
+a video -> per-frame HR RGB PNGs, 4-channel RGGB LR PNGs (bayer binning or
+a cv2 resize of each bayer plane), their bilinear demosaiced previews and,
+with ``noise``, noisy HR frames, under the same file names
+(``frame_00001.png`` ...). No step runs on the card. The preview videos are
+encoded with ffmpeg only where it is installed.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+import shutil
+import subprocess as sp
+from typing import Optional, Tuple
 
 import numpy as np
+
+from sin_inn_tpu_torch.core.config import PrepareConfig
 
 
 def extract_bayer(frame: np.ndarray, scale: float = 1.0
@@ -41,3 +50,133 @@ def binning(img: np.ndarray, reduction: str, scale: int) -> np.ndarray:
     red = {"mean": np.mean, "sum": np.sum}[reduction]
     blk = img.reshape(h // scale, scale, w // scale, scale, c)
     return red(red(blk, 1), -2)
+
+
+def cv_resize(bayer: np.ndarray, flag: int, scale: int) -> np.ndarray:
+    """Per-plane cv2 resize of the bayer mosaic."""
+    import cv2
+    h, w = bayer.shape[:2]
+    out = np.empty((h // scale // 2, w // scale // 2, 4))
+    planes = (bayer[::2, ::2], bayer[::2, 1::2],
+              bayer[1::2, ::2], bayer[1::2, 1::2])
+    for i, p in enumerate(planes):
+        out[..., i] = cv2.resize(p, (0, 0), fx=1.0 / scale, fy=1.0 / scale,
+                                 interpolation=flag)
+    return out
+
+
+def pack_bayer(img: np.ndarray) -> np.ndarray:
+    """4-channel RGGB -> mosaic."""
+    h, w, _ = img.shape
+    bayer = np.empty((h * 2, w * 2), img.dtype)
+    bayer[::2, ::2] = img[..., 0]
+    bayer[::2, 1::2] = img[..., 1]
+    bayer[1::2, ::2] = img[..., 2]
+    bayer[1::2, 1::2] = img[..., 3]
+    return bayer
+
+
+def demosaic_bilinear(bayer: np.ndarray) -> np.ndarray:
+    """Bilinear RGGB demosaic via small convolutions (equivalent of
+    colour_demosaicing.demosaicing_CFA_Bayer_bilinear for RGGB)."""
+    from scipy.ndimage import convolve
+
+    h, w = bayer.shape
+    r_m = np.zeros((h, w)); r_m[::2, ::2] = 1
+    b_m = np.zeros((h, w)); b_m[1::2, 1::2] = 1
+    g_m = 1.0 - r_m - b_m
+
+    k_g = np.array([[0, 1, 0], [1, 4, 1], [0, 1, 0]]) / 4.0
+    k_rb = np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]]) / 4.0
+
+    r = convolve(bayer * r_m, k_rb, mode="mirror")
+    g = convolve(bayer * g_m, k_g, mode="mirror")
+    b = convolve(bayer * b_m, k_rb, mode="mirror")
+    return np.stack([r, g, b], axis=-1)
+
+
+def pack_demosaic(img: np.ndarray) -> np.ndarray:
+    return demosaic_bilinear(pack_bayer(img))
+
+
+def _normalize(frame: np.ndarray) -> np.ndarray:
+    if frame.dtype == np.uint8:
+        return frame / 255.0
+    if frame.dtype == np.uint16:
+        return frame / (2 ** 16 - 1)
+    raise NotImplementedError(f"unsupported dtype {frame.dtype}")
+
+
+def _to_u8(x: np.ndarray) -> np.ndarray:
+    return (np.clip(x, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def prepare_video(cfg: PrepareConfig, dataset: Optional[str] = None,
+                  scene: Optional[str] = None, rng: Optional[np.random.RandomState] = None):
+    """The whole preparation of ``cfg.video``; returns (dataset, scene).
+    ``dataset`` defaults to the video's parent directory's parent and
+    ``scene`` to ``<video name>_<operator>_<scale>x``; ``rng`` draws the
+    HR noise."""
+    import imageio.v2 as io
+
+    if dataset is None:
+        dataset = os.path.join(os.path.dirname(cfg.video), "..")
+    if scene is None:
+        base = os.path.splitext(os.path.basename(cfg.video))[0]
+        scene = f"{base}_{cfg.operator}_{cfg.scale}x"
+    for sub in ("hr_frames", "lr_frames", "lr_frames_demosaiced",
+                "hr_frames_noisy"):
+        os.makedirs(os.path.join(dataset, sub, scene), exist_ok=True)
+    rng = rng or np.random.RandomState(0)
+
+    if cfg.bayer:
+        raise NotImplementedError("bayer input videos are not supported")
+
+    reader = io.get_reader(cfg.video)
+    for i, frame in enumerate(reader):
+        frame = _normalize(np.asarray(frame))
+        bayer, hr = extract_bayer(frame, cfg.downsampling)
+
+        hr8 = _to_u8(hr)
+        io.imwrite(os.path.join(dataset, "hr_frames", scene,
+                                f"frame_{i+1:05d}.png"), hr8)
+        if cfg.noise:
+            noisy = np.clip(hr8 + rng.normal(0, cfg.noise, hr8.shape), 0, 255)
+            io.imwrite(os.path.join(dataset, "hr_frames_noisy", scene,
+                                    f"frame_{i+1:05d}.png"),
+                       noisy.astype(np.uint8))
+
+        h, w = bayer.shape
+        if h % (cfg.scale * 2) or w % (cfg.scale * 2):
+            raise ValueError("frame size not divisible by 2*scale; "
+                             "pick a lower scale")
+        if cfg.operator == "binning":
+            lr = binning(bayer, cfg.reduction, cfg.scale)
+        else:
+            import cv2
+            flag = getattr(cv2, f"INTER_{cfg.operator.upper()}")
+            lr = cv_resize(bayer, flag, cfg.scale)
+        lr_rgb = pack_demosaic(lr)
+
+        io.imwrite(os.path.join(dataset, "lr_frames", scene,
+                                f"frame_{i+1:05d}.png"), _to_u8(lr))
+        io.imwrite(os.path.join(dataset, "lr_frames_demosaiced", scene,
+                                f"frame_{i+1:05d}.png"), _to_u8(lr_rgb))
+
+    _encode_previews(dataset, scene)
+    return dataset, scene
+
+
+def _encode_previews(dataset: str, scene: str, fps: int = 30, crf: int = 18):
+    """Preview videos via ffmpeg where it is installed; skipped otherwise."""
+    if shutil.which("ffmpeg") is None:
+        return
+    for sub in ("hr_frames", "lr_frames_demosaiced"):
+        vdir = os.path.join(dataset, sub, "videos")
+        os.makedirs(vdir, exist_ok=True)
+        cmd = ["ffmpeg", "-framerate", str(fps), "-i",
+               os.path.join(dataset, sub, scene, "frame_%5d.png"),
+               "-c:v", "libx264", "-preset", "veryslow", "-crf", str(crf),
+               "-y", os.path.join(vdir, f"{scene}.avi")]
+        with open(os.devnull, "w") as dump:
+            sp.check_call(cmd, stdin=sp.PIPE, stderr=dump, stdout=dump)

@@ -159,10 +159,18 @@ class SRDataset:
         return native.Prefetcher(self.video.lr, self.video.hr, self.window,
                                  self.indices, order, batch_size)
 
-    def device_cache(self, batch_size: int, device) -> List[Dict[str, torch.Tensor]]:
-        """Pre-gather every batch (in order) and keep it on ``device``."""
-        return [to_device(self.gather(np.arange(s, min(s + batch_size,
-                                                       len(self)))), device)
+    def device_cache(self, batch_size: int, device,
+                     mesh=None) -> List[Dict[str, torch.Tensor]]:
+        """Pre-gather every batch (in order) and keep it on ``device``. With
+        ``mesh`` each rank keeps its shard of every batch over the ``data``
+        axis (a ragged last batch whole: ``place_batch``'s
+        ``allow_uneven``)."""
+        put = lambda b: to_device(b, device)
+        if mesh is not None:
+            from sin_inn_tpu_torch.parallel.sharding import place_batch
+            put = lambda b: place_batch(mesh, to_device(b, "cpu"),
+                                        allow_uneven=True).to(device)
+        return [put(self.gather(np.arange(s, min(s + batch_size, len(self)))))
                 for s in range(0, len(self), batch_size)]
 
     def random_batch(self, batch_size: int) -> Dict[str, np.ndarray]:

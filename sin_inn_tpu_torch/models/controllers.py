@@ -296,16 +296,34 @@ def _stash_ramp(cfg: SpatialConfig, state: SpatialState,
                           log_counter=log_counter, iteration=it)
 
 
+def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over a data group's shards (itself without one)."""
+    if group is not None:
+        import torch.distributed as dist
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+    return x
+
+
 def spatial_stash(cfg: SpatialConfig, state: SpatialState,
                   point_loss: torch.Tensor, inds: torch.Tensor,
-                  alphas: torch.Tensor) -> SpatialState:
-    """Accumulate per-point losses into their cells and ramp the block."""
+                  alphas: torch.Tensor, group=None) -> SpatialState:
+    """Accumulate per-point losses into their cells and ramp the block
+    (over every shard of ``group``'s batch, with one)."""
     w = (point_loss.detach()[:, None] * alphas).reshape(-1)
     flat = inds.reshape(-1)
-    return _stash_ramp(cfg, state,
-                       state.log_buffer.index_add(0, flat, w),
-                       state.log_counter.index_add(0, flat,
-                                                   alphas.reshape(-1)))
+    if group is None:
+        return _stash_ramp(cfg, state,
+                           state.log_buffer.index_add(0, flat, w),
+                           state.log_counter.index_add(0, flat,
+                                                       alphas.reshape(-1)))
+    zero = torch.zeros_like(state.log_buffer)
+    return _stash_ramp(
+        cfg, state,
+        state.log_buffer + _group_sum(zero.index_add(0, flat, w), group),
+        state.log_counter + _group_sum(
+            torch.zeros_like(state.log_counter).index_add(
+                0, flat, alphas.reshape(-1)), group))
 
 
 # --------------------------------------------------------------------------
@@ -437,11 +455,12 @@ def spatial_grid_mask_slabs(cfg: SpatialConfig, state: SpatialState,
 
 def spatial_grid_update(cfg: SpatialConfig, state: SpatialState,
                         point_loss: torch.Tensor, times: torch.Tensor,
-                        h: int, w: int) -> SpatialState:
+                        h: int, w: int, group=None) -> SpatialState:
     """:func:`spatial_update` for the dense pose grid, scatter-free: the
     cell accumulation of the per-point losses is the adjoint of the
     separable interpolation (three small contractions), the visit counter
-    an outer product of the per-axis weight sums."""
+    an outer product of the per-axis weight sums; both summed over the
+    shards of ``group``'s batch, with one."""
     dev = state.mask.device
     b = times.shape[0]
     loss = point_loss.detach().reshape(b, h, w).to(dev)
@@ -455,6 +474,7 @@ def spatial_grid_update(cfg: SpatialConfig, state: SpatialState,
     buf_add = torch.einsum("bxy,bt->xyt", l2, wt).reshape(-1)
     cnt_add = torch.einsum("x,y,t->xyt", wx.sum(0), wy.sum(0),
                            wt.sum(0)).reshape(-1)
+    buf_add, cnt_add = _group_sum(buf_add, group), _group_sum(cnt_add, group)
     state = _stash_ramp(cfg, state, state.log_buffer + buf_add,
                         state.log_counter + cnt_add)
     if state.iteration % cfg.block_iterations == 0:
@@ -490,9 +510,9 @@ def spatial_progress(cfg: SpatialConfig, state: SpatialState) -> SpatialState:
 
 def spatial_update(cfg: SpatialConfig, state: SpatialState,
                    point_loss: torch.Tensor, inds: torch.Tensor,
-                   alphas: torch.Tensor) -> SpatialState:
+                   alphas: torch.Tensor, group=None) -> SpatialState:
     """Stash, then the progress step when its turn has come."""
-    state = spatial_stash(cfg, state, point_loss, inds, alphas)
+    state = spatial_stash(cfg, state, point_loss, inds, alphas, group)
     if state.iteration % cfg.block_iterations == 0:
         return spatial_progress(cfg, state)
     return state

@@ -16,13 +16,19 @@ tensor's device, nowhere else. The 3x3 couplings run as cuDNN convolutions,
 as the JAX package keeps them on XLA by measurement (K8,
 ``ops/cuda/coupling3x3.py``, is reached only through its own module), and
 so do the IRN's dense blocks.
+
+Under tensor parallelism the caller names the GLOW couplings whose params
+are TP shards (``tp``: layer index -> an object with ``subnet``, the conv
+subnet on this rank's hidden shard, and ``whole``, the whole weights for the
+fused 1x1 kernels); ``train/sr.py`` reads them from the train state's
+shardings (``parallel/sharding.py`` ``tp_couplings``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -134,7 +140,7 @@ def init_inn(gen: torch.Generator, spec: Sequence[LayerSpec], c_in: int = 3,
 
 
 def _apply_layer(layer: LayerSpec, p: Optional[Dict], x: torch.Tensor,
-                 rev: bool, with_log_det: bool
+                 rev: bool, with_log_det: bool, tp=None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     if layer.kind == "squeeze":
         return (depth_to_space(x) if rev else space_to_depth(x)), None
@@ -163,10 +169,12 @@ def _apply_layer(layer: LayerSpec, p: Optional[Dict], x: torch.Tensor,
         raise ValueError(layer.kind)
     if layer.use_kernel and layer.kernel == 1 and not with_log_det:
         # the kernels return y only, so a log-det request takes the
-        # convolution path (same math)
-        return K.fused_coupling(p, x.contiguous(), layer.clamp,
+        # convolution path (same math); they take whole weights
+        return K.fused_coupling(p if tp is None else tp.whole(p),
+                                x.contiguous(), layer.clamp,
                                 layer.split_len1, inverse=rev), None
-    subnet = partial(S.conv_subnet_apply, compute=S.compute_mode(layer.compute))
+    subnet = partial(S.conv_subnet_apply if tp is None else tp.subnet,
+                     compute=S.compute_mode(layer.compute))
     if rev:
         if with_log_det:
             return C.glow_coupling_inverse_ld(p, x, subnet, layer.clamp,
@@ -179,23 +187,27 @@ def _apply_layer(layer: LayerSpec, p: Optional[Dict], x: torch.Tensor,
 
 def inn_apply(spec: Sequence[LayerSpec], params: Sequence[Optional[Dict]],
               x: torch.Tensor, rev: bool = False, with_log_det: bool = False,
-              remat: bool = False):
+              remat: bool = False,
+              tp: Optional[Mapping[int, Any]] = None):
     """Run the INN forward (HR -> LR||z) or inverse (LR||z -> HR).
 
     Returns ``x`` or, with ``with_log_det``, ``(x, log_det per sample)``.
     ``remat=True`` wraps each coupling in ``torch.utils.checkpoint``: the
     backward keeps only each coupling's input and recomputes the coupling.
+    ``tp``: the GLOW couplings that run tensor-parallel, by layer index
+    (``parallel/sharding.py`` ``tp_couplings``); the others run whole.
     """
     log_det = torch.zeros((x.shape[0],), dtype=x.dtype, device=x.device)
-    pairs = list(zip(spec, params))
+    pairs = list(enumerate(zip(spec, params)))
     if rev:
         pairs = pairs[::-1]
-    for layer, p in pairs:
+    for i, (layer, p) in pairs:
+        tp_i = tp.get(i) if tp else None
         if remat and layer.kind in ("glow", "invblock"):
             x, ld = checkpoint(_apply_layer, layer, p, x, rev, with_log_det,
-                               use_reentrant=False)
+                               tp_i, use_reentrant=False)
         else:
-            x, ld = _apply_layer(layer, p, x, rev, with_log_det)
+            x, ld = _apply_layer(layer, p, x, rev, with_log_det, tp_i)
         if with_log_det and ld is not None:
             log_det = log_det + ld
     if with_log_det:

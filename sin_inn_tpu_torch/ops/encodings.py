@@ -20,7 +20,7 @@ pixels collide before the exponential.)
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -193,6 +193,44 @@ def piecewise_apply(params: Dict, consts: Dict,
     out = out.reshape(*out.shape[:-2], -1)
     out = torch.fmod(out, 2.0) - 1.0
     return torch.where(out < 0, 2.0 * out + 1.0, 1.0 - 2.0 * out)
+
+
+# --------------------------------------------------------------------------
+# Polynomial encoding
+# --------------------------------------------------------------------------
+
+def polynomial_kernel(domain_dim: int, power: int) -> List[Tuple[int, ...]]:
+    """The multi-indices of every monomial of degree 2 to ``power`` over
+    ``domain_dim`` coordinates, shortest first (the raw linear terms are
+    left out)."""
+    last_added = kernel = {(i,) for i in range(domain_dim)}
+    for _ in range(power - 1):
+        added = set()
+        for item in last_added:
+            for i in range(domain_dim):
+                added.add(tuple(sorted(list(item) + [i])))
+        kernel = kernel | added
+        last_added = added
+    out = sorted(kernel, key=len)
+    return out[domain_dim:]
+
+
+def polynomial_init(gen, domain_dim: int, power: int):
+    """No params and no random draw: the consts hold the monomials."""
+    del gen
+    return {}, {"kernel": tuple(polynomial_kernel(domain_dim, power))}
+
+
+def polynomial_apply(params: Dict, consts: Dict,
+                     x: torch.Tensor) -> torch.Tensor:
+    """(..., d) -> (..., len(kernel)): each monomial of the coordinates."""
+    cols = []
+    for multipliers in consts["kernel"]:
+        v = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for i in multipliers:
+            v = v * x[..., i]
+        cols.append(v)
+    return torch.stack(cols, dim=-1)
 
 
 # --------------------------------------------------------------------------

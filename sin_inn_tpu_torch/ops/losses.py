@@ -21,9 +21,17 @@ def reconstruction(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.mean((x - y) ** 2)
 
 
-def mmd(x: torch.Tensor, y: torch.Tensor, rev: bool = False) -> torch.Tensor:
+def mmd(x: torch.Tensor, y: torch.Tensor, rev: bool = False,
+        group=None) -> torch.Tensor:
     """Inverse-multiquadratic maximum mean discrepancy over flattened
-    samples. ``x``/``y`` are (N, ...) batches; trailing dims are flattened."""
+    samples. ``x``/``y`` are (N, ...) batches; trailing dims are flattened.
+
+    With ``group`` (the data group of a sharded batch) ``x`` and ``y`` are
+    this rank's shards: the N x N kernel is taken over the whole batch,
+    gathered from every rank, and the gradient flows back to each shard."""
+    if group is not None:
+        from sin_inn_tpu_torch.parallel.mesh import gather_batch
+        x, y = gather_batch(x, group), gather_batch(y, group)
     kernels = MMD_KERNELS_REV if rev else MMD_KERNELS_FWD
     n = x.shape[0]
     xf = x.reshape(n, -1)

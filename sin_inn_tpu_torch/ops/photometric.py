@@ -5,6 +5,12 @@ all NHWC. A loss whose weight is 0 returns a zero scalar without computing
 anything, as there. The census loss is the same sum over the p x p shifts
 (it never holds the (N, H, W, p^2) patch tensor); ``_ternary_transform`` is
 the patch form of it, kept for the tests.
+
+The masked losses normalise by the mask over the whole batch. With
+``group`` (the data group of a sharded batch) the inputs are this rank's
+shard, and the mean and the mask's sum and size are taken over every
+rank's shard (sums whose backward sums over the group too), so each rank
+holds the whole batch's value.
 """
 
 from __future__ import annotations
@@ -25,13 +31,24 @@ def _avg_pool_valid(x: torch.Tensor, k: int) -> torch.Tensor:
                         padding=0).permute(0, 2, 3, 1)
 
 
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, group) -> torch.Tensor:
+    """x.mean() / mask.sum() * mask.numel(), each over the whole batch."""
+    if group is None:
+        return x.mean() / mask.sum() * mask.numel()
+    import torch.distributed as dist
+
+    from sin_inn_tpu_torch.parallel.mesh import all_reduce_sum
+    n = dist.get_world_size(group)
+    mean = all_reduce_sum(x.sum(), group) / (x.numel() * n)
+    return mean / all_reduce_sum(mask.sum(), group) * (mask.numel() * n)
+
+
 def masked_l1(im1: torch.Tensor, im2: torch.Tensor, mask: torch.Tensor,
-              weight: float) -> torch.Tensor:
+              weight: float, group=None) -> torch.Tensor:
     """mean|im1 m - im2 m| / m.sum() * m.numel() * weight."""
     if weight == 0:
         return _zero(im1)
-    diff = (im1 * mask - im2 * mask).abs().mean()
-    return diff / mask.sum() * mask.numel() * weight
+    return _masked_mean((im1 * mask - im2 * mask).abs(), mask, group) * weight
 
 
 def _rgb_to_grayscale(img: torch.Tensor) -> torch.Tensor:
@@ -60,7 +77,8 @@ def _ternary_transform(img: torch.Tensor, max_distance: int) -> torch.Tensor:
 
 
 def census_loss(im: torch.Tensor, im_warp: torch.Tensor, mask: torch.Tensor,
-                weight: float, max_distance: int = 3) -> torch.Tensor:
+                weight: float, max_distance: int = 3,
+                group=None) -> torch.Tensor:
     """Soft Hamming distance of the ternary patches of the two masked
     images, the border of ``max_distance`` pixels left out, normalised by
     the mask."""
@@ -85,11 +103,11 @@ def census_loss(im: torch.Tensor, im_warp: torch.Tensor, mask: torch.Tensor,
     # number would copy it from the host and wait for the card
     valid = F.pad(torch.ones((1, h - 2 * md, w - 2 * md), dtype=im.dtype,
                              device=im.device), (md, md, md, md))
-    return (dist_mean * valid).mean() / mask.sum() * mask.numel() * weight
+    return _masked_mean(dist_mean * valid, mask, group) * weight
 
 
 def ssim_loss(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
-              weight: float, md: int = 1) -> torch.Tensor:
+              weight: float, md: int = 1, group=None) -> torch.Tensor:
     """Mean clipped (1 - SSIM) / 2 over (2 md + 1)-pixel windows of the
     masked images, normalised by the mask."""
     if weight == 0:
@@ -110,7 +128,7 @@ def ssim_loss(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     ssim_n = (2 * mu_xy + c1) * (2 * sigma_xy + c2)
     ssim_d = (mu_x2 + mu_y2 + c1) * (sigma_x + sigma_y + c2)
     dist = torch.clamp((1.0 - ssim_n / ssim_d) / 2.0, 0.0, 1.0)
-    return dist.mean() / mask.sum() * mask.numel() * weight
+    return _masked_mean(dist, mask, group) * weight
 
 
 def image_grads(img: torch.Tensor,

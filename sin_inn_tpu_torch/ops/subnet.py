@@ -2,13 +2,16 @@
 and the dense block of the IRN couplings.
 
 Counterpart of ``sin_inn_tpu/ops/subnet.py`` (``conv2d``,
-``conv_subnet_init``, ``conv_subnet_apply``, ``dense_block_init`` and
-``dense_block_apply`` in its default form). Activations stay NHWC; weights
-are OIHW, as ``torch.nn.Conv2d`` keeps them. An NHWC-contiguous tensor viewed
-with ``.permute(0, 3, 1, 2)`` already has the ``channels_last`` memory format,
-so cuDNN takes it without a copy. The dense block's measurement forms
-(``fused=True``, ``shift=True``, ``conv2d_shift``), which no entry point
-reaches, are not ported.
+``conv_subnet_init``, ``conv_subnet_apply``, ``conv2d_shift``,
+``dense_block_init`` and ``dense_block_apply``). Activations stay NHWC;
+weights are OIHW, as ``torch.nn.Conv2d`` keeps them. An NHWC-contiguous
+tensor viewed with ``.permute(0, 3, 1, 2)`` already has the
+``channels_last`` memory format, so cuDNN takes it without a copy. The dense
+block's measurement forms (``fused=True``: the lower-triangular piece form;
+``shift=True``: each conv as nine shifted products, ``conv2d_shift``)
+compute the default form's function in another summation order. The
+reference keeps them as records of measured alternatives; no entry point
+reaches them, in either package.
 
 Compute modes (``SRConfig.compute_dtype``), mapped from the TPU's:
 
@@ -121,6 +124,34 @@ def conv_subnet_apply(params: Dict, x: torch.Tensor,
     return conv2d(h, params["conv2"]["w"], params["conv2"]["b"], compute)
 
 
+def conv2d_shift(x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor] = None,
+                 compute=None) -> torch.Tensor:
+    """:func:`conv2d` for a 3x3 kernel as nine shifted (M, cin) @ (cin,
+    cout) products over the zero-padded input: the same function up to
+    summation order. ``compute`` as in :func:`conv2d` (TF32 of the products
+    allowed unless ``"highest"``)."""
+    if tuple(w.shape[2:]) != (3, 3):
+        raise ValueError(f"conv2d_shift takes a 3x3 kernel, got "
+                         f"{tuple(w.shape[2:])}")
+    out_dtype = x.dtype
+    if isinstance(compute, torch.dtype):
+        x = x.to(compute)
+        w = w.to(compute)
+    _, hh, ww, _ = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    out = None
+    with _matmul_tf32(compute != "highest"):
+        for i in range(3):
+            for j in range(3):
+                t = xp[:, i:i + hh, j:j + ww, :] @ w[:, :, i, j].t()
+                out = t if out is None else out + t
+    out = out.to(out_dtype)
+    if b is not None:
+        out = out + b
+    return out
+
+
 def dense_block_init(gen: torch.Generator, c_in: int, c_out: int,
                      gc: int = 32, dtype=torch.float32) -> Dict:
     """Five 3x3 convs: conv1-4 grow the concatenation by ``gc`` channels
@@ -133,13 +164,50 @@ def dense_block_init(gen: torch.Generator, c_in: int, c_out: int,
     return params
 
 
-def dense_block_apply(params: Dict, x: torch.Tensor,
-                      compute=None) -> torch.Tensor:
+def dense_block_apply(params: Dict, x: torch.Tensor, compute=None,
+                      fused: bool = False,
+                      shift: bool = False) -> torch.Tensor:
     """DenseBlock forward: four leaky-relu (0.2) convs, each on the
-    concatenation of the input and every earlier output, then conv5."""
-    cat = x
-    for i in range(1, 5):
-        p = params[f"conv{i}"]
-        out = F.leaky_relu(conv2d(cat, p["w"], p["b"], compute), 0.2)
-        cat = torch.cat([cat, out], dim=-1)
-    return conv2d(cat, params["conv5"]["w"], params["conv5"]["b"], compute)
+    concatenation of the input and every earlier output, then conv5.
+
+    ``shift=True`` runs each conv as :func:`conv2d_shift`. ``fused=True``
+    computes the same function in lower-triangular piece form: conv_i of
+    the concatenation is the sum over its pieces of the piece's conv with
+    that piece's input-channel slice of W_i, and each piece's contributions
+    to every later conv run as one wide conv (output channels 4 gc + c_out,
+    3 gc + c_out, ...), so no concatenation is built. The bias rides with
+    the input's contribution, once per conv."""
+    lrelu = lambda v: F.leaky_relu(v, 0.2)
+    if not fused:
+        base = conv2d_shift if shift else conv2d
+        cat = x
+        for i in range(1, 5):
+            p = params[f"conv{i}"]
+            out = lrelu(base(cat, p["w"], p["b"], compute))
+            cat = torch.cat([cat, out], dim=-1)
+        return base(cat, params["conv5"]["w"], params["conv5"]["b"], compute)
+
+    c_in = x.shape[-1]
+    gc = params["conv1"]["w"].shape[0]
+    ws = [params[f"conv{i}"]["w"] for i in range(1, 6)]
+    bs = [params[f"conv{i}"]["b"] for i in range(1, 6)]
+
+    def contrib(piece, start_conv, lo, hi):
+        """One wide conv: the piece's contribution to convs start_conv..5,
+        [lo, hi) its input-channel slice in each of them."""
+        w_cat = torch.cat([ws[i][:, lo:hi] for i in range(start_conv, 5)],
+                          dim=0)
+        return conv2d(piece, w_cat, None, compute)
+
+    yx = contrib(x, 0, 0, c_in) + torch.cat(bs)
+    x1 = lrelu(yx[..., :gc])
+    y1 = contrib(x1, 1, c_in, c_in + gc)
+    x2 = lrelu(yx[..., gc:2 * gc] + y1[..., :gc])
+    y2 = contrib(x2, 2, c_in + gc, c_in + 2 * gc)
+    x3 = lrelu(yx[..., 2 * gc:3 * gc] + y1[..., gc:2 * gc] + y2[..., :gc])
+    y3 = contrib(x3, 3, c_in + 2 * gc, c_in + 3 * gc)
+    x4 = lrelu(yx[..., 3 * gc:4 * gc] + y1[..., 2 * gc:3 * gc]
+               + y2[..., gc:2 * gc] + y3[..., :gc])
+    y4 = contrib(x4, 4, c_in + 3 * gc, c_in + 4 * gc)
+    return (yx[..., 4 * gc:] + y1[..., 3 * gc:] + y2[..., 2 * gc:]
+            + y3[..., gc:] + y4)

@@ -23,6 +23,14 @@ the two splats' backward). The frames need no gradient, so the backward
 launches no K5 local. The controller's transition follows the optimizer
 step and reads nothing back from the device; nor do the offsets and the
 window monitors, which stay on the device.
+
+On a mesh (``parallel/``) the frame-pair batch is sharded over the data
+group: the mask-normalised losses and the PSNR are taken over the whole
+batch, the window monitors are maxima over the group, the spatial
+controller's cell sums are summed over it, and the step averages the
+gradients before the LAMB update, so every rank takes the single-process
+step and launches the same windows. A batch the data axis does not divide
+is computed whole on every rank.
 """
 
 from __future__ import annotations
@@ -238,11 +246,14 @@ def _flow_offsets(flow: torch.Tensor, local_spec):
 
 def photometric_flow_loss(cfg: FlowConfig, frame1: torch.Tensor,
                           frame2: torch.Tensor, flow12: torch.Tensor,
-                          flow21: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                          flow21: torch.Tensor,
+                          group=None) -> Tuple[torch.Tensor, Dict]:
     """The model-free part of the training loss: occlusion masks, the
     backward-warp metric, the softmax splat of each frame toward the other,
     then L1, census, SSIM and the edge-aware smoothness. Returns (loss,
-    aux); aux's values are detached."""
+    aux); aux's values are detached. With ``group`` (the data group of a
+    sharded batch) the masked losses and the PSNR span the whole batch; the
+    smoothness is this rank's mean, and the monitors this rank's maxima."""
     b, h, w, _ = frame1.shape
     if not cfg.bounds_resolved:
         cfg = cfg.resolve_splat_bounds(h, w)
@@ -276,14 +287,15 @@ def photometric_flow_loss(cfg: FlowConfig, frame1: torch.Tensor,
     mask1 = mask1 * (softmax1 != 0.0).to(frame1.dtype)
     mask2 = mask2 * (softmax2 != 0.0).to(frame1.dtype)
 
-    l1 = (masked_l1(softmax1, frame1, mask1, cfg.loss_l1)
-          + masked_l1(softmax2, frame2, mask2, cfg.loss_l1))
+    l1 = (masked_l1(softmax1, frame1, mask1, cfg.loss_l1, group)
+          + masked_l1(softmax2, frame2, mask2, cfg.loss_l1, group))
     census = (census_loss(softmax1, frame1, mask1, cfg.loss_census,
-                          cfg.census_width)
+                          cfg.census_width, group)
               + census_loss(softmax2, frame2, mask2, cfg.loss_census,
-                            cfg.census_width))
-    ssim = (ssim_loss(softmax1, frame1, mask1, cfg.loss_ssim)
-            + ssim_loss(softmax2, frame2, mask2, cfg.loss_ssim))
+                            cfg.census_width, group))
+    ssim = (ssim_loss(softmax1, frame1, mask1, cfg.loss_ssim, group=group)
+            + ssim_loss(softmax2, frame2, mask2, cfg.loss_ssim,
+                        group=group))
     smooth = (bilateral_smooth(frame1, flow12, cfg.loss_smooth1,
                                cfg.edge_func, cfg.edge_constant, 1)
               + bilateral_smooth(frame2, flow21, cfg.loss_smooth1,
@@ -294,7 +306,8 @@ def photometric_flow_loss(cfg: FlowConfig, frame1: torch.Tensor,
         aux = {"loss": loss.detach(), "l1": l1.detach(),
                "census": census.detach(), "ssim": ssim.detach(),
                "smooth": smooth.detach(),
-               "psnr": L.psnr(torch.clamp(softmax2, 0, 1), frame2)}
+               "psnr": _batch_psnr(torch.clamp(softmax2, 0, 1), frame2,
+                                   group)}
         if cfg.splat_max_dy:
             # window monitor: taps beyond the window are dropped, so the
             # train loop warns when the flow outgrows the bound
@@ -317,18 +330,32 @@ def photometric_flow_loss(cfg: FlowConfig, frame1: torch.Tensor,
     return loss, aux
 
 
+def _batch_psnr(x: torch.Tensor, y: torch.Tensor, group) -> torch.Tensor:
+    """PSNR of the whole batch (its MSE summed over ``group``'s shards)."""
+    if group is None:
+        return L.psnr(x, y)
+    import torch.distributed as dist
+    sq = ((x - y) ** 2).sum()
+    dist.all_reduce(sq, group=group)
+    mse = sq / (x.numel() * dist.get_world_size(group))
+    return 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12))
+
+
 def flow_loss(spec: INRSpec, cfg: FlowConfig, params, consts, batch: Dict,
-              ctrl_cfg=None, ctrl_state=None) -> Tuple[torch.Tensor, Dict]:
+              ctrl_cfg=None, ctrl_state=None,
+              group=None) -> Tuple[torch.Tensor, Dict]:
     """Bidirectional photometric training loss of one batch
     ({frame1, frame2 (B, H, W, 3), times (B,), scale[, gt_flow]}), under the
     controller's mask. aux["stash"] holds what the controller's update
-    reuses."""
+    reuses. ``group``: the data group of a sharded batch
+    (:func:`photometric_flow_loss`)."""
     frame1, frame2 = batch["frame1"], batch["frame2"]
     _, h, w, _ = frame1.shape
     stash: Dict = {}
     flow12, flow21 = flow_forward(spec, params, consts, batch["times"], h, w,
                                   batch["scale"], ctrl_cfg, ctrl_state, stash)
-    loss, aux = photometric_flow_loss(cfg, frame1, frame2, flow12, flow21)
+    loss, aux = photometric_flow_loss(cfg, frame1, frame2, flow12, flow21,
+                                      group)
     aux["stash"] = stash
     if "gt_flow" in batch:
         aux["epe"] = epe(flow12.detach(), batch["gt_flow"])
@@ -359,12 +386,14 @@ def create_flow_state(gen: torch.Generator, cfg: FlowConfig):
                               ctrl_state=ctrl_state), consts)
 
 
-def controller_step(ctrl_cfg, ctrl_state, aux: Dict, batch: Dict):
+def controller_step(ctrl_cfg, ctrl_state, aux: Dict, batch: Dict,
+                    group=None):
     """The controller's transition after one train step: the spatial
     controller takes the per-point photometric error (the scatter-free grid
-    form on a (t, y, x) cell grid), the linear one the scalar loss. Its
-    counters live on the host and the loss stays on the device, so nothing
-    here waits for the card."""
+    form on a (t, y, x) cell grid), the linear one the scalar loss (the
+    whole batch's, on a mesh). Its counters live on the host and the loss
+    stays on the device, so nothing here waits for the card. ``group``: the
+    data group of a sharded batch, over which the cell sums are summed."""
     if ctrl_state is None:
         return None
     if isinstance(ctrl_state, ctrl.SpatialState):
@@ -372,31 +401,44 @@ def controller_step(ctrl_cfg, ctrl_state, aux: Dict, batch: Dict):
             _, h, w, _ = batch["frame1"].shape
             return ctrl.spatial_grid_update(ctrl_cfg, ctrl_state,
                                             aux["point_loss"],
-                                            batch["times"], h, w)
+                                            batch["times"], h, w, group)
         return ctrl.spatial_update(ctrl_cfg, ctrl_state, aux["point_loss"],
                                    aux["stash"]["inds"],
-                                   aux["stash"]["alphas"])
+                                   aux["stash"]["alphas"], group)
     return ctrl.linear_update(ctrl_cfg, ctrl_state, aux["loss"])
 
 
-def make_flow_train_step(spec: INRSpec, cfg: FlowConfig):
+MONITOR_KEYS = ("flow_max_x", "flow_max_y", "flow_dev_x", "flow_dev_y")
+
+
+def make_flow_train_step(spec: INRSpec, cfg: FlowConfig, mesh=None):
     """Returns fn(state, consts, batch) -> metrics: one gradient of
     :func:`flow_loss` under the state's controller mask, one LAMB update in
     place, then the controller's transition. The metrics stay tensors on
-    the device (the loop reads them at its own cadence)."""
+    the device (the loop reads them at its own cadence). With ``mesh`` the
+    batch is a placed one; the gradients are averaged over the data group
+    and the metrics are the whole batch's (the monitors its maxima)."""
+    from sin_inn_tpu_torch.parallel.sharding import (data_group,
+                                                     reduce_metrics,
+                                                     sync_grads)
 
     def step(state: FlowTrainState, consts, batch) -> Dict:
+        group = data_group(mesh, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = flow_loss(spec, cfg, state.params, consts, batch,
-                              state.ctrl_cfg, state.ctrl_state)
+                              state.ctrl_cfg, state.ctrl_state, group)
         loss.backward()
+        sync_grads(mesh, state.optimizer.param_groups[0]["params"])
         state.optimizer.step()
+        metrics = reduce_metrics(
+            mesh, {k: v for k, v in aux.items()
+                   if k not in ("stash", "point_loss")}, MONITOR_KEYS)
         with torch.no_grad():
-            state.ctrl_state = controller_step(state.ctrl_cfg,
-                                               state.ctrl_state, aux, batch)
+            state.ctrl_state = controller_step(
+                state.ctrl_cfg, state.ctrl_state,
+                dict(aux, loss=metrics["loss"]), batch, group)
         state.step += 1
-        return {k: v for k, v in aux.items()
-                if k not in ("stash", "point_loss")}
+        return metrics
 
     return step
 

@@ -21,7 +21,15 @@ frame loops are factored out as in-memory cores (:func:`sr_test_frames`,
 arrays and uint8 frames without touching imageio or ffmpeg.
 ``_maybe_pseudo_gt`` attaches the ``--flow-producer`` pseudo-GT flow (the
 port's RAFT under ``raft:``) to media without GT, in ``flow train`` and
-``flow test``. The mesh branches are not ported.
+``flow test``.
+
+Multi-GPU (``parallel/``): ``resolve_mesh`` builds the (data, model) mesh
+over the process group, one process per GPU. ``run_sr_train`` and
+``run_flow_train`` place the state on it (broadcast from rank 0, TP shards
+under ``mesh_model > 1``) and shard every train batch over ``data``, a
+ragged one computed whole on every rank; the val and test passes run whole
+on every rank. Checkpoints, metrics, traces, the window sidecar and media
+are written by rank 0 only.
 """
 
 from __future__ import annotations
@@ -52,8 +60,100 @@ from sin_inn_tpu_torch.models import controllers as C
 from sin_inn_tpu_torch.models.inr import flat_leaves
 from sin_inn_tpu_torch.ops.occlusion import OCCLUSIONS
 from sin_inn_tpu_torch.ops.offsets import tile_deviation_fine, tile_flow_offsets
+from sin_inn_tpu_torch.parallel.mesh import (Mesh, broadcast_object,
+                                             initialize_distributed,
+                                             make_mesh, replicate,
+                                             world_size)
+from sin_inn_tpu_torch.parallel.sharding import (batch_rows, full_state_dict,
+                                                 place_batch, place_state)
 from sin_inn_tpu_torch.train import flow as FT
 from sin_inn_tpu_torch.train import sr as SR
+
+
+# ===========================================================================
+# Multi-GPU plumbing shared by both pipelines
+# ===========================================================================
+
+def resolve_mesh(mesh_data: Optional[int], mesh_model: int = 1,
+                 batch_size: Optional[int] = None) -> Optional[Mesh]:
+    """The run's mesh over the process group, or None for one process.
+
+    ``mesh_data=None`` uses every process when there are several, the data
+    axis shrunk to the largest divisor of ``batch_size`` so that DP stays
+    exact (the ranks beyond the mesh then sit the run out);
+    ``mesh_data=1`` with ``mesh_model=1`` forces one process. An explicit
+    ``mesh_data`` that does not divide the batch raises, and so does a
+    ``mesh_model`` beyond the processes. Every rank must call it alike."""
+    model = max(int(mesh_model or 1), 1)
+    n = world_size()
+    if model > 1 and n // model < 1:
+        raise ValueError(f"mesh_model={model} exceeds the {n} processes")
+    if mesh_data is None:
+        data = n // model if n > 1 else 1
+        if batch_size is not None and data > 1:
+            while data > 1 and batch_size % data != 0:
+                data -= 1
+    else:
+        data = int(mesh_data)
+        if batch_size is not None and data > 1 and batch_size % data != 0:
+            raise ValueError(
+                f"batch_size={batch_size} not divisible by mesh data axis "
+                f"{data}; choose a divisible batch or a smaller mesh_data")
+    if data * model <= 1:
+        return None
+    return make_mesh(data=data, model=model, ranks=range(data * model))
+
+
+def _init_distributed(cfg) -> None:
+    """Start the process group when asked (``distributed``), and under a
+    launcher that set ``WORLD_SIZE`` > 1 (torchrun) even unasked: N
+    processes that each trained alone would write one run's directory N
+    times."""
+    if cfg.distributed or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        initialize_distributed(cfg.dist_coordinator, cfg.dist_num_processes,
+                               cfg.dist_process_id, device=cfg.device)
+
+
+def _primary(mesh: Optional[Mesh]) -> bool:
+    return mesh is None or mesh.primary
+
+
+def _stop_any(stop, mesh: Optional[Mesh]) -> bool:
+    """Whether any rank of the mesh was asked to stop (all stop together)."""
+    flag = bool(stop)
+    if mesh is None or mesh.data * mesh.model == 1:
+        return flag
+    import torch.distributed as dist
+    t = torch.tensor([float(flag)], device=(
+        torch.device("cuda", torch.cuda.current_device())
+        if dist.get_backend() == "nccl" else "cpu"))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return bool(t.item())
+
+
+class _NullWriter:
+    """The metrics writer of a rank other than 0: writes nothing."""
+
+    wants_media = False
+
+    def log(self, *a, **k):
+        pass
+
+    log_image = log_media = log_artifact = close = log
+
+
+def _writer(mesh: Optional[Mesh], *args, **kw):
+    return MetricsWriter(*args, **kw) if _primary(mesh) else _NullWriter()
+
+
+def _idle(mesh: Optional[Mesh]) -> bool:
+    """A rank beyond a mesh smaller than the world sits the run out."""
+    if mesh is not None and not mesh.member:
+        logging.getLogger(__name__).warning(
+            "rank %d is outside the %dx%d mesh and sits this run out",
+            mesh.rank, mesh.data, mesh.model)
+        return True
+    return False
 
 
 def sr_dirs(cfg: SRConfig, operation: str) -> str:
@@ -133,7 +233,13 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
     (kept on the device), with a random unsupervised batch per step when TCR
     is on; at the print cadence the val split is evaluated on the device and
     logged with the step's losses and frames/s; a checkpoint every
-    ``save_iter`` epochs, at the last epoch, and on SIGTERM/SIGINT."""
+    ``save_iter`` epochs, at the last epoch, and on SIGTERM/SIGINT.
+
+    On a mesh (``mesh_data`` / ``mesh_model``, or every process of the
+    group) each rank keeps its shard of every supervised batch, the steps
+    average the gradients over the data group, and rank 0 writes; the
+    frames/s count the whole batches."""
+    _init_distributed(cfg)
     device = resolve_device(cfg.device)
     video = video or SRVideo.from_dirs(cfg)
     sup, unsup, val = make_datasets(video, cfg)
@@ -153,18 +259,33 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
         from sin_inn_tpu_torch.train.tuner import find_lr
         cfg = cfg.replace(learning_rate=find_lr(
             cfg, probe(cfg.batch_size), R.named_fold(dev_root, "tune")))
+    # every rank runs with rank 0's tuning
+    cfg = cfg.replace(batch_size=broadcast_object(cfg.batch_size),
+                      learning_rate=broadcast_object(cfg.learning_rate))
+    mesh = resolve_mesh(cfg.mesh_data, cfg.mesh_model,
+                        batch_size=cfg.batch_size)
+    exp_dir = sr_dirs(cfg, "train")
+    if _idle(mesh):
+        return {"state": None, "spec": None, "metrics": {},
+                "exp_dir": exp_dir, "start_epoch": 0, "cfg": cfg,
+                "trace": None, "mesh": mesh, "primary": False}
     spec, state, store, start_epoch = _sr_create_and_restore(
         cfg, R.named_fold(root, "init"))
-    step = SR.make_train_step(spec, cfg)
-    eval_step = SR.make_eval_step(spec, cfg)
+    if mesh is not None:
+        state = place_state(mesh, state, model_parallel=cfg.mesh_model > 1)
+        start_epoch = broadcast_object(start_epoch, group=mesh.group)
+    step = SR.make_train_step(spec, cfg, mesh=mesh)
+    eval_step = SR.make_eval_step(spec, cfg, mesh=mesh,
+                                  shardings=state.shardings)
 
-    exp_dir = sr_dirs(cfg, "train")
     if cfg.resume_state:
         # a run resumed from elsewhere still saves into its own directory
         store = CheckpointStore(path.join(exp_dir, "checkpoints"))
-    writer = MetricsWriter(exp_dir, run_name=cfg.exp_name,
-                           use_wandb=use_wandb, wandb_project="sin-inn",
-                           hyperparams=cfg.__dict__)
+    writer = _writer(mesh, exp_dir, run_name=cfg.exp_name,
+                     use_wandb=use_wandb, wandb_project="sin-inn",
+                     hyperparams=cfg.__dict__)
+    wants_media = broadcast_object(writer.wants_media,
+                                   group=None if mesh is None else mesh.group)
 
     step_gen = R.named_fold(dev_root, "train")
     val_gen = R.named_fold(dev_root, "val")
@@ -175,22 +296,28 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
     t0 = time.time()
     frames_done = 0
     # the supervised set of one video fits on the card: pin every batch
-    # once, and replay them each epoch with no host work
-    cached = sup.device_cache(cfg.batch_size, device)
+    # once (this rank's shard of it on a mesh), and replay them each epoch
+    # with no host work
+    cached = sup.device_cache(cfg.batch_size, device, mesh=mesh)
+    # the val split is evaluated whole on every rank
     val_cached = val.device_cache(cfg.val_batch_size, device)
+    place = ((lambda b: place_batch(mesh, to_device(b, "cpu"),
+                                    allow_uneven=True).to(device))
+             if mesh is not None else (lambda b: to_device(b, device)))
     # --profile N: one trace of N train steps after two warm-up steps
     tracer = TraceWindow(path.join(store.directory, "trace"),
-                         cfg.profile_steps, device=device)
+                         cfg.profile_steps if _primary(mesh) else 0,
+                         device=device)
     stop = GracefulStop().install()
     try:
         for epoch in range(start_epoch, cfg.epochs):
             for sup_batch in cached:
-                unsup_batch = (to_device(
-                    unsup.random_batch(sup_batch["hr"].shape[0]), device)
-                    if use_tcr else None)
+                rows = batch_rows(sup_batch)
+                unsup_batch = (place(unsup.random_batch(rows))
+                               if use_tcr else None)
                 aux = step(state, sup_batch, unsup_batch, step_gen)
                 tracer.tick()
-                frames_done += int(sup_batch["hr"].shape[0])
+                frames_done += rows
 
             if (epoch + 1) % cfg.print_iter == 0 or epoch == cfg.epochs - 1:
                 # the val split, sample-weighted, summed on the device; one
@@ -204,9 +331,10 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
                     for k, v in vm.items():
                         vm_acc[k] = vm_acc.get(k, 0.0) + v * nb
                     vn += nb
-                if writer.wants_media and val_cached:
+                if wants_media and val_cached:
                     if sample_infer is None:
-                        sample_infer = SR.make_infer_step(spec, cfg)
+                        sample_infer = SR.make_infer_step(
+                            spec, cfg, mesh=mesh, shardings=state.shardings)
                     fr = sample_infer(
                         state.params, val_cached[0]["lr"][:1],
                         R.step_fold(R.named_fold(dev_root, "media"), epoch))
@@ -220,9 +348,13 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
                 writer.log(epoch, last_metrics)
 
             saved = (epoch + 1) % cfg.save_iter == 0 or epoch == cfg.epochs - 1
-            if saved or stop:
-                store.save(epoch + 1, state.state_dict())
-            if stop:
+            stopping = _stop_any(stop, mesh)
+            if saved or stopping:
+                # TP shards are gathered whole on every rank; rank 0 writes
+                sd = full_state_dict(mesh, state)
+                if _primary(mesh):
+                    store.save(epoch + 1, sd)
+            if stopping:
                 break
     finally:
         stop.restore()
@@ -231,7 +363,8 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
     return {"state": state, "spec": spec, "metrics": last_metrics,
             "exp_dir": exp_dir, "start_epoch": start_epoch,
             # the batch size and LR after any auto-tuning; the trace file
-            "cfg": cfg, "trace": tracer.path}
+            "cfg": cfg, "trace": tracer.path, "mesh": mesh,
+            "primary": _primary(mesh)}
 
 
 def sr_test_frames(cfg: SRConfig, video: SRVideo, state,
@@ -713,8 +846,15 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
     device as a running maximum and read at each save, where the refit
     (``window_refit``) may move the 'auto' bounds and rebuild the step;
     when the flow outgrows the windows (whose far taps are dropped) the
-    loop warns once."""
+    loop warns once.
+
+    On a mesh (``mesh_data``, or every process of the group) each rank
+    keeps its shard of every batch; the refit and the outgrowth warning
+    read the whole batch's monitors (maxima over the data group), so every
+    rank moves the same windows, and rank 0 writes."""
+    _init_distributed(cfg)
     device = resolve_device(cfg.device)
+    mesh = resolve_mesh(cfg.mesh_data, batch_size=cfg.batch)
     if media is None:
         media, val_media, scene = flow_media.get_video(
             cfg.input_video, cfg.size, cfg.test_size, cfg.end, cfg.step,
@@ -737,14 +877,22 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
     cfg = _resolve_and_probe_splat_bounds(cfg, media, fh, fw)
     refit_on = (cfg.window_refit != "off" and any(auto_bounds.values())
                 and bool(cfg.splat_max_dy))
+    if _idle(mesh):
+        return {"state": None, "spec": None, "consts": None, "metrics": {},
+                "scene": scene, "start_epoch": 0, "cfg": cfg, "trace": None,
+                "mesh": mesh, "primary": False}
     root = R.root_generator(cfg.random_seed)
     spec, state, consts, store, start_epoch = _flow_train_create_and_restore(
         cfg, R.named_fold(root, "init"), scene)
-    step = FT.make_flow_train_step(spec, cfg)
+    if mesh is not None:
+        state = place_state(mesh, state)
+        replicate(mesh, consts)
+        start_epoch = broadcast_object(start_epoch, group=mesh.group)
+    step = FT.make_flow_train_step(spec, cfg, mesh=mesh)
 
-    writer = MetricsWriter(store.directory, run_name=f"{scene}_{cfg.name}",
-                           use_wandb=use_wandb, wandb_project="optical_flow",
-                           hyperparams=cfg.__dict__)
+    writer = _writer(mesh, store.directory, run_name=f"{scene}_{cfg.name}",
+                     use_wandb=use_wandb, wandb_project="optical_flow",
+                     hyperparams=cfg.__dict__)
     if writer.wants_media:
         # the source video and its GT flow, once at the start
         writer.log_media(0, "media/source", (np.clip(media.video, 0.0, 1.0)
@@ -764,9 +912,13 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
     t0 = time.time()
     pairs_done = 0
     cached = [_to_device_batch(b, device) for b in media.batches(cfg.batch)]
+    if mesh is not None:
+        # this rank's shard of each batch (a ragged one whole)
+        cached = [place_batch(mesh, b, allow_uneven=True) for b in cached]
     # --profile N: one trace of N train steps after two warm-up steps
     tracer = TraceWindow(path.join(store.directory, "trace"),
-                         cfg.profile_steps, device=device)
+                         cfg.profile_steps if _primary(mesh) else 0,
+                         device=device)
     stop = GracefulStop().install()
     window_warned = False
     # the refit monitor: the running maximum of [fy, fx(, dvy, dvx)] over
@@ -782,7 +934,7 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
                 batch = cached[bi]
                 m = step(state, consts, batch)
                 tracer.tick()
-                pairs_done += int(batch["frame1"].shape[0])
+                pairs_done += batch_rows(batch)
                 if refit_on and "flow_max_y" in m:
                     mon_epoch.append(torch.stack(
                         [m["flow_max_y"], m["flow_max_x"]]
@@ -811,7 +963,8 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
                     last["val_epe"] = float(epe_sum) / max(n, 1)
                 writer.log(epoch, last)
             saved = (epoch + 1) % save_every == 0 or epoch == cfg.epochs - 1
-            if saved or stop:
+            stopping = _stop_any(stop, mesh)
+            if (saved or stopping) and _primary(mesh):
                 store.save(epoch + 1, flow_state_dict(
                     state.params, consts, state.step,
                     state.optimizer.state_dict(), state.ctrl_state))
@@ -839,17 +992,17 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
                         new_cfg.splat_local_dy, cfg.splat_local_dx,
                         new_cfg.splat_local_dx)
                     cfg = new_cfg
-                    step = FT.make_flow_train_step(spec, cfg)
+                    step = FT.make_flow_train_step(spec, cfg, mesh=mesh)
                     window_warned = False
                     refit_on = (cfg.window_refit != "off"
                                 and bool(cfg.splat_max_dy))
-            if saved or stop:
+            if (saved or stopping) and _primary(mesh):
                 # the bounds after any refit, with the monitor's history
                 _save_window_bounds(store.directory, cfg, fh, fw, mon_hist)
             if (saved and cfg.splat_max_dy and "flow_max_y" in m
                     and not window_warned):
                 window_warned = _warn_if_outgrown(cfg, m, epoch + 1)
-            if stop:
+            if stopping:
                 break
     finally:
         stop.restore()
@@ -859,7 +1012,8 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
     out = {"state": state, "spec": spec, "consts": consts, "metrics": last,
            "scene": scene, "start_epoch": start_epoch,
            # the effective config: the probed and refitted window bounds
-           "cfg": cfg, "trace": tracer.path}
+           "cfg": cfg, "trace": tracer.path, "mesh": mesh,
+           "primary": _primary(mesh)}
     if keep_writer:
         out["writer"] = writer
     return out

@@ -13,6 +13,13 @@ The reference's three backward calls (forward, inverse and TCR losses) are
 one ``backward`` of the summed loss, as in the JAX package's single
 ``jax.grad``. The train step keeps its metrics on the device; the loop reads
 them at its print cadence.
+
+On a mesh (``parallel/``) each rank draws the whole batch's noise from the
+same generator and takes its rows; a sharded batch computes its means on
+its own rows and the MMD over the gathered batch, and the step averages the
+gradients and the metrics over the data group, so every rank takes the
+single-process step. A batch the data axis does not divide is computed
+whole on every rank. The GLOW subnets' TP shards run over the model group.
 """
 
 from __future__ import annotations
@@ -43,10 +50,12 @@ class SRState:
 
 @dataclass
 class SRTrainState:
-    """Params (leaves that require grad), their Adam optimizer, the step."""
+    """Params (leaves that require grad), their Adam optimizer, the step;
+    on a mesh, ``shardings`` maps each param's path to its spec."""
     params: List[Optional[Dict[str, Any]]]
     optimizer: torch.optim.Optimizer
     step: int = 0
+    shardings: Optional[Dict] = None
 
     def state_dict(self) -> Dict[str, Any]:
         return {"params": self.params, "opt": self.optimizer.state_dict(),
@@ -117,10 +126,35 @@ def draw_sr_noise(gen: torch.Generator, cfg: SRConfig, b: int, h: int,
                    torch.randn((n, b, h, w, cfg.z_dims), dtype=zdt, **kw))
 
 
+def shard_draws(draws: SRDraws, mesh, sup: Dict,
+                unsup: Optional[Dict] = None) -> SRDraws:
+    """This rank's rows of the whole batch's draws: z follows the sharding
+    of ``sup``, the TCR draws that of ``unsup``."""
+    if mesh is None or mesh.data == 1:
+        return draws      # one data shard: the rows are the whole batch's
+    from sin_inn_tpu_torch.parallel.mesh import shard_rows
+    take = lambda t, b, dim: (
+        t if t is None or not getattr(b, "sharded", False) else
+        shard_rows(t.transpose(0, dim), mesh.data,
+                   mesh.data_index).transpose(0, dim))
+    return SRDraws(take(draws.z, sup, 0), take(draws.tcr_rand, unsup, 1),
+                   take(draws.tcr_z, unsup, 1))
+
+
 def sr_loss(params, spec, cfg: SRConfig, sup: Dict, unsup: Optional[Dict],
-            draws: SRDraws) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            draws: SRDraws, mesh=None, tp=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss = fwd + bwd + tcr, term for term as the JAX package's
-    ``sr_loss``. Returns (loss, aux) with aux's values detached."""
+    ``sr_loss``. Returns (loss, aux) with aux's values detached.
+
+    With ``mesh``, ``sup`` / ``unsup`` are placed batches and ``draws`` this
+    rank's rows of them (:func:`shard_draws`): the MMD terms span the data
+    group when ``sup`` is sharded. ``tp``: the couplings that run
+    tensor-parallel over the model group (``parallel/sharding.py``
+    ``tp_couplings``). The loss is then this rank's share: its mean over
+    the data group is the whole batch's loss."""
+    from sin_inn_tpu_torch.parallel.sharding import data_group
+    dp = data_group(mesh, sup)
     hr = _to_float(sup["hr"])
     lr = _to_float(sup["lr"])
     # in bf16 mode z and lr_z are built in bfloat16 and the INN runs its
@@ -130,23 +164,24 @@ def sr_loss(params, spec, cfg: SRConfig, sup: Dict, unsup: Optional[Dict],
     lr_z = torch.cat([lr.to(zdt), z], dim=-1)
 
     # forward pass: HR -> (LR || z)
-    lr_z_hat = inn_apply(spec, params, hr.to(zdt),
-                         remat=cfg.remat).to(hr.dtype)
+    lr_z_hat = inn_apply(spec, params, hr.to(zdt), remat=cfg.remat,
+                         tp=tp).to(hr.dtype)
     fwd_loss = cfg.lambda_fwd_rec * L.reconstruction(
         lr_z_hat[..., :cfg.lr_dims], lr)
     if cfg.lambda_fwd_mmd:
         fwd_loss = fwd_loss + cfg.lambda_fwd_mmd * L.mmd(
-            lr_z_hat, lr_z.to(hr.dtype))
+            lr_z_hat, lr_z.to(hr.dtype), group=dp)
     if cfg.lambda_latent_nll:
         fwd_loss = fwd_loss + cfg.lambda_latent_nll * L.latent_nll(
             lr_z_hat[..., cfg.lr_dims:])
 
     # inverse pass: (LR || z) -> HR
-    hr_hat = inn_apply(spec, params, lr_z, rev=True,
-                       remat=cfg.remat).to(hr.dtype)
+    hr_hat = inn_apply(spec, params, lr_z, rev=True, remat=cfg.remat,
+                       tp=tp).to(hr.dtype)
     bwd_loss = cfg.lambda_bwd_rec * L.reconstruction(hr_hat, hr)
     if cfg.lambda_bwd_mmd:
-        bwd_loss = bwd_loss + cfg.lambda_bwd_mmd * L.mmd(hr_hat, hr, rev=True)
+        bwd_loss = bwd_loss + cfg.lambda_bwd_mmd * L.mmd(hr_hat, hr, rev=True,
+                                                        group=dp)
 
     # TCR on the unsupervised batch
     tcr_loss = torch.zeros((), dtype=hr.dtype, device=hr.device)
@@ -164,10 +199,11 @@ def sr_loss(params, spec, cfg: SRConfig, sup: Dict, unsup: Optional[Dict],
                                    stop_grad=cfg.tcr_stop_grad)
             tcr_lr_z = torch.cat([tcr_lr.to(zdt), zi], dim=-1)
             tcr_hr_hat = inn_apply(spec, params, tcr_lr_z, rev=True,
-                                   remat=cfg.remat).to(lr_u.dtype)
+                                   remat=cfg.remat,
+                                   tp=tp).to(lr_u.dtype)
             hr_hat_tcr = tcr_transform(
-                inn_apply(spec, params, lr_zi, rev=True,
-                          remat=cfg.remat).to(lr_u.dtype),
+                inn_apply(spec, params, lr_zi, rev=True, remat=cfg.remat,
+                          tp=tp).to(lr_u.dtype),
                 rand, cfg.rotation, cfg.translation,
                 stop_grad=cfg.tcr_stop_grad)
             total = total + L.reconstruction(tcr_hr_hat, hr_hat_tcr)
@@ -178,12 +214,20 @@ def sr_loss(params, spec, cfg: SRConfig, sup: Dict, unsup: Optional[Dict],
     return loss, {k: v.detach() for k, v in aux.items()}
 
 
-def make_train_step(spec, cfg: SRConfig):
+def make_train_step(spec, cfg: SRConfig, mesh=None):
     """Returns ``step(state, sup, unsup, gen=None, draws=None) -> aux``:
     zero the grads, one backward of the summed loss, one Adam step,
     ``state.step += 1``. Without ``draws`` the noise is drawn from ``gen``
     folded with the step count (the JAX step's ``fold_in(key, step)``).
-    aux stays on the device."""
+    aux stays on the device.
+
+    With ``mesh`` the batches are placed ones and ``draws`` (or the draws
+    from ``gen``) are the whole batch's; the step takes this rank's rows,
+    averages the gradients over the data group before the Adam step and
+    returns the whole batch's metrics."""
+    from sin_inn_tpu_torch.parallel.sharding import (batch_rows,
+                                                     reduce_metrics,
+                                                     sync_grads, tp_couplings)
 
     def step(state: SRTrainState, sup: Dict, unsup: Optional[Dict] = None,
              gen: Optional[torch.Generator] = None,
@@ -191,14 +235,18 @@ def make_train_step(spec, cfg: SRConfig):
         if draws is None:
             if gen is None:
                 raise ValueError("pass a generator or explicit draws")
-            b, h, w, _ = sup["lr"].shape
-            draws = draw_sr_noise(R.step_fold(gen, state.step), cfg, b, h, w)
+            _, h, w, _ = sup["lr"].shape
+            draws = draw_sr_noise(R.step_fold(gen, state.step), cfg,
+                                  batch_rows(sup), h, w)
+        draws = shard_draws(draws, mesh, sup, unsup)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = sr_loss(state.params, spec, cfg, sup, unsup, draws)
+        loss, aux = sr_loss(state.params, spec, cfg, sup, unsup, draws, mesh,
+                            tp_couplings(mesh, state.shardings))
         loss.backward()
+        sync_grads(mesh, state.optimizer.param_groups[0]["params"])
         state.optimizer.step()
         state.step += 1
-        return aux
+        return reduce_metrics(mesh, aux)
 
     return step
 
@@ -214,8 +262,12 @@ def _latent(shape, z: Optional[torch.Tensor], gen: Optional[torch.Generator],
     return torch.randn(shape, generator=gen, device=device)
 
 
-def make_eval_step(spec, cfg: SRConfig):
-    """Validation metrics: lr_acc / hr_acc / z_nll / hr_psnr."""
+def make_eval_step(spec, cfg: SRConfig, mesh=None, shardings=None):
+    """Validation metrics: lr_acc / hr_acc / z_nll / hr_psnr of a whole
+    batch (on a mesh every rank evaluates it, over the TP shards that
+    ``shardings``, the train state's, places)."""
+    from sin_inn_tpu_torch.parallel.sharding import tp_couplings
+    tp = tp_couplings(mesh, shardings)
 
     @torch.inference_mode()
     def step(params, batch: Dict[str, torch.Tensor],
@@ -226,8 +278,8 @@ def make_eval_step(spec, cfg: SRConfig):
         b, h, w, _ = lr.shape
         z = _latent((b, h, w, cfg.z_dims), z, gen, lr.device)
         lr_z = torch.cat([lr, z], dim=-1)
-        lr_z_hat = inn_apply(spec, params, hr)
-        hr_hat = inn_apply(spec, params, lr_z, rev=True)
+        lr_z_hat = inn_apply(spec, params, hr, tp=tp)
+        hr_hat = inn_apply(spec, params, lr_z, rev=True, tp=tp)
         return {
             "lr_acc": L.reconstruction(lr_z_hat[..., :cfg.lr_dims], lr),
             "hr_acc": L.reconstruction(hr_hat, hr),
@@ -238,9 +290,11 @@ def make_eval_step(spec, cfg: SRConfig):
     return step
 
 
-def make_infer_step(spec, cfg: SRConfig):
+def make_infer_step(spec, cfg: SRConfig, mesh=None, shardings=None):
     """Inference: z at temperature ``cfg.temp``, the inverse pass, uint8 HR
-    frames."""
+    frames (over the TP shards that ``shardings`` places)."""
+    from sin_inn_tpu_torch.parallel.sharding import tp_couplings
+    tp = tp_couplings(mesh, shardings)
 
     @torch.inference_mode()
     def step(params, lr: torch.Tensor, gen: Optional[torch.Generator] = None,
@@ -249,7 +303,7 @@ def make_infer_step(spec, cfg: SRConfig):
         b, h, w, _ = lr.shape
         z = cfg.temp * _latent((b, h, w, cfg.z_dims), z, gen, lr.device)
         lr_z = torch.cat([lr, z], dim=-1)
-        hr_hat = inn_apply(spec, params, lr_z, rev=True)
+        hr_hat = inn_apply(spec, params, lr_z, rev=True, tp=tp)
         return (torch.clamp(hr_hat, 0.0, 1.0) * 255.0).to(torch.uint8)
 
     return step

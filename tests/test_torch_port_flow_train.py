@@ -470,8 +470,13 @@ def test_flow_config_training_fields():
     assert cfg.replace(val_iter=7).effective_val_iter == 7
     with pytest.raises(ValueError, match="edge_func"):
         FlowConfig(edge_func="box")
-    for gone in ("mesh_data",):
-        assert not hasattr(cfg, gone)
+    # the multi-GPU fields came with the parallel slice, and the polynomial
+    # encoding's degree with the encoding
+    for f in ("mesh_data", "distributed", "dist_coordinator",
+              "dist_num_processes", "dist_process_id", "data_axis",
+              "power"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    assert cfg.model_params() == jcfg.model_params()
     # the import and profiling fields came with the flow exchange and
     # tooling, the pseudo-GT producer with RAFT
     for f in ("import_torch", "profile_steps", "flow_producer"):

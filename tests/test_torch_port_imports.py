@@ -20,6 +20,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "examples", "pair_flow_torch.py")
 
 
 def _forbidden(module: str) -> bool:

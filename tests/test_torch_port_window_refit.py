@@ -331,9 +331,9 @@ def _gt_media():
 def test_run_flow_train_probes_refits_and_resumes(tmp_path, monkeypatch):
     built = []
     real = TF.make_flow_train_step
-    monkeypatch.setattr(TF, "make_flow_train_step",
-                        lambda spec, cfg: built.append(cfg) or real(spec,
-                                                                    cfg))
+    monkeypatch.setattr(
+        TF, "make_flow_train_step", lambda spec, cfg, mesh=None:
+        built.append(cfg) or real(spec, cfg, mesh=mesh))
     media = _gt_media()
     cfg = _run_cfg(tmp_path, epochs=2)
     out = TL.run_flow_train(cfg, media=media, scene="clip")
