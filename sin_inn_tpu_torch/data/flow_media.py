@@ -39,12 +39,15 @@ def _resize_frames(frames: np.ndarray, size: int) -> np.ndarray:
 
 
 class FlowMedia:
-    """Host-cached frames (N, H, W, 3) float32 + optional GT flow."""
+    """Host-cached frames (N, H, W, 3) float32 + optional GT flow, both
+    C-contiguous whatever the caller's layout (the kernels take NHWC
+    tensors as ``torch.from_numpy`` leaves a batch of them)."""
 
     def __init__(self, video: np.ndarray, flow: Optional[np.ndarray] = None,
                  flow_scale: float = None):
-        self.video = video.astype(np.float32)
-        self.flow = flow.astype(np.float32) if flow is not None else None
+        self.video = np.ascontiguousarray(video, dtype=np.float32)
+        self.flow = (np.ascontiguousarray(flow, dtype=np.float32)
+                     if flow is not None else None)
         n = video.shape[0]
         self.times = np.linspace(-1.0, 1.0, n).astype(np.float32)
         self.flow_scale = (video.shape[2] / 5.0 if flow_scale is None

@@ -2,8 +2,10 @@
 
 Copies of fixtures of ``sin_inn_tpu/data/synthetic.py``: a moving texture
 HR video whose LR RGGB stream comes from the same bayer-binning math as the
-offline preparation, so (HR, LR) pairs are physically consistent, and
-``synth_scene``, the dense multi-view scene of the scene-space gather.
+offline preparation, so (HR, LR) pairs are physically consistent; the
+analytic-GT flow sequences (shift, rotation, zoom, a moving occluder) that
+``tools/validate_torch.py`` trains on; and ``synth_scene``, the dense
+multi-view scene of the scene-space gather.
 """
 
 from __future__ import annotations
@@ -38,6 +40,123 @@ def _smooth_texture(h: int, w: int, seed: int, blur: int = 2) -> np.ndarray:
                 + np.roll(base, 1, 0) + np.roll(base, -1, 0)
                 + np.roll(base, 1, 1) + np.roll(base, -1, 1)) / 5.0
     return base
+
+
+def _sample_bilinear(base: np.ndarray, yy: np.ndarray,
+                     xx: np.ndarray) -> np.ndarray:
+    """Bilinear sample (H, W, C) base at float (h, w) coordinate grids."""
+    hb, wb = base.shape[:2]
+    y0 = np.clip(np.floor(yy), 0, hb - 2).astype(np.int64)
+    x0 = np.clip(np.floor(xx), 0, wb - 2).astype(np.int64)
+    fy = np.clip(yy - y0, 0.0, 1.0)[..., None]
+    fx = np.clip(xx - x0, 0.0, 1.0)[..., None]
+    tl = base[y0, x0]
+    tr = base[y0, x0 + 1]
+    bl = base[y0 + 1, x0]
+    br = base[y0 + 1, x0 + 1]
+    return ((tl * (1 - fx) + tr * fx) * (1 - fy)
+            + (bl * (1 - fx) + br * fx) * fy).astype(np.float32)
+
+
+def synthetic_flow_sequence(kind: str, num_frames: int, h: int, w: int,
+                            seed: int = 0, magnitude: float = 1.0):
+    """Analytic-GT flow fixtures. Returns ``(frames (N, h, w, 3) float32,
+    flows (N-1, h, w, 2) float32)`` with flow channels (dx, dy), the forward
+    frame_t -> frame_{t+1} convention of the trainer's EPE
+    (``train/flow.py`` ``epe``).
+
+    kinds:
+      * ``shift``: uniform translation by ``magnitude`` px/frame;
+      * ``rotation``: rigid rotation by ``magnitude`` degrees/frame about
+        the image centre, a smoothly varying, non-constant field;
+      * ``zoom``: scaling by ``(1 + magnitude/100)``/frame about the
+        centre, a divergent field with a radial profile;
+      * ``occlusion``: a textured square moving ``magnitude`` px/frame over
+        a static textured background: a motion discontinuity with real
+        cover/uncover regions, the regime of the wang / brox occlusion
+        estimators.
+
+    Frames sample one continuous base texture at analytically transformed
+    coordinates, so the GT flow is exact to the transform (no resampling
+    drift accumulates). The base is padded by the analytic maximum
+    excursion of the sampled coordinates past the frame (at the corners:
+    the transforms are affine) plus 8, so ``_sample_bilinear`` never clips
+    at its border."""
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+
+    def _raw(y, x, t: float):
+        """Unpadded pixel coords -> base-texture coords at time t (affine).
+        Never called for 'occlusion' (static background, own frame loop)."""
+        if kind == "shift":
+            return y, x + magnitude * t
+        if kind == "rotation":
+            a = np.deg2rad(magnitude) * t
+            return ((y - cy) * np.cos(a) - (x - cx) * np.sin(a) + cy,
+                    (y - cy) * np.sin(a) + (x - cx) * np.cos(a) + cx)
+        if kind == "zoom":
+            s = (1.0 + magnitude / 100.0) ** t
+            return (y - cy) * s + cy, (x - cx) * s + cx
+        raise ValueError(kind)
+
+    if kind == "occlusion":
+        pad = 8                          # static background, no base motion
+    else:
+        ky = np.array([0.0, 0.0, h - 1.0, h - 1.0])
+        kx = np.array([0.0, w - 1.0, 0.0, w - 1.0])
+        exc = 0.0
+        for t in range(num_frames + 1):
+            by, bx = _raw(ky, kx, float(t))
+            exc = max(exc, -by.min(), by.max() - (h - 1.0),
+                      -bx.min(), bx.max() - (w - 1.0))
+        pad = int(np.ceil(exc)) + 8
+    base = _smooth_texture(h + 2 * pad, w + 2 * pad, seed)
+    yy, xx = np.meshgrid(np.arange(h, dtype=np.float64),
+                         np.arange(w, dtype=np.float64), indexing="ij")
+
+    def transform(t: float):
+        """Pixel coords -> base-texture coords at time t; returns (by, bx)."""
+        by, bx = _raw(yy, xx, t)
+        return by + pad, bx + pad
+
+    def inverse(by, bx, t: float):
+        """Base coords -> pixel coords at time t (exact transform inverse)."""
+        if kind == "shift":
+            return by - pad, bx - pad - magnitude * t
+        if kind == "rotation":
+            a = np.deg2rad(magnitude) * t
+            qy, qx = by - pad - cy, bx - pad - cx
+            return (qy * np.cos(a) + qx * np.sin(a) + cy,
+                    -qy * np.sin(a) + qx * np.cos(a) + cx)
+        s = (1.0 + magnitude / 100.0) ** t
+        return (by - pad - cy) / s + cy, (bx - pad - cx) / s + cx
+
+    if kind == "occlusion":
+        fg = _smooth_texture(h, w, seed + 1)
+        side = max(h, w) // 4
+        y0, x0 = h // 4, w // 8
+        frames, flows = [], []
+        for t in range(num_frames):
+            off = magnitude * t
+            frame = base[pad:pad + h, pad:pad + w].copy()
+            flow = np.zeros((h, w, 2), np.float32)
+            sx0 = int(round(x0 + off))
+            fr_y, fr_x = slice(y0, y0 + side), slice(sx0, min(sx0 + side, w))
+            frame[fr_y, fr_x] = fg[y0:y0 + side, 0:fr_x.stop - fr_x.start]
+            flow[fr_y, fr_x, 0] = magnitude      # square moves in x
+            frames.append(frame)
+            if t:
+                flows.append(flows_prev)
+            flows_prev = flow
+        return (np.stack(frames).astype(np.float32),
+                np.stack(flows).astype(np.float32))
+
+    frames, flows = [], []
+    for t in range(num_frames):
+        by, bx = transform(float(t))
+        frames.append(_sample_bilinear(base, by, bx))
+        py, px = inverse(by, bx, float(t + 1))
+        flows.append(np.stack([px - xx, py - yy], -1).astype(np.float32))
+    return np.stack(frames), np.stack(flows[:-1])
 
 
 def synth_scene(n: int, h: int, w: int, seed: int = 0):

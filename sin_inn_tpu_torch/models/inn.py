@@ -230,6 +230,12 @@ def flat_params(params: Sequence[Optional[Dict]]) -> List[torch.Tensor]:
     return out
 
 
+def param_count(params: Sequence[Optional[Dict]]) -> int:
+    """Number of scalars in a params list (the JAX package's
+    ``param_count``)."""
+    return sum(t.numel() for t in flat_params(params))
+
+
 def params_to(params: Sequence[Optional[Dict]], device) -> List[Optional[Dict]]:
     """A copy of the params list with every tensor on ``device``."""
     return [None if p is None else

@@ -1,6 +1,6 @@
 """Import boundary of the PyTorch port: neither the package nor
-chip_smoke.py imports JAX or the JAX package, and chip_smoke.py refuses to
-run without a card."""
+chip_smoke.py (nor the port's example and convergence tool) imports JAX or
+the JAX package, and chip_smoke.py refuses to run without a card."""
 
 import ast
 import os
@@ -21,6 +21,7 @@ def _port_sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "examples", "pair_flow_torch.py")
+    yield os.path.join(REPO, "tools", "validate_torch.py")
 
 
 def _forbidden(module: str) -> bool:
