@@ -272,6 +272,30 @@ nothing of JAX or of the JAX package. Phases:
     the last milestone than at the first, the val HR-PSNR up by >= 0.4 dB,
     one step's launches K1-K4 4 each and 8 reductions. The trajectories
     are printed.
+21. the commands from files, through ``cli.main`` with the default
+    ``--device cuda`` in a temporary directory, from PNGs the port's
+    ``imwrite`` wrote (``data/synthetic.py``'s writers; they must decode
+    back to the arrays written): ``sr train`` on phase 5's 204-frame
+    352x640 video as a dataset (HR RGB and RGGB LR PNGs) at the flagship,
+    2 epochs then a resume to 3 (the launches of phase 5's
+    ``run_sr_train``, and of 2 steps and an eval); ``sr test`` and ``sr
+    test --save_images`` (the launches of ``sr_test_frames`` on the
+    restored checkpoint, every PNG equal to its frame, the GIF's frame
+    count and trailer); on a 6-frame 436x1024 Sintel-layout scene of the
+    rotation fixture (3 degrees a frame) with its GT ``.flo`` files:
+    ``flow train --epochs 1`` (the GT probe engages the local windows; 5
+    x phase 9's one-step launches; the test pass's two GIFs), ``flow
+    test``, ``summarize``, ``sintel`` (5 finite ``.flo`` files) and
+    ``export`` (no launch), ``interpolate`` (2 K5 + 2 K6 a mid-frame on
+    the sidecar's windows, local or static; an 11-frame GIF); ``flow train
+    --flow-producer`` with a subprocess template whose tool reads the two
+    PNGs with ``imread`` and writes a rotation field (the cached ``.flo``
+    files equal it, the probe engages the local windows, 5 x the step's
+    launches); ``scene-space gather`` on ``synth_scene(24, 480, 640)``
+    written as a COLMAP-layout directory (the PNG equal to
+    ``gather_scene`` on ``load_data``'s arrays, no launch). Every codec
+    call on the C++ route. Prints the PNG read ms at 436x1024 and 352x640
+    and each command's wall seconds.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each kernel's numbers; K1-K4's, K7's and K8's ``bound_ms`` counts
@@ -1187,6 +1211,7 @@ def phase_train(dev, card: str, smi_line: str, work: str):
                      fused_glow_inverse_backward_1x1=4 * steps,
                      reduce_weight_grads=8 * steps)
         add_counts(counts, run_counts)
+        stats["run_counts"] = dict(run_counts)
         print(f"[train] run_sr_train: {steps} steps in "
               f"{time.perf_counter() - t0:.1f} s; metrics {m}")
 
@@ -4506,6 +4531,356 @@ def phase_convergence(dev, card: str, smi_line: str):
     return flow_counts, sr_counts, {"flow": flow, "sr": sr}
 
 
+# phase 21: the pseudo-GT tool its template runs; it reads the two PNG
+# frames with the port's imread and writes a smooth rotation field of their
+# shape (up to 26 px at 436x1024: the probe engages the local windows)
+PRODUCER_TOOL = """\
+import sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+from sin_inn_tpu_torch.data.flo import write_flo
+from sin_inn_tpu_torch.io.png import imread
+a, b = imread(sys.argv[1]), imread(sys.argv[2])
+if a.dtype != np.uint8 or a.ndim != 3 or a.shape != b.shape:
+    sys.exit("producer: want two uint8 RGB frames of one size, got "
+             f"{{a.dtype}} {{a.shape}} / {{b.shape}}")
+h, w = a.shape[:2]
+yy, xx = np.mgrid[:h, :w].astype(np.float32)
+write_flo(sys.argv[3], np.stack([0.05 * (yy - h / 2),
+                                 -0.05 * (xx - w / 2)], -1))
+"""
+
+
+def _producer_flow(h: int, w: int) -> np.ndarray:
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    return np.stack([0.05 * (yy - h / 2), -0.05 * (xx - w / 2)], -1)
+
+
+def _cli(argv, what: str, walls: dict) -> str:
+    """``cli.main(argv)`` with its printed lines captured and returned, its
+    wall seconds kept under ``what``."""
+    import io
+
+    from sin_inn_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    walls[what] = time.perf_counter() - t0
+    check(rc == 0, f"{what}: cli.main returned {rc}")
+    return out.getvalue()
+
+
+def _gif_checked(p: str, frames: int, what: str) -> dict:
+    from sin_inn_tpu_torch.io import gif
+
+    with open(p, "rb") as f:
+        data = f.read()
+    try:
+        info = gif.describe(data)
+    except ValueError as e:
+        raise SmokeFailure(f"{what}: {p}: {e}")
+    check(info["frames"] == frames and data.endswith(b"\x3b"),
+          f"{what}: {p} holds {info['frames']} frames, want {frames}")
+    return info
+
+
+def _png_read_ms(p: str, reps: int = 20) -> float:
+    from sin_inn_tpu_torch.io import png
+
+    png.imread(p)
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        png.imread(p)
+        ts.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(ts)
+
+
+def phase_commands(dev, card: str, smi_line: str, ref: dict = None):
+    """21. The commands from files on the card, through ``cli.main`` with
+    the default ``--device cuda``, in a temporary directory, from PNGs the
+    port's ``imwrite`` wrote: ``sr train`` (2 epochs, then a resume to 3),
+    ``sr test`` (GIF) and ``sr test --save_images`` at the SRF flagship on
+    a 204-frame 352x640 dataset; ``flow train --epochs 1``, ``flow test``,
+    ``interpolate``, ``export``, ``summarize`` and ``sintel`` on a 6-frame
+    436x1024 Sintel-layout scene with GT; ``flow train --flow-producer``
+    with a subprocess template; ``scene-space gather``. Each command's
+    launches follow the rules of phases 5, 7, 9 and 17 (and equal their
+    counts where ``ref`` holds them); every PNG written decodes to the
+    core's array; every GIF has its frame count and trailer. Returns the
+    SR and flow launches and the times."""
+    import os
+
+    from sin_inn_tpu_torch.core import rng as R
+    from sin_inn_tpu_torch.core.config import FlowConfig, SRConfig
+    from sin_inn_tpu_torch.data import flow_media as FM
+    from sin_inn_tpu_torch.data.flo import read_flo
+    from sin_inn_tpu_torch.data.sr_video import SRVideo, all_indices
+    from sin_inn_tpu_torch.data.synthetic import (synth_scene,
+                                                  synthetic_flow_sequence,
+                                                  synthetic_sr_video,
+                                                  write_flow_scene,
+                                                  write_scene_dir,
+                                                  write_sr_dataset)
+    from sin_inn_tpu_torch.io import codec, png
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+    from sin_inn_tpu_torch.scene_space import gather as SG
+    from sin_inn_tpu_torch.scene_space import pose_utils as PU
+    from sin_inn_tpu_torch.train import loop as LP
+
+    ref = ref or {}
+    walls, stats = {}, {}
+    sr_counts, flow_counts = {}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_cmd_")
+    try:
+        with contextlib.chdir(root):
+            check(codec.available(), "the native codec is not built (no "
+                                     "g++?)")
+            codec.reset_route_counts()
+
+            # the SR dataset: phase 5's video as PNG frames
+            cfg = SRConfig(scene="smoke_sr", dataset=os.path.join(root, "sr"),
+                           working_dir=os.path.join(root, "exp"),
+                           device="cuda")
+            video = synthetic_sr_video(cfg, num_frames=TRAIN_FRAMES, h=HR_H,
+                                       w=HR_W)
+            t0 = time.perf_counter()
+            write_sr_dataset(cfg.dataset, cfg.scene, video)
+            walls["write the SR dataset"] = time.perf_counter() - t0
+            back = SRVideo.from_dirs(cfg)
+            check(np.array_equal(back.hr, video.hr)
+                  and np.array_equal(back.lr, video.lr),
+                  "the SR dataset's PNGs do not decode to the frames written")
+            stats["png_ms_352x640"] = _png_read_ms(os.path.join(
+                cfg.dataset, "hr_frames", cfg.scene, "frame_00001.png"))
+            sr = ["--dataset", cfg.dataset, "-s", cfg.scene, "-w",
+                  cfg.working_dir]
+
+            K.reset_launch_counts()
+            _cli(["sr", "train", *sr, "-e", "2", "--save_iter", "1", "-p",
+                  "1"], "sr train", walls)
+            run = K.launch_counts()
+            steps, evals = 4, 2
+            check_counts(run, "sr train (4 steps, 2 evals)",
+                         fused_glow_forward_1x1=4 * steps + 4 * evals,
+                         fused_glow_inverse_1x1=4 * steps + 4 * evals,
+                         fused_glow_backward_1x1=4 * steps,
+                         fused_glow_inverse_backward_1x1=4 * steps,
+                         reduce_weight_grads=8 * steps)
+            check(ref.get("sr_run", run) == run,
+                  f"sr train launches {run}, phase 5's {ref.get('sr_run')}")
+            add_counts(sr_counts, run)
+            K.reset_launch_counts()
+            _cli(["sr", "train", *sr, "-e", "3", "--save_iter", "1", "-p",
+                  "1"], "sr train (resume)", walls)
+            again = K.launch_counts()
+            check_counts(again, "sr train resumed (2 steps, 1 eval)",
+                         fused_glow_forward_1x1=4 * 2 + 4,
+                         fused_glow_inverse_1x1=4 * 2 + 4,
+                         fused_glow_backward_1x1=4 * 2,
+                         fused_glow_inverse_backward_1x1=4 * 2,
+                         reduce_weight_grads=8 * 2)
+            add_counts(sr_counts, again)
+
+            # sr test: the core on the restored checkpoint, then the command
+            init = R.named_fold(R.root_generator(cfg.random_seed), "init")
+            spec, state, _, _ = LP._sr_create_and_restore(
+                cfg, init, require="no checkpoint")
+            check(state.step == 6, f"restored SR step {state.step}")
+            K.reset_launch_counts()
+            frames = np.stack(list(LP.sr_test_frames(cfg, video, state,
+                                                     spec)))
+            core = K.launch_counts()
+            n_test = len(all_indices(cfg, video.num_lr))
+            check(frames.shape == (n_test, HR_H, HR_W, 3),
+                  f"sr_test_frames {frames.shape}")
+            for flags, what in (([], "sr test"),
+                                (["--save_images"], "sr test --save_images")):
+                K.reset_launch_counts()
+                printed = _cli(["sr", "test", *sr, *flags], what, walls)
+                got = K.launch_counts()
+                check(got == core and got["fused_glow_inverse_1x1"] > 0,
+                      f"{what}: launches {got}, the core's {core}")
+                add_counts(sr_counts, got)
+                out = printed.strip().splitlines()[-1]
+                if flags:
+                    names = sorted(f for f in os.listdir(out)
+                                   if f.endswith(".png"))
+                    check(len(names) == n_test, f"{what}: {len(names)} PNGs")
+                    for i, f in enumerate(names):
+                        check(np.array_equal(png.imread(os.path.join(out, f)),
+                                             frames[i]),
+                              f"{what}: {f} differs from the core's frame")
+                else:
+                    check(out.endswith(".gif"), f"{what} wrote {out}")
+                    _gif_checked(out, n_test, what)
+
+            # the flow scene: 6 frames of the rotation fixture (3 degrees a
+            # frame, up to 27 px) with its GT
+            fframes, fflows = synthetic_flow_sequence(
+                "rotation", FLOW_FRAMES, FLOW_H, FLOW_W, magnitude=3.0)
+            pairs = FLOW_FRAMES - 1
+            t0 = time.perf_counter()
+            scene_dir = write_flow_scene(os.path.join(root, "sintel"),
+                                         "smoke_flow", fframes, fflows)
+            walls["write the flow scene"] = time.perf_counter() - t0
+            stats["png_ms_436x1024"] = _png_read_ms(os.path.join(
+                scene_dir, "frame_0001.png"))
+            media = FM.load_images(scene_dir, size=FLOW_H)
+            check(np.array_equal(media.video, (np.clip(fframes, 0, 1) * 255)
+                                 .astype(np.uint8) / np.float32(255.0))
+                  and np.array_equal(media.flow, fflows),
+                  "the flow scene's PNGs / .flo do not read back")
+            flow = ["--input-video", scene_dir]
+            fcfg = FlowConfig(input_video=scene_dir, device="cuda")
+            keys = FlowConfig.WINDOW_BOUND_KEYS
+            bounds = lambda c: tuple(getattr(c, k) for k in keys)
+            probed = LP._resolve_and_probe_splat_bounds(fcfg, media, FLOW_H,
+                                                        FLOW_W)
+            check(isinstance(probed.splat_local_dy, int),
+                  f"the GT probe left the local windows: {bounds(probed)}")
+            step = ref.get("flow_step", dict(
+                splat_region_local=2, gather_region_local=2,
+                gather_region_local_grads=4, fused_inr_backward=1,
+                reduce_weight_grads=1))
+            _reset_all_counts()
+            _cli(["flow", "train", *flow, "--epochs", "1"], "flow train",
+                 walls)
+            got = _all_counts()
+            check_counts(got, f"flow train ({pairs} steps on the probed "
+                              f"bounds {bounds(probed)}, then its test pass)",
+                         **{k: pairs * v for k, v in step.items() if v})
+            add_counts(flow_counts, got)
+            res = os.path.join(root, "results")
+            tag = "smoke_flow_temp"
+            gifs = sorted(f for f in os.listdir(res) if f.endswith(".gif"))
+            check(len(gifs) == 2 and f"occl_{tag}.gif" in gifs,
+                  f"flow train's test pass wrote {gifs}")
+            for f in gifs:
+                _gif_checked(os.path.join(res, f), pairs, "flow train")
+            with open(os.path.join(LP.flow_ckpt_dir(fcfg, "smoke_flow"),
+                                   "window_bounds.json")) as f:
+                side = json.load(f)
+
+            for op, extra in (("test", []), ("summarize", []),
+                              ("sintel", []), ("export", ["--export-out",
+                                                         "exported.ckpt"])):
+                _reset_all_counts()
+                printed = _cli(["flow", op, *flow, *extra], f"flow {op}",
+                               walls)
+                check_counts(_all_counts(), f"flow {op} (no kernel: the "
+                                            "exact occlusion scatter)")
+                if op == "summarize":
+                    line = [l for l in printed.splitlines()
+                            if l.startswith("Normalized AEPE:")]
+                    stats["aepe"] = float(line[-1].split(":")[1])
+                    check(math.isfinite(stats["aepe"]), f"AEPE {line}")
+                if op == "sintel":
+                    sub = os.path.join(printed.strip().splitlines()[-1],
+                                       "smoke_flow")
+                    flos = sorted(os.listdir(sub))
+                    check(flos == [f"frame_{i:04d}.flo"
+                                   for i in range(1, pairs + 1)],
+                          f"flow sintel wrote {flos}")
+                    for f in flos:
+                        fl = read_flo(os.path.join(sub, f))
+                        check(fl.shape == (FLOW_H, FLOW_W, 2)
+                              and bool(np.isfinite(fl).all()),
+                              f"flow sintel: {f}")
+                if op == "export":
+                    sd = torch.load("exported.ckpt", map_location="cpu")
+                    check("state_dict" in sd, "flow export: no state_dict")
+                if op == "test":
+                    for f in (f"flow_{tag}", f"occl_{tag}"):
+                        g = [x for x in os.listdir(res)
+                             if x.startswith(f) and x.endswith(".gif")]
+                        _gif_checked(os.path.join(res, g[0]), pairs,
+                                     "flow test")
+            _reset_all_counts()
+            _cli(["flow", "interpolate", *flow], "flow interpolate", walls)
+            got = _all_counts()
+            if side["splat_local_dy"]:
+                want = dict(splat_region_local=2 * pairs,
+                            gather_region_local=2 * pairs)
+            else:
+                want = dict(splat_region=2 * pairs, gather_region=2 * pairs)
+            check_counts(got, f"flow interpolate ({pairs} mid-frames on the "
+                              f"sidecar's bounds)", **want)
+            add_counts(flow_counts, got)
+            _gif_checked(os.path.join(res, f"interp_{tag}_x2.gif"),
+                         2 * pairs + 1, "flow interpolate")
+
+            # flow train with a subprocess producer on a scene without GT
+            tool = os.path.join(root, "producer.py")
+            with open(tool, "w") as f:
+                f.write(PRODUCER_TOOL.format(repo=os.path.dirname(
+                    os.path.abspath(__file__))))
+            clip = write_flow_scene(os.path.join(root, "clips"), "smoke_pgt",
+                                    fframes)
+            template = f"{sys.executable} {tool} {{f1}} {{f2}} {{out}}"
+            _reset_all_counts()
+            _cli(["flow", "train", "--input-video", clip, "--epochs", "1",
+                  "--flow-producer", template], "flow train --flow-producer",
+                 walls)
+            got = _all_counts()
+            pmedia = FM.load_images(clip, size=FLOW_H)
+            pmedia.flow = np.stack([_producer_flow(FLOW_H, FLOW_W)] * pairs)
+            pprobed = LP._resolve_and_probe_splat_bounds(
+                fcfg.replace(flow_producer=template), pmedia, FLOW_H, FLOW_W)
+            check(isinstance(pprobed.splat_local_dy, int),
+                  f"the producer's flow left the local windows: "
+                  f"{bounds(pprobed)}")
+            check_counts(got, f"flow train --flow-producer ({pairs} steps "
+                              f"on the probed bounds {bounds(pprobed)})",
+                         **{k: pairs * v for k, v in step.items() if v})
+            add_counts(flow_counts, got)
+            cache = os.path.join("checkpoints", "pseudo_gt")
+            sub = [os.path.join(cache, d) for d in os.listdir(cache)]
+            check(len(sub) == 1 and len(os.listdir(sub[0])) == pairs,
+                  f"pseudo-GT cache {sub}")
+            for f in sorted(os.listdir(sub[0])):
+                check(np.array_equal(read_flo(os.path.join(sub[0], f)),
+                                     _producer_flow(FLOW_H, FLOW_W)),
+                      f"pseudo-GT {f} is not the producer's flow")
+
+            # scene-space gather on a COLMAP-layout scene with PNG images
+            n, sh, sw = SCENE
+            write_scene_dir(os.path.join(root, "scene"), *synth_scene(n, sh,
+                                                                      sw))
+            _reset_all_counts()
+            _cli(["scene-space", "gather", "--scene-dir",
+                  os.path.join(root, "scene"), "--out", "scene_out"],
+                 "scene-space gather", walls)
+            check_counts(_all_counts(), "scene-space gather (no port "
+                                        "kernel)")
+            poses, bds, imgs, depths = PU.load_data(os.path.join(root,
+                                                                 "scene"))
+            want = SG.gather_scene(torch.as_tensor(imgs, device=dev),
+                                   torch.as_tensor(depths, device=dev), poses,
+                                   bds, patch=3, ref_frame=0, window="auto")
+            want = (np.clip(want.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+            check(np.array_equal(png.imread(os.path.join(
+                "scene_out", "gather_000.png")), want),
+                  "scene-space gather: the PNG differs from the core's frame")
+            routes = codec.route_counts()
+            check(routes["numpy"] == 0 and routes["native"] > 0,
+                  f"codec routes {routes}: the C++ route did not take every "
+                  "call")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stats["walls"] = walls
+    print(f"[commands] PNG read (C++ unfilter), median of 20: 436x1024 RGB "
+          f"{stats['png_ms_436x1024']:.2f} ms, 352x640 RGB "
+          f"{stats['png_ms_352x640']:.2f} ms; on {card} ({smi_line})")
+    print("[commands] wall s: " + ", ".join(f"{k} {v:.2f}"
+                                            for k, v in walls.items())
+          + f"; AEPE {stats['aepe']:.6f}; on {card} ({smi_line})")
+    return sr_counts, flow_counts, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4538,6 +4913,9 @@ def main() -> int:
             dev, card, smi_line, train)
         conv_flow_counts, conv_sr_counts, conv = phase_convergence(
             dev, card, smi_line)
+        cmd_sr_counts, cmd_flow_counts, _ = phase_commands(
+            dev, card, smi_line, {"sr_run": train["run_counts"],
+                                  "flow_step": ft["step_counts"]})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4547,6 +4925,7 @@ def main() -> int:
     add_counts(counts, tool_counts)
     add_counts(counts, dist_counts)
     add_counts(counts, conv_sr_counts)
+    add_counts(counts, cmd_sr_counts)
     flow_counts = dict(flow["counts"])
     add_counts(flow_counts, dist_flow_counts)
     add_counts(flow_counts, ft_counts)
@@ -4554,6 +4933,7 @@ def main() -> int:
     add_counts(flow_counts, fx_counts)
     add_counts(flow_counts, pgt_counts)
     add_counts(flow_counts, conv_flow_counts)
+    add_counts(flow_counts, cmd_flow_counts)
     kernels = []
     for n in COUPLING:
         # K1/K2: the eval/infer shapes (batch 40), as before, with the

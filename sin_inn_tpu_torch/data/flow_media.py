@@ -7,9 +7,9 @@ frames resized to a target short side, Sintel ``.flo`` GT found under
 ``flow_scale = W / 5`` heuristic; and the pseudo-GT producers of
 ``--flow-producer`` (``generate_pseudo_gt``, ``FLOW_PRODUCERS``,
 ``resolve_producer``, ``attach_pseudo_gt``), whose ``raft:`` scheme runs the
-port's RAFT (``models/raft.py``) on the device the caller names. ``imageio``
-and ``cv2`` are imported inside the functions that read or write files or
-resize, so in-memory media need neither.
+port's RAFT (``models/raft.py``) on the device the caller names. PNG frames
+are read and written by the port's codec (``io/png.py``); ``imageio`` is
+imported only to decode a video file and ``cv2`` only to resize.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from sin_inn_tpu_torch.data.flo import read_flo
+from sin_inn_tpu_torch.io import png
 
 
 def _resize_frames(frames: np.ndarray, size: int) -> np.ndarray:
@@ -85,11 +86,9 @@ def load_images(root: str, size: int = 200,
                 flow_dir: Optional[str] = None) -> FlowMedia:
     """A ``frame_%04d.png`` directory. An explicit ``flow_dir`` overrides
     the Sintel ``../../flow/<scene>`` convention."""
-    import imageio.v2 as io
-
     files = sorted(f for f in os.listdir(root) if f.endswith(".png"))
     num = len(files)
-    frames = np.stack([io.imread(path.join(root, f)) for f in files])
+    frames = np.stack([png.imread(path.join(root, f)) for f in files])
     if frames.ndim == 3:
         frames = frames[..., None].repeat(3, -1)
     h0, w0 = frames.shape[1:3]
@@ -186,8 +185,6 @@ def generate_pseudo_gt(video: np.ndarray, producer, out_dir: str) -> np.ndarray:
             import subprocess
             import tempfile
 
-            import imageio.v2 as io
-
             with tempfile.TemporaryDirectory() as td:
                 p1 = path.join(td, "f1.png")
                 p2 = path.join(td, "f2.png")
@@ -195,8 +192,8 @@ def generate_pseudo_gt(video: np.ndarray, producer, out_dir: str) -> np.ndarray:
                 # result reaches out_dir: a failing producer leaves no
                 # partial frame_%04d.flo behind
                 po = path.join(td, "out.flo")
-                io.imwrite(p1, (np.clip(f1, 0, 1) * 255).astype(np.uint8))
-                io.imwrite(p2, (np.clip(f2, 0, 1) * 255).astype(np.uint8))
+                png.imwrite(p1, (np.clip(f1, 0, 1) * 255).astype(np.uint8))
+                png.imwrite(p2, (np.clip(f2, 0, 1) * 255).astype(np.uint8))
                 # an argument list, no shell: a path with spaces stays one
                 argv = [a.format(f1=p1, f2=p2, out=po)
                         for a in shlex.split(producer)]

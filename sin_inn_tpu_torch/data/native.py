@@ -41,22 +41,32 @@ _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
+def library_path(source: Path, stem: str, flags=CXX_FLAGS,
+                 libs=()) -> Path:
+    """Where ``source`` builds: ``BUILD_DIR``, under a name that carries a
+    hash of the source and the flags."""
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(tuple(flags) + tuple(libs)).encode())
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
+
+
 def _target() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(CXX_FLAGS + LIBS).encode())
-    return BUILD_DIR / f"libsininn_loader-{digest.hexdigest()[:16]}.so"
+    return library_path(SOURCE, "libsininn_loader", CXX_FLAGS, LIBS)
 
 
-def _build(cxx: str) -> Path:
-    out = _target()
+def build_library(source: Path, stem: str, cxx: str,
+                  flags=CXX_FLAGS, libs=()) -> Path:
+    """Build ``source`` with ``cxx`` at :func:`library_path` once; returns
+    the path. A compiler that fails raises."""
+    out = library_path(source, stem, flags, libs)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE),
-                          *LIBS], capture_output=True, text=True)
+    res = subprocess.run([cxx, *flags, "-o", str(tmp), str(source), *libs],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"native loader build failed ({cxx} exit "
+        raise RuntimeError(f"{source.name} build failed ({cxx} exit "
                            f"{res.returncode}):\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)    # atomic: parallel builds race harmlessly
     return out
@@ -72,7 +82,8 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(_build(cxx)))
+        lib = ctypes.CDLL(str(build_library(SOURCE, "libsininn_loader",
+                                                  cxx, CXX_FLAGS, LIBS)))
         i64 = ctypes.c_int64
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i64p = ctypes.POINTER(ctypes.c_int64)

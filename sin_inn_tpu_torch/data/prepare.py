@@ -5,8 +5,9 @@ Counterpart of ``sin_inn_tpu/data/prepare.py``, function for function:
 a video -> per-frame HR RGB PNGs, 4-channel RGGB LR PNGs (bayer binning or
 a cv2 resize of each bayer plane), their bilinear demosaiced previews and,
 with ``noise``, noisy HR frames, under the same file names
-(``frame_00001.png`` ...). No step runs on the card. The preview videos are
-encoded with ffmpeg only where it is installed.
+(``frame_00001.png`` ...). No step runs on the card. The video is decoded by
+``imageio`` and the PNGs are written by the port's codec (``io/png.py``).
+The preview videos are encoded with ffmpeg only where it is installed.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from sin_inn_tpu_torch.core.config import PrepareConfig
+from sin_inn_tpu_torch.io import png
 
 
 def extract_bayer(frame: np.ndarray, scale: float = 1.0
@@ -117,8 +119,6 @@ def prepare_video(cfg: PrepareConfig, dataset: Optional[str] = None,
     ``dataset`` defaults to the video's parent directory's parent and
     ``scene`` to ``<video name>_<operator>_<scale>x``; ``rng`` draws the
     HR noise."""
-    import imageio.v2 as io
-
     if dataset is None:
         dataset = os.path.join(os.path.dirname(cfg.video), "..")
     if scene is None:
@@ -132,19 +132,21 @@ def prepare_video(cfg: PrepareConfig, dataset: Optional[str] = None,
     if cfg.bayer:
         raise NotImplementedError("bayer input videos are not supported")
 
+    import imageio.v2 as io
+
     reader = io.get_reader(cfg.video)
     for i, frame in enumerate(reader):
         frame = _normalize(np.asarray(frame))
         bayer, hr = extract_bayer(frame, cfg.downsampling)
 
         hr8 = _to_u8(hr)
-        io.imwrite(os.path.join(dataset, "hr_frames", scene,
-                                f"frame_{i+1:05d}.png"), hr8)
+        png.imwrite(os.path.join(dataset, "hr_frames", scene,
+                                 f"frame_{i+1:05d}.png"), hr8)
         if cfg.noise:
             noisy = np.clip(hr8 + rng.normal(0, cfg.noise, hr8.shape), 0, 255)
-            io.imwrite(os.path.join(dataset, "hr_frames_noisy", scene,
-                                    f"frame_{i+1:05d}.png"),
-                       noisy.astype(np.uint8))
+            png.imwrite(os.path.join(dataset, "hr_frames_noisy", scene,
+                                     f"frame_{i+1:05d}.png"),
+                        noisy.astype(np.uint8))
 
         h, w = bayer.shape
         if h % (cfg.scale * 2) or w % (cfg.scale * 2):
@@ -158,10 +160,10 @@ def prepare_video(cfg: PrepareConfig, dataset: Optional[str] = None,
             lr = cv_resize(bayer, flag, cfg.scale)
         lr_rgb = pack_demosaic(lr)
 
-        io.imwrite(os.path.join(dataset, "lr_frames", scene,
-                                f"frame_{i+1:05d}.png"), _to_u8(lr))
-        io.imwrite(os.path.join(dataset, "lr_frames_demosaiced", scene,
-                                f"frame_{i+1:05d}.png"), _to_u8(lr_rgb))
+        png.imwrite(os.path.join(dataset, "lr_frames", scene,
+                                 f"frame_{i+1:05d}.png"), _to_u8(lr))
+        png.imwrite(os.path.join(dataset, "lr_frames_demosaiced", scene,
+                                 f"frame_{i+1:05d}.png"), _to_u8(lr_rgb))
 
     _encode_previews(dataset, scene)
     return dataset, scene

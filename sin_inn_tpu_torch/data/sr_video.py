@@ -29,6 +29,7 @@ import torch
 
 from sin_inn_tpu_torch.core.config import SRConfig
 from sin_inn_tpu_torch.data import native
+from sin_inn_tpu_torch.io import png
 
 # gathers taken by each route since the last reset
 _GATHER_ROUTES = {"native": 0, "numpy": 0}
@@ -44,12 +45,10 @@ def reset_gather_route_counts() -> None:
 
 
 def _read_frames(directory: str, dtype=np.uint8) -> np.ndarray:
-    import imageio.v2 as io
-
     files = sorted(f for f in os.listdir(directory) if f.endswith(".png"))
     if not files:
         raise FileNotFoundError(f"no .png frames in {directory}")
-    frames = [io.imread(os.path.join(directory, f)) for f in files]
+    frames = [png.imread(os.path.join(directory, f)) for f in files]
     arr = np.stack(frames).astype(dtype)
     if arr.ndim == 3:
         arr = arr[..., None]

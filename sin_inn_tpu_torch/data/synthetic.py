@@ -5,16 +5,22 @@ HR video whose LR RGGB stream comes from the same bayer-binning math as the
 offline preparation, so (HR, LR) pairs are physically consistent; the
 analytic-GT flow sequences (shift, rotation, zoom, a moving occluder) that
 ``tools/validate_torch.py`` trains on; and ``synth_scene``, the dense
-multi-view scene of the scene-space gather.
+multi-view scene of the scene-space gather. ``write_sr_dataset``,
+``write_flow_scene`` and ``write_scene_dir`` lay such data out on disk as
+the commands read it, PNGs through the port's codec.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from sin_inn_tpu_torch.core.config import SRConfig
 from sin_inn_tpu_torch.data.prepare import binning, extract_bayer
+from sin_inn_tpu_torch.data.flo import write_flo
 from sin_inn_tpu_torch.data.sr_video import SRVideo
+from sin_inn_tpu_torch.io import png
 
 
 def moving_texture_video(num_frames: int, h: int, w: int,
@@ -225,3 +231,54 @@ def synthetic_sr_video(cfg: SRConfig, num_frames: int = None, h: int = 16,
     lr = np.stack(lr)
     to_u8 = lambda x: (np.clip(x, 0, 1) * 255).astype(np.uint8)
     return SRVideo(lr=to_u8(lr), hr=to_u8(hr))
+
+
+def write_sr_dataset(root: str, scene: str, video: SRVideo) -> None:
+    """``<root>/hr_frames/<scene>/`` and ``<root>/lr_frames/<scene>/``:
+    one ``frame_%05d.png`` a frame (the LR ones RGGB, 4 channels), the
+    layout ``prepare`` writes and ``sr --dataset root -s scene`` reads."""
+    for kind, frames in (("hr_frames", video.hr), ("lr_frames", video.lr)):
+        d = os.path.join(root, kind, scene)
+        os.makedirs(d, exist_ok=True)
+        for i, f in enumerate(frames):
+            png.imwrite(os.path.join(d, f"frame_{i + 1:05d}.png"), f)
+
+
+def write_flow_scene(root: str, scene: str, frames: np.ndarray,
+                     flows: np.ndarray = None) -> str:
+    """Sintel's layout: ``<root>/final/<scene>/frame_%04d.png`` from (N, H,
+    W, 3) frames in [0, 1] and, with ``flows``, the GT
+    ``<root>/flow/<scene>/frame_%04d.flo`` that ``flow --input-video``
+    finds beside them. Returns the frame directory."""
+    d = os.path.join(root, "final", scene)
+    os.makedirs(d, exist_ok=True)
+    for i, f in enumerate(frames):
+        png.imwrite(os.path.join(d, f"frame_{i + 1:04d}.png"),
+                    (np.clip(f, 0, 1) * 255).astype(np.uint8))
+    if flows is not None:
+        fd = os.path.join(root, "flow", scene)
+        os.makedirs(fd, exist_ok=True)
+        for i, f in enumerate(flows):
+            write_flo(os.path.join(fd, f"frame_{i + 1:04d}.flo"), f)
+    return d
+
+
+def write_scene_dir(d: str, imgs: np.ndarray, depths: np.ndarray,
+                    poses: np.ndarray, bds: np.ndarray) -> None:
+    """A dense COLMAP scene directory as ``scene-space`` reads it:
+    ``poses_bounds.npy``, ``images/im_%04d.png`` and their geometric depth
+    maps ``stereo/depth_maps/im_%04d.png.geometric.bin``; the arrays are
+    :func:`synth_scene`'s."""
+    n, h, w = depths.shape
+    os.makedirs(os.path.join(d, "images"), exist_ok=True)
+    os.makedirs(os.path.join(d, "stereo", "depth_maps"), exist_ok=True)
+    np.save(os.path.join(d, "poses_bounds.npy"),
+            np.concatenate([poses.reshape(n, -1), bds], axis=1))
+    for i in range(n):
+        name = f"im_{i:04d}.png"
+        png.imwrite(os.path.join(d, "images", name),
+                    (np.clip(imgs[i], 0, 1) * 255).astype(np.uint8))
+        with open(os.path.join(d, "stereo", "depth_maps",
+                               name + ".geometric.bin"), "wb") as f:
+            f.write(f"{w}&{h}&1&".encode())
+            depths[i].astype(np.float32).tofile(f)

@@ -1,8 +1,8 @@
 """Video/image artifact writers with ffmpeg gated behind availability.
 
-A copy of ``sin_inn_tpu/io/video_io.py``: ffmpeg when present on PATH,
-otherwise imageio GIF / PNG frame dumps. imageio is imported inside the
-functions that use it.
+Counterpart of ``sin_inn_tpu/io/video_io.py``: ffmpeg when present on PATH,
+otherwise a GIF; PNG frame dumps. The GIF and the PNGs are written by the
+port's own codecs (``io/gif.py``, ``io/png.py``), so no imageio is needed.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import subprocess as sp
 from typing import Iterator
 
 import numpy as np
+
+from sin_inn_tpu_torch.io import gif, png
 
 
 def have_ffmpeg() -> bool:
@@ -56,10 +58,8 @@ class VideoWriter:
                 self._proc.stdin.close()
                 self._proc.wait()
         else:
-            import imageio.v2 as io
             if self._frames:
-                io.mimsave(self.path, self._frames, format="GIF",
-                           fps=min(self.fps, 30))
+                gif.mimsave(self.path, self._frames, fps=min(self.fps, 30))
         return self.path
 
     def __enter__(self):
@@ -71,12 +71,10 @@ class VideoWriter:
 
 def write_frames(directory: str, frames: Iterator[np.ndarray],
                  prefix: str = "out"):
-    import imageio.v2 as io
-
     os.makedirs(directory, exist_ok=True)
     paths = []
     for i, f in enumerate(frames):
         p = os.path.join(directory, f"{prefix}_{i:05d}.png")
-        io.imwrite(p, f)
+        png.imwrite(p, f)
         paths.append(p)
     return paths

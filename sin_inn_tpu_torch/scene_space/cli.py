@@ -4,8 +4,8 @@
 Counterpart of ``sin_inn_tpu/scene_space/cli.py``. ``gather`` runs
 :func:`~sin_inn_tpu_torch.scene_space.gather.gather_scene` on ``--device``
 (``cuda`` unless the caller asks for the CPU; every operation resolves the
-device first, so a CUDA request without a card raises). ``imageio`` is
-imported only where a PNG is written.
+device first, so a CUDA request without a card raises). PNGs are written
+by the port's codec (``io/png.py``).
 """
 
 from __future__ import annotations
@@ -79,6 +79,6 @@ def _reproject(poses, bds, imgs, depths, frame: int):
 
 
 def _imwrite(p: str, img: np.ndarray):
-    import imageio.v2 as io
+    from sin_inn_tpu_torch.io import png
 
-    io.imwrite(p, (np.clip(img, 0, 1) * 255).astype(np.uint8))
+    png.imwrite(p, (np.clip(img, 0, 1) * 255).astype(np.uint8))

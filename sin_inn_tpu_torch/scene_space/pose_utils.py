@@ -141,7 +141,7 @@ def save_poses(basedir: str, poses: np.ndarray, perm: np.ndarray, points):
 def load_data(basedir: str, factor: Optional[int] = None):
     """Load (poses, bounds, images, depths) from a processed COLMAP dir.
     Returns NHWC float numpy arrays."""
-    import imageio.v2 as io
+    from sin_inn_tpu_torch.scene_space.data import read_image
 
     arr = np.load(os.path.join(basedir, "poses_bounds.npy"))
     # 6 columns when the principal-point column is present; legacy
@@ -153,7 +153,7 @@ def load_data(basedir: str, factor: Optional[int] = None):
     imgdir = os.path.join(basedir, "images")
     img_files = sorted(f for f in os.listdir(imgdir)
                        if f.lower().endswith((".png", ".jpg", ".jpeg")))
-    imgs = np.stack([io.imread(os.path.join(imgdir, f)) / 255.0
+    imgs = np.stack([read_image(os.path.join(imgdir, f)) / 255.0
                      for f in img_files]).astype(np.float32)
 
     depthdir = os.path.join(basedir, "stereo", "depth_maps")

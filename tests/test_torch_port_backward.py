@@ -20,6 +20,7 @@ from sin_inn_tpu.ops import subnet as JS
 from sin_inn_tpu.ops.pallas import coupling as JK
 from sin_inn_tpu_torch.models.convert import glow_params_from_jax
 from sin_inn_tpu_torch.ops.cuda import coupling as TK
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 CLAMP = 1.2
 C, LEN1, HIDDEN = 16, 8, 32

@@ -26,6 +26,7 @@ from sin_inn_tpu_torch.core.config import FlowConfig
 from sin_inn_tpu_torch.models import controllers as TC
 from sin_inn_tpu_torch.models import inr as TI
 from sin_inn_tpu_torch.models.convert import ctrl_state_from_jax
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 NF = 16      # PFF: 32 encoding channels + 3 coordinate rows = mask length 35
 

@@ -50,6 +50,7 @@ from sin_inn_tpu_torch.train import sr as TSR
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
 import validate_torch as V  # noqa: E402
+from torch_port_helpers import one_torch_thread  # noqa: E402,F401
 
 FLOW = dict(net="PFF", num_frequencies=8, hidden_dim=16, num_layers=2,
             epochs=400, lr=3e-3, loss_census=0.1, loss_smooth1=0.1,

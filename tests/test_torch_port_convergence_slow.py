@@ -41,6 +41,7 @@ from sin_inn_tpu_torch.models.convert import (ctrl_state_from_jax,
 from sin_inn_tpu_torch.ops import losses as TL
 from sin_inn_tpu_torch.train import flow as TF
 from sin_inn_tpu_torch.train import sr as TSR
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.slow
 

@@ -23,6 +23,7 @@ from sin_inn_tpu_torch.ops import coupling as TC
 from sin_inn_tpu_torch.ops import subnet as TS
 from sin_inn_tpu_torch.ops.cuda import coupling as K
 from sin_inn_tpu_torch.ops.cuda import coupling3x3 as K8
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 CLAMP = 1.2
 

@@ -59,6 +59,7 @@ from sin_inn_tpu_torch.ops.coupling import glow_log_e
 from sin_inn_tpu_torch.ops.cuda import coupling as K
 from sin_inn_tpu_torch.ops.cuda import coupling3x3 as K8
 from torch_port_helpers import mm1, mm3
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 CLAMP = 1.2
 HIDDEN = 256

@@ -43,6 +43,7 @@ from sin_inn_tpu.ops.pallas import coupling as JK
 from sin_inn_tpu_torch.models.convert import glow_params_from_jax
 from sin_inn_tpu_torch.ops.cuda import coupling as TK
 from torch_port_helpers import mm1, mm3, split, tf32_rna
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 CLAMP = 1.2
 HIDDEN = 256

@@ -41,6 +41,7 @@ from sin_inn_tpu_torch.models.convert import (ctrl_state_from_jax,
 from sin_inn_tpu_torch.models.inr import flat_leaves
 from sin_inn_tpu_torch.train import flow as TF
 from sin_inn_tpu_torch.train import loop as TL
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(num_frequencies=8, hidden_dim=16, num_layers=2, spatial_res=3,

@@ -37,6 +37,7 @@ from sin_inn_tpu_torch.ops.cuda import gather as TG
 from sin_inn_tpu_torch.ops.cuda import splat as TK5
 from sin_inn_tpu_torch.train import flow as TF
 from sin_inn_tpu_torch.train import loop as TL
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 def _np(tree):

@@ -81,3 +81,69 @@ def test_chip_smoke_fails_alone(tmp_path):
     res = _run_smoke(str(tmp_path), str(tmp_path / "chip_smoke.py"))
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+# the only functions of the port that import imageio or cv2: video files,
+# JPEG images and the resizes (every PNG and GIF goes through io/png.py and
+# io/gif.py)
+MEDIA_IMPORTS = {
+    ("data/flow_media.py", "_resize_frames"): {"cv2"},
+    ("data/flow_media.py", "load_video_clip"): {"imageio"},
+    ("data/prepare.py", "extract_bayer"): {"cv2"},
+    ("data/prepare.py", "cv_resize"): {"cv2"},
+    ("data/prepare.py", "prepare_video"): {"imageio", "cv2"},
+    ("scene_space/data.py", "read_image"): {"imageio"},
+}
+
+
+def _media_imports(path):
+    """{(file, enclosing function or '<module>'): top-level names} of the
+    imageio / cv2 / PIL imports in one source file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    found = {}
+
+    def visit(node, owner):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, child.name)
+                continue
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                names = [child.module or ""]
+            else:
+                names = []
+            tops = {n.split(".")[0] for n in names} & {"imageio", "cv2",
+                                                       "PIL"}
+            if tops:
+                key = (os.path.relpath(path, PORT), owner)
+                found.setdefault(key, set()).update(tops)
+            visit(child, owner)
+
+    visit(tree, "<module>")
+    return found
+
+
+def test_imageio_and_cv2_imported_only_for_video_jpeg_and_resizes():
+    found = {}
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                found.update(_media_imports(os.path.join(root, f)))
+    assert found == MEDIA_IMPORTS
+
+
+def test_importing_port_loads_no_imageio_cv2_or_pil():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import sin_inn_tpu_torch as P\n"
+        "for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('imageio', 'cv2', 'PIL'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0, res.stderr

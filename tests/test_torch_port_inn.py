@@ -19,6 +19,7 @@ from sin_inn_tpu_torch.models import inn as TI
 from sin_inn_tpu_torch.models.convert import params_from_jax
 from sin_inn_tpu_torch.ops.cuda import coupling as TK
 from torch_port_helpers import np_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 TINY = [
     dict(scale=2, lr_window=1, num_coupling=2, hidden_channels=16),

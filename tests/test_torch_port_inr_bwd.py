@@ -32,6 +32,7 @@ from sin_inn_tpu_torch.models.convert import inr_params_from_jax
 from sin_inn_tpu_torch.ops.cuda import gather as TG
 from sin_inn_tpu_torch.ops.cuda import inr as TK7
 from sin_inn_tpu_torch.ops.cuda import splat as TK5
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 def _np(tree):

@@ -51,6 +51,7 @@ from test_torch_port_inr_bwd import (_inputs_clear_of_the_gates, _jax_grads,
                                      _kind_enc_layers, _nets, _normwise)
 from test_torch_port_progressive import _fused_setup
 from torch_port_helpers import mm1, mm3
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 SLOT = 96                 # rows a slot here: ragged last slot at every n
 N_PLAIN = 301             # non-progressive nets: no multiple of a tile

@@ -55,6 +55,7 @@ from test_torch_port_inr_bwd import (_inputs_clear_of_the_gates,
                                      _kind_enc_layers, _nets, _normwise)
 from test_torch_port_progressive import _fused_setup
 from torch_port_helpers import mm1, mm3_rz
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 N_PLAIN = 301             # non-progressive nets: no multiple of a tile
 SLICE = 32                # rows of a weight slice

@@ -55,6 +55,7 @@ from sin_inn_tpu_torch.train import sr as TSR
 from test_torch_port_sr_test import _write_dataset
 from test_torch_port_train import _jax_draws, _normwise, _torch_batch
 from torch_port_helpers import np_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))

@@ -21,6 +21,7 @@ from sin_inn_tpu.data.flo import write_flo
 from sin_inn_tpu.data.synthetic import moving_texture_video
 from sin_inn_tpu.parallel import launcher as JL
 from sin_inn_tpu_torch.parallel import launcher as TL
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 FLAGS = ["--name", "t", "--size", "10", "--test-size", "10", "--net", "RBF",
          "--num-frequencies", "8", "--hidden-dim", "16", "--num-layers", "2",

@@ -26,6 +26,7 @@ from sin_inn_tpu.ops.pallas import splat as JS
 from sin_inn_tpu_torch.ops import offsets as TO
 from sin_inn_tpu_torch.ops.cuda import gather as TG
 from sin_inn_tpu_torch.ops.cuda import splat as TK5
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 def _flow(n, h, w, detail, drift_x=-15.0, seed=0):

@@ -27,6 +27,7 @@ from sin_inn_tpu_torch.ops import permute as TP
 from sin_inn_tpu_torch.ops import squeeze as TSQ
 from sin_inn_tpu_torch.ops import subnet as TS
 from sin_inn_tpu_torch.ops.cuda import coupling as TK
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 CLAMP = 1.2
 

@@ -32,6 +32,7 @@ from sin_inn_tpu.data.synthetic import moving_texture_video
 from sin_inn_tpu_torch import cli
 from sin_inn_tpu_torch.core.config import PrepareConfig
 from sin_inn_tpu_torch.data import prepare as TP
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBDIRS = ("hr_frames", "lr_frames", "lr_frames_demosaiced",

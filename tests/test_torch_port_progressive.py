@@ -45,6 +45,7 @@ from sin_inn_tpu_torch.models.convert import (ctrl_state_from_jax,
 from sin_inn_tpu_torch.ops.cuda import inr as TK7
 from sin_inn_tpu_torch.train import flow as TF
 from sin_inn_tpu_torch.train import loop as TL
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 PROGRESSIVE = ("PFF", "PRBF", "PRBFG", "PPE", "PRFF", "PUFF", "MPFF")
 

@@ -34,6 +34,7 @@ from sin_inn_tpu.ops.pallas import splat as JS
 from sin_inn_tpu_torch.ops.cuda import splat as TK5
 from sin_inn_tpu_torch.ops.splat import _hat
 from torch_port_helpers import k5_local_model, k5_model
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -20,6 +20,7 @@ import torch
 from sin_inn_tpu_torch.ops.cuda import splat as TK5
 from sin_inn_tpu_torch.ops.offsets import tile_flow_offsets
 from torch_port_helpers import k5_local_model, k5_model, k5_tiles_model
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 H, W = 180, 200          # neither a multiple of 128: ragged last tiles
 BOUNDS = (8, 16)

@@ -27,6 +27,7 @@ from sin_inn_tpu_torch.models.convert import params_from_jax
 from sin_inn_tpu_torch.train import loop as LP
 from sin_inn_tpu_torch.train import sr as TSR
 from torch_port_helpers import np_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(scale=2, lr_window=1, num_coupling=2, hidden_channels=16, fps=30)

@@ -26,6 +26,7 @@ from sin_inn_tpu_torch.models.convert import params_from_jax
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import validate_torch as V  # noqa: E402
+from torch_port_helpers import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("kind,magnitude", [

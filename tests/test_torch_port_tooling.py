@@ -41,6 +41,7 @@ from sin_inn_tpu_torch.train import loop as L
 from sin_inn_tpu_torch.train import sr as TSR
 from sin_inn_tpu_torch.train import tuner as T
 from test_torch_port_train import _jax_draws
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 TINY = dict(scale=2, lr_window=1, num_coupling=2, hidden_channels=16,
             fps=30)

@@ -41,6 +41,7 @@ from sin_inn_tpu_torch.train import optim as TO
 from sin_inn_tpu_torch.train import sr as TSR
 from test_torch_port_sr_test import _write_dataset
 from torch_port_helpers import np_params
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(lr_window=1, num_coupling=2, hidden_channels=16, fps=30)

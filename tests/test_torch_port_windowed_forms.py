@@ -23,6 +23,7 @@ from sin_inn_tpu.ops import splat as JS
 from sin_inn_tpu.ops import warp as JW
 from sin_inn_tpu_torch.ops import splat as TS
 from sin_inn_tpu_torch.ops import warp as TW
+from torch_port_helpers import one_torch_thread  # noqa: F401
 
 N, H, W = 2, 24, 40
 

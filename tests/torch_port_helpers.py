@@ -4,7 +4,21 @@ package."""
 import math
 
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU work on one thread while a module runs (autouse in
+    every module that imports it). The suite runs several worker processes
+    on the box's cores; PyTorch's default of a thread per core in each of
+    them oversubscribes the CPU, and the many small ops of these tests then
+    wait at every op's barrier."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def np_params(spec, c=3, seed=11):
