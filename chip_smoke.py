@@ -296,6 +296,29 @@ nothing of JAX or of the JAX package. Phases:
     ``gather_scene`` on ``load_data``'s arrays, no launch). Every codec
     call on the C++ route. Prints the PNG read ms at 436x1024 and 352x640
     and each command's wall seconds.
+22. the rest of the inputs, through ``cli.main`` with the default
+    ``--device cuda``, with the port's resize, GIF and JPEG readers in
+    place of cv2 and imageio: ``flow train --size 218 --test-size 200``
+    (2x area to 218x512; the general area route to 200x470) and ``flow
+    test`` on
+    phase 21's scene, the launches equal to ``run_flow_train`` /
+    ``run_flow_test`` on ``load_images(dir, size)``'s media, whose frames
+    and GT flows the numpy route reads bit for bit too; ``flow train
+    --input-video clip.gif --size 218 --step 1`` on a GIF the port's
+    writer made of the scene's frames (each frame decodes to the one
+    encoded; the launches equal the core's on ``load_video_clip``);
+    ``prepare`` from a 119-frame 352x640 GIF with ``binning`` (and from its
+    first 8 frames with ``lanczos4 -d 2`` and ``cubic``) at scale 4 (a PNG
+    a frame in each folder, frame 1 equal to the in-process functions),
+    then ``sr train --epochs 1`` at the SRF
+    flagship on the binned dataset (2 steps and an eval: phase 5's launches
+    a step); the four ``scene-space`` operations on a COLMAP scene whose
+    images are the 8 committed 480x640 JPEGs of ``tests/goldens/jpeg``
+    (every fixture decodes to its ``decoded.npz``; the matrices, the
+    reprojection and the gather equal the in-process functions'). Prints
+    the resize ms a frame of each mode on these paths, the JPEG read ms at
+    480x640, the GIF read ms a frame at 436x1024 and each command's wall
+    seconds.
 
 Any failed check exits non-zero. The line before the last is a JSON object
 with each kernel's numbers; K1-K4's, K7's and K8's ``bound_ms`` counts
@@ -375,6 +398,9 @@ DY, DX = 64, 128               # resolve_splat_bounds at 436x1024
 LDY, CAPY = 32, 64             # its local row bound and the offsets' cap
 FLOW_TRAIN_EPOCHS = 2
 SCENE = (24, 480, 640)         # the scene gather's frames, height, width
+# the fewest frames of a prepared video that give 2 train steps at batch 8
+# (fps 10: a train window every 12th LR frame from frame 11, 10 a side)
+PREP_FRAMES = 119
 
 
 RAFT_SEED = {"basic": 5, "small": 7}   # the committed goldens' draws
@@ -1202,16 +1228,21 @@ def phase_train(dev, card: str, smi_line: str, work: str):
         ckpts = CheckpointStore(path.join(out["exp_dir"],
                                           "checkpoints")).latest_step()
         check(ckpts == 2, f"latest checkpoint {ckpts}, want 2")
-        # 4 K1 + 4 K2 + 4 K3 + 4 K4 per step; 4 K1 + 4 K2 per eval batch
+        # 4 K1 + 4 K2 + 4 K3 + 4 K4 and 8 reductions per step; 4 K1 + 4 K2
+        # per eval batch (phase 22 holds its own SR run to these)
+        step_counts = dict(fused_glow_forward_1x1=4, fused_glow_inverse_1x1=4,
+                           fused_glow_backward_1x1=4,
+                           fused_glow_inverse_backward_1x1=4,
+                           reduce_weight_grads=8)
+        eval_counts = dict(fused_glow_forward_1x1=4, fused_glow_inverse_1x1=4)
         evals = 2
         check_counts(run_counts, "run_sr_train (4 steps, 2 evals)",
-                     fused_glow_forward_1x1=4 * steps + 4 * evals,
-                     fused_glow_inverse_1x1=4 * steps + 4 * evals,
-                     fused_glow_backward_1x1=4 * steps,
-                     fused_glow_inverse_backward_1x1=4 * steps,
-                     reduce_weight_grads=8 * steps)
+                     **{k: steps * v + evals * eval_counts.get(k, 0)
+                        for k, v in step_counts.items()})
         add_counts(counts, run_counts)
         stats["run_counts"] = dict(run_counts)
+        stats["step_counts"] = step_counts
+        stats["eval_counts"] = eval_counts
         print(f"[train] run_sr_train: {steps} steps in "
               f"{time.perf_counter() - t0:.1f} s; metrics {m}")
 
@@ -4587,16 +4618,21 @@ def _gif_checked(p: str, frames: int, what: str) -> dict:
     return info
 
 
-def _png_read_ms(p: str, reps: int = 20) -> float:
-    from sin_inn_tpu_torch.io import png
-
-    png.imread(p)
+def _host_ms(fn, reps: int) -> float:
+    """Median wall ms of ``fn`` on the host, after one call."""
+    fn()
     ts = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        png.imread(p)
+        fn()
         ts.append(time.perf_counter() - t0)
     return 1e3 * statistics.median(ts)
+
+
+def _png_read_ms(p: str, reps: int = 20) -> float:
+    from sin_inn_tpu_torch.io import png
+
+    return _host_ms(lambda: png.imread(p), reps)
 
 
 def phase_commands(dev, card: str, smi_line: str, ref: dict = None):
@@ -4881,6 +4917,327 @@ def phase_commands(dev, card: str, smi_line: str, ref: dict = None):
     return sr_counts, flow_counts, stats
 
 
+@contextlib.contextmanager
+def _numpy_codec():
+    """The codec's numpy routes, as where g++ is absent."""
+    from sin_inn_tpu_torch.io import codec
+
+    load = codec._load
+    codec._load = lambda: None
+    try:
+        yield
+    finally:
+        codec._load = load
+
+
+def _posterized(frames) -> np.ndarray:
+    """Float frames in [0, 1] -> uint8 on a 6-level cube (216 colours): a
+    GIF holds them exactly."""
+    return (np.rint(np.clip(frames, 0, 1) * 5) * 51).astype(np.uint8)
+
+
+def phase_inputs(dev, card: str, smi_line: str, ref: dict):
+    """22. The rest of the inputs on the card, through ``cli.main`` with the
+    default ``--device cuda`` in a temporary directory, with the port's
+    resize, GIF and JPEG readers in place of cv2 and imageio: ``flow train
+    --size 218 --test-size 200`` and ``flow test`` on phase 21's 436x1024
+    Sintel-layout scene (2x area to 218x512, the general area route to
+    200x470, the GT flows likewise); ``flow train --input-video clip.gif
+    --size 218 --step 1`` on a GIF the port's writer made of the scene's
+    frames; ``prepare`` from a 119-frame 352x640 GIF (``binning``; its
+    first 8 frames with ``lanczos4 -d 2`` and ``cubic``; scale 4), then ``sr train --epochs 1`` at
+    the SRF flagship on the binned dataset (2 steps and an eval); the four
+    ``scene-space`` operations on a scene of 8 committed 480x640 JPEGs.
+    Each command's launches equal its in-memory core's on the same media
+    (``run_flow_train`` / ``run_flow_test`` on ``load_images`` /
+    ``load_video_clip``; phase 5's SR launches a step and an eval, in
+    ``ref``); the C++ and numpy
+    routes read the resized frames and flows bit for bit; the GIF decodes to
+    the frames written; every committed JPEG fixture decodes to its
+    ``decoded.npz``. Returns the SR and flow launches and the times."""
+    import os
+
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.data import flow_media as FM
+    from sin_inn_tpu_torch.data import prepare as PR
+    from sin_inn_tpu_torch.data.synthetic import (moving_texture_video,
+                                                  synth_scene,
+                                                  synthetic_flow_sequence,
+                                                  write_flow_scene,
+                                                  write_scene_dir,
+                                                  write_sparse_model)
+    from sin_inn_tpu_torch.io import codec, gif, jpeg, png
+    from sin_inn_tpu_torch.io.resize import resize
+    from sin_inn_tpu_torch.ops.cuda import coupling as K
+    from sin_inn_tpu_torch.scene_space import cli as SC
+    from sin_inn_tpu_torch.scene_space import gather as SG
+    from sin_inn_tpu_torch.scene_space import pose_utils as PU
+    from sin_inn_tpu_torch.train import loop as LP
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "goldens", "jpeg")
+    decoded = np.load(os.path.join(fixtures, "decoded.npz"))
+    walls, stats = {}, {}
+    sr_counts, flow_counts = {}, {}
+    # 218x512 (2x) and 200x470 (a general ratio)
+    size, test_size = FLOW_H // 2, int(round(FLOW_H * 200 / 436))
+    root = tempfile.mkdtemp(prefix="chip_smoke_inputs_")
+    try:
+        with contextlib.chdir(root):
+            check(codec.available(), "the native codec is not built (no "
+                                     "g++?)")
+            # phase 21's scene, read at two sizes by both routes
+            fframes, fflows = synthetic_flow_sequence(
+                "rotation", FLOW_FRAMES, FLOW_H, FLOW_W, magnitude=3.0)
+            pairs = FLOW_FRAMES - 1
+            scene_dir = write_flow_scene(os.path.join(root, "sintel"),
+                                         "smoke_rs", fframes, fflows)
+            media = {s: FM.load_images(scene_dir, size=s)
+                     for s in (size, test_size)}
+            with _numpy_codec():
+                for s, m in media.items():
+                    n = FM.load_images(scene_dir, size=s)
+                    check(np.array_equal(n.video, m.video)
+                          and np.array_equal(n.flow, m.flow),
+                          f"load_images at {s}: the numpy route's frames "
+                          "or flows differ from the C++ route's")
+                small = [n for n in sorted(os.listdir(fixtures))
+                         if n.endswith(".jpg") and not n.startswith("scene")]
+                for n in small + ["scene_00.jpg"]:
+                    check(np.array_equal(jpeg.imread(os.path.join(
+                        fixtures, n)), decoded[n[:-4]]),
+                          f"JPEG fixture {n} (numpy route) differs from "
+                          "decoded.npz")
+            for s, m in media.items():
+                w = int(round(FLOW_W * s / FLOW_H))
+                check(m.video.shape == (FLOW_FRAMES, s, w, 3)
+                      and m.flow.shape == (pairs, s, w, 2),
+                      f"load_images at {s}: {m.video.shape} {m.flow.shape}")
+            check(len(decoded.files) >= 20, f"decoded.npz: {decoded.files}")
+            for n in decoded.files:
+                check(np.array_equal(jpeg.imread(os.path.join(
+                    fixtures, n + ".jpg")), decoded[n]),
+                      f"JPEG fixture {n}.jpg differs from decoded.npz")
+            codec.reset_route_counts()
+
+            # flow train / test on resized frames: the CLI against the core
+            ccfg = FlowConfig(input_video=scene_dir, size=size,
+                              test_size=test_size, epochs=1, name="core",
+                              device="cuda")
+            _reset_all_counts()
+            LP.run_flow_train(ccfg, media=media[size], scene="smoke_rs",
+                              val_media=media[test_size])
+            core = _all_counts()
+            check(all(core.get(k, 0) > 0 for k in (
+                "fused_inr_backward",)) and (
+                    core.get("splat_region_local", 0)
+                    + core.get("splat_region", 0)) > 0,
+                  f"run_flow_train at {size}: launches {core}")
+            flow = ["--input-video", scene_dir, "--size", str(size),
+                    "--test-size", str(test_size), "--name", "cli"]
+            _reset_all_counts()
+            _cli(["flow", "train", *flow, "--epochs", "1"],
+                 f"flow train --size {size}", walls)
+            got = _all_counts()
+            check(got == core, f"flow train --size {size}: launches {got}, "
+                               f"the core's {core}")
+            add_counts(flow_counts, got)
+            _reset_all_counts()
+            LP.run_flow_test(ccfg.replace(name="cli"),
+                             media=media[test_size], scene="smoke_rs")
+            core_test = _all_counts()
+            _reset_all_counts()
+            _cli(["flow", "test", *flow], f"flow test --test-size "
+                                          f"{test_size}", walls)
+            got = _all_counts()
+            check(got == core_test, f"flow test --test-size {test_size}: "
+                                    f"launches {got}, the core's "
+                                    f"{core_test}")
+            add_counts(flow_counts, got)
+
+            # GIF video input: the scene's frames through the port's writer
+            frames8 = (np.clip(fframes, 0, 1) * 255).astype(np.uint8)
+            clip = os.path.join(root, "videos", "clip.gif")
+            os.makedirs(os.path.dirname(clip))
+            gif.mimsave(clip, list(frames8), fps=10)
+            back = gif.mimread(clip)
+            stats["gif_read_ms_436x1024"] = _host_ms(
+                lambda: gif.mimread(clip), 5) / len(back)
+            check(len(back) == FLOW_FRAMES, f"GIF: {len(back)} frames")
+            for i, (b, f) in enumerate(zip(back, frames8)):
+                palette, idx = gif.quantize(f)
+                check(np.array_equal(b, palette[idx]),
+                      f"GIF frame {i} differs from the frame encoded")
+                if len(palette) <= 256 and np.array_equal(palette[idx], f):
+                    check(np.array_equal(b, f), f"GIF frame {i}")
+            gmedia = FM.load_video_clip(clip, step=1, size=size)
+            check(gmedia.video.shape == (FLOW_FRAMES, size, FLOW_W // 2, 3),
+                  f"load_video_clip: {gmedia.video.shape}")
+            gcfg = ccfg.replace(input_video=clip, test_size=size, step=1,
+                                name="gcore")
+            _reset_all_counts()
+            LP.run_flow_train(gcfg, media=gmedia, scene="clip")
+            core = _all_counts()
+            _reset_all_counts()
+            _cli(["flow", "train", "--input-video", clip, "--size", str(size),
+                  "--test-size", str(size), "--step", "1", "--epochs", "1",
+                  "--name", "gcli"], "flow train --input-video clip.gif",
+                 walls)
+            got = _all_counts()
+            check(got == core and got.get("fused_inr_backward", 0) == pairs,
+                  f"flow train on the GIF: launches {got}, the core's {core}")
+            add_counts(flow_counts, got)
+
+            # prepare from a GIF, then sr train on the binned dataset; the
+            # other two operators on the first 8 of its frames
+            prep = _posterized(moving_texture_video(PREP_FRAMES, HR_H, HR_W,
+                                                    seed=5))
+            clips = {}
+            for tag, n in (("prep", PREP_FRAMES), ("prep8", 8)):
+                clips[tag] = os.path.join(root, tag, "videos", "clip.gif")
+                os.makedirs(os.path.dirname(clips[tag]))
+                t0 = time.perf_counter()
+                gif.mimsave(clips[tag], list(prep[:n]), fps=10)
+                walls[f"write the {n}-frame GIF"] = time.perf_counter() - t0
+            first = next(gif.iter_frames(clips["prep"]))
+            check(np.array_equal(first, prep[0]), "the prepare GIF's first "
+                                                  "frame does not read back")
+            for op, extra, hr, tag in (
+                    ("binning", [], (HR_H, HR_W), "prep"),
+                    ("lanczos4", ["-d", "2"], (HR_H // 2, HR_W // 2),
+                     "prep8"),
+                    ("cubic", [], (HR_H, HR_W), "prep8")):
+                _reset_all_counts()
+                _cli(["prepare", clips[tag], "-s", "4", "-p", op, *extra],
+                     f"prepare -p {op} {' '.join(extra)}".strip(), walls)
+                check_counts(_all_counts(), f"prepare -p {op} (host work)")
+                scene = f"clip_{op}_4x"
+                dataset = os.path.join(root, tag)
+                n = PREP_FRAMES if tag == "prep" else 8
+                for sub, shape in (("hr_frames", hr + (3,)),
+                                   ("lr_frames", (hr[0] // 8, hr[1] // 8, 4)),
+                                   ("lr_frames_demosaiced",
+                                    (hr[0] // 4, hr[1] // 4, 3))):
+                    d = os.path.join(dataset, sub, scene)
+                    names = sorted(os.listdir(d))
+                    check(len(names) == n,
+                          f"prepare -p {op}: {len(names)} {sub}")
+                    check(png.imread(os.path.join(d, names[0])).shape
+                          == shape, f"prepare -p {op}: {sub} shape")
+                # frame 1 again in-process from the decoded GIF frame
+                bayer, hr_rgb = PR.extract_bayer(PR._normalize(first),
+                                                 2.0 if extra else 1.0)
+                lr = (PR.binning(bayer, "mean", 4) if op == "binning"
+                      else PR.cv_resize(bayer, op, 4))
+                for sub, want in (("hr_frames", PR._to_u8(hr_rgb)),
+                                  ("lr_frames", PR._to_u8(lr))):
+                    check(np.array_equal(png.imread(os.path.join(
+                        dataset, sub, scene, "frame_00001.png")), want),
+                          f"prepare -p {op}: {sub}/frame_00001.png")
+            dataset = os.path.join(root, "prep")
+            sr = ["--dataset", dataset, "-s", "clip_binning_4x", "-w",
+                  os.path.join(root, "exp")]
+            K.reset_launch_counts()
+            _cli(["sr", "train", *sr, "-e", "1", "-p", "1"],
+                 "sr train on the prepared dataset", walls)
+            run = K.launch_counts()
+            steps, evals = 2, 1
+            want = {k: steps * v + evals * ref["sr_eval"].get(k, 0)
+                    for k, v in ref["sr_step"].items()}
+            check_counts(run, "sr train on the prepared dataset (2 steps, "
+                              "an eval)", **want)
+            add_counts(sr_counts, run)
+
+            # the scene-space operations on a scene of committed JPEGs
+            jpegs = []
+            for i in range(8):
+                with open(os.path.join(fixtures, f"scene_{i:02d}.jpg"),
+                          "rb") as f:
+                    jpegs.append(f.read())
+            imgs, depths, poses, bds = synth_scene(8, 480, 640)
+            jscene = os.path.join(root, "jscene")
+            write_scene_dir(jscene, imgs, depths, poses, bds, jpegs=jpegs)
+            write_sparse_model(os.path.join(jscene, "sparse", "0"),
+                               [f"im_{i:04d}.jpg" for i in range(8)], 480,
+                               640)
+            stats["jpeg_read_ms_480x640"] = _host_ms(
+                lambda: jpeg.imread(os.path.join(jscene, "images",
+                                                 "im_0000.jpg")), 20)
+            printed = {}
+            for op in ("read_matrices", "depth_information", "reproject",
+                       "gather"):
+                _reset_all_counts()
+                printed[op] = _cli(["scene-space", op, "--scene-dir", jscene,
+                                    "--out", "jscene_out", "--frame", "1"],
+                                   f"scene-space {op} (JPEG)", walls)
+                check_counts(_all_counts(), f"scene-space {op} (no port "
+                                            "kernel)")
+            cposes = PU.load_colmap_data(jscene)[0]
+            K_, _, _, w2c = PU.get_camera_matrices(cposes.transpose(2, 0, 1))
+            check(np.array_equal(np.load(os.path.join(
+                "jscene_out", "intrinsics.npy")), K_)
+                  and np.array_equal(np.load(os.path.join(
+                      "jscene_out", "extrinsics.npy")), w2c),
+                  "scene-space read_matrices: the matrices differ")
+            poses_, bds_, imgs_, depths_ = PU.load_data(jscene)
+            check(np.array_equal(imgs_[1], (decoded["scene_01"] / 255.0)
+                                 .astype(np.float32)),
+                  "load_data: the JPEG images differ from decoded.npz")
+            check(f"{depths_.shape}" in printed["depth_information"],
+                  "scene-space depth_information: " +
+                  printed["depth_information"].strip())
+            rep = SC._reproject(poses_, bds_, imgs_, depths_, 1)
+            check(np.array_equal(png.imread(os.path.join(
+                "jscene_out", "reproject_001.png")),
+                (np.clip(rep, 0, 1) * 255).astype(np.uint8)),
+                  "scene-space reproject: the PNG differs from the core's")
+            g = SG.gather_scene(torch.as_tensor(imgs_, device=dev),
+                                torch.as_tensor(depths_, device=dev), poses_,
+                                bds_, patch=3, ref_frame=1, window="auto")
+            check(np.array_equal(png.imread(os.path.join(
+                "jscene_out", "gather_001.png")),
+                (np.clip(g.cpu().numpy(), 0, 1) * 255).astype(np.uint8)),
+                  "scene-space gather: the PNG differs from the core's frame")
+            routes = codec.route_counts()
+            check(routes["numpy"] == 0 and routes["native"] > 0,
+                  f"codec routes {routes}: the C++ route did not take every "
+                  "call")
+
+            # the resizes of these paths, ms a frame on the host
+            u8 = frames8[0]
+            fl = np.ascontiguousarray(fflows[0])
+            hr64 = PR._normalize(prep[0])
+            plane = np.ascontiguousarray(PR.extract_bayer(hr64)[0][::2, ::2])
+            stats["resize_ms"] = {
+                "area 436x1024x3 uint8 -> 218x512": _host_ms(
+                    lambda: resize(u8, (512, 218), mode="area"), 10),
+                "area 436x1024x3 uint8 -> 200x470": _host_ms(
+                    lambda: resize(u8, (470, 200), mode="area"), 10),
+                "area 436x1024x2 float32 -> 218x512": _host_ms(
+                    lambda: resize(fl, (512, 218), mode="area"), 10),
+                "lanczos4 352x640x3 float64 x0.5": _host_ms(
+                    lambda: resize(hr64, fx=0.5, fy=0.5, mode="lanczos4"),
+                    10),
+                "cubic 176x320 float64 plane x0.25 (4 a frame)": _host_ms(
+                    lambda: resize(plane, fx=0.25, fy=0.25, mode="cubic"),
+                    10),
+            }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stats["walls"] = walls
+    print("[inputs] resize ms a frame (host, C++): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stats["resize_ms"].items())
+          + f"; on {card} ({smi_line})")
+    print(f"[inputs] JPEG read 480x640 4:2:0 "
+          f"{stats['jpeg_read_ms_480x640']:.2f} ms, GIF read 436x1024 "
+          f"{stats['gif_read_ms_436x1024']:.2f} ms a frame (host, C++); on "
+          f"{card} ({smi_line})")
+    print("[inputs] wall s: " + ", ".join(f"{k} {v:.2f}"
+                                          for k, v in walls.items())
+          + f"; on {card} ({smi_line})")
+    return sr_counts, flow_counts, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4916,6 +5273,9 @@ def main() -> int:
         cmd_sr_counts, cmd_flow_counts, _ = phase_commands(
             dev, card, smi_line, {"sr_run": train["run_counts"],
                                   "flow_step": ft["step_counts"]})
+        in_sr_counts, in_flow_counts, _ = phase_inputs(
+            dev, card, smi_line, {"sr_step": train["step_counts"],
+                                  "sr_eval": train["eval_counts"]})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4926,6 +5286,7 @@ def main() -> int:
     add_counts(counts, dist_counts)
     add_counts(counts, conv_sr_counts)
     add_counts(counts, cmd_sr_counts)
+    add_counts(counts, in_sr_counts)
     flow_counts = dict(flow["counts"])
     add_counts(flow_counts, dist_flow_counts)
     add_counts(flow_counts, ft_counts)
@@ -4934,6 +5295,7 @@ def main() -> int:
     add_counts(flow_counts, pgt_counts)
     add_counts(flow_counts, conv_flow_counts)
     add_counts(flow_counts, cmd_flow_counts)
+    add_counts(flow_counts, in_flow_counts)
     kernels = []
     for n in COUPLING:
         # K1/K2: the eval/infer shapes (batch 40), as before, with the

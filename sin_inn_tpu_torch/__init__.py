@@ -30,9 +30,11 @@ does everything the JAX package does:
   (``train/tuner.py``), the profiler (``core/profiler.py``) and the native
   batch loader (``data/native.py``);
 - data preparation and the ``prepare`` command (``data/prepare.py``);
-- PNG frames read and written, and GIFs written, by its own codecs
-  (``io/png.py``, ``io/gif.py``, host loops in ``io/codec.cpp``), so the
-  commands need no imageio; JPEG, video files and resizes still do;
+- PNG frames read and written, GIFs read and written, JPEG scene images
+  read and frames resized by its own code (``io/png.py``, ``io/gif.py``,
+  ``io/jpeg.py``, ``io/resize.py``, host loops in ``io/codec.cpp``), so
+  the commands need no imageio or cv2; only a video file that is not a GIF
+  still needs imageio (and its ffmpeg);
 - data and tensor parallelism over ``torch.distributed``, one process per
   GPU (``parallel/mesh.py``, ``parallel/sharding.py``, the mesh flags of
   ``sr train`` and ``flow train``), and the multi-scene launcher

@@ -8,8 +8,9 @@ frames resized to a target short side, Sintel ``.flo`` GT found under
 ``--flow-producer`` (``generate_pseudo_gt``, ``FLOW_PRODUCERS``,
 ``resolve_producer``, ``attach_pseudo_gt``), whose ``raft:`` scheme runs the
 port's RAFT (``models/raft.py``) on the device the caller names. PNG frames
-are read and written by the port's codec (``io/png.py``); ``imageio`` is
-imported only to decode a video file and ``cv2`` only to resize.
+and GIF clips are read by the port's codecs (``io/png.py``, ``io/gif.py``)
+and resized by ``io/resize.py``; ``imageio`` is imported only to decode a
+video file that is not a GIF.
 """
 
 from __future__ import annotations
@@ -21,21 +22,20 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from sin_inn_tpu_torch.data.flo import read_flo
-from sin_inn_tpu_torch.io import png
+from sin_inn_tpu_torch.io import gif, png
+from sin_inn_tpu_torch.io.resize import resize
 
 
 def _resize_frames(frames: np.ndarray, size: int) -> np.ndarray:
-    """Resize (N, H, W, C) so the short (height) side == size."""
+    """Resize (N, H, W, C) so the short (height) side == size: ``area``
+    to shrink, ``linear`` to enlarge (``io/resize.py``, cv2's arrays)."""
     n, h, w, c = frames.shape
     if h == size:
         return frames
-    import cv2
-
     scale = size / h
     new_w = int(round(w * scale))
-    out = np.stack([cv2.resize(f, (new_w, size), interpolation=cv2.INTER_AREA
-                               if scale < 1 else cv2.INTER_LINEAR)
-                    for f in frames])
+    mode = "area" if scale < 1 else "linear"
+    out = np.stack([resize(f, (new_w, size), mode=mode) for f in frames])
     return out.reshape(n, size, new_w, c)
 
 
@@ -110,10 +110,21 @@ def load_video_clip(video_path: str, end: Optional[int] = None,
                     step: int = 10, size: int = 200,
                     flow_dir: Optional[str] = None) -> FlowMedia:
     """Frames of a video file, every ``step``-th up to ``end``, with
-    precomputed flow from ``flow_dir`` when given."""
-    import imageio.v2 as io
-
-    frames = np.stack(io.mimread(video_path, memtest=False)[:end:step or 1])
+    precomputed flow from ``flow_dir`` when given. A GIF is read by the
+    port's codec (``io/gif.py``); another container needs imageio (and its
+    ffmpeg)."""
+    if video_path.lower().endswith(".gif"):
+        clip = gif.mimread(video_path)
+    else:
+        try:
+            import imageio.v2 as io
+        except ImportError as e:
+            raise ImportError(
+                f"{video_path}: reading a video that is not a GIF needs the "
+                f"imageio package and its ffmpeg plugin, which are not "
+                f"installed; a GIF or a frame directory needs neither") from e
+        clip = io.mimread(video_path, memtest=False)
+    frames = np.stack(clip[:end:step or 1])
     video = _resize_frames(frames, size).astype(np.float32) / 255.0
     flow = None
     if flow_dir and path.isdir(flow_dir):

@@ -1,13 +1,15 @@
 """Offline dataset preparation: bayer extraction, binning, demosaic
-(host-side numpy / cv2 / scipy).
+(host-side numpy / scipy and the port's codecs).
 
 Counterpart of ``sin_inn_tpu/data/prepare.py``, function for function:
 a video -> per-frame HR RGB PNGs, 4-channel RGGB LR PNGs (bayer binning or
-a cv2 resize of each bayer plane), their bilinear demosaiced previews and,
+a resize of each bayer plane), their bilinear demosaiced previews and,
 with ``noise``, noisy HR frames, under the same file names
-(``frame_00001.png`` ...). No step runs on the card. The video is decoded by
-``imageio`` and the PNGs are written by the port's codec (``io/png.py``).
-The preview videos are encoded with ffmpeg only where it is installed.
+(``frame_00001.png`` ...). No step runs on the card. A GIF is decoded by
+``io/gif.py`` (another container by ``imageio``), the resizes are
+``io/resize.py``'s (the JAX package's cv2 calls, array for array) and the
+PNGs are written by ``io/png.py``. The preview videos are encoded with
+ffmpeg only where it is installed.
 """
 
 from __future__ import annotations
@@ -20,16 +22,16 @@ from typing import Optional, Tuple
 import numpy as np
 
 from sin_inn_tpu_torch.core.config import PrepareConfig
-from sin_inn_tpu_torch.io import png
+from sin_inn_tpu_torch.io import gif, png
+from sin_inn_tpu_torch.io.resize import resize
 
 
 def extract_bayer(frame: np.ndarray, scale: float = 1.0
                   ) -> Tuple[np.ndarray, np.ndarray]:
     """RGB frame -> (RGGB bayer mosaic, resized RGB)."""
     if scale != 1.0:
-        import cv2
-        frame = cv2.resize(frame, (0, 0), fx=1.0 / scale, fy=1.0 / scale,
-                           interpolation=cv2.INTER_LANCZOS4)
+        frame = resize(frame, fx=1.0 / scale, fy=1.0 / scale,
+                       mode="lanczos4")
     bayer = np.empty(frame.shape[:2], frame.dtype)
     bayer[::2, ::2] = frame[::2, ::2, 0]      # R
     bayer[::2, 1::2] = frame[::2, 1::2, 1]    # G1
@@ -54,16 +56,16 @@ def binning(img: np.ndarray, reduction: str, scale: int) -> np.ndarray:
     return red(red(blk, 1), -2)
 
 
-def cv_resize(bayer: np.ndarray, flag: int, scale: int) -> np.ndarray:
-    """Per-plane cv2 resize of the bayer mosaic."""
-    import cv2
+def cv_resize(bayer: np.ndarray, operator: str, scale: int) -> np.ndarray:
+    """Per-plane resize of the bayer mosaic with ``operator`` (one of
+    ``io/resize.py``'s modes; the JAX package's cv2 ``INTER_<OPERATOR>``)."""
     h, w = bayer.shape[:2]
     out = np.empty((h // scale // 2, w // scale // 2, 4))
     planes = (bayer[::2, ::2], bayer[::2, 1::2],
               bayer[1::2, ::2], bayer[1::2, 1::2])
     for i, p in enumerate(planes):
-        out[..., i] = cv2.resize(p, (0, 0), fx=1.0 / scale, fy=1.0 / scale,
-                                 interpolation=flag)
+        out[..., i] = resize(p, fx=1.0 / scale, fy=1.0 / scale,
+                             mode=operator)
     return out
 
 
@@ -132,9 +134,17 @@ def prepare_video(cfg: PrepareConfig, dataset: Optional[str] = None,
     if cfg.bayer:
         raise NotImplementedError("bayer input videos are not supported")
 
-    import imageio.v2 as io
-
-    reader = io.get_reader(cfg.video)
+    if cfg.video.lower().endswith(".gif"):
+        reader = gif.iter_frames(cfg.video)
+    else:
+        try:
+            import imageio.v2 as io
+        except ImportError as e:
+            raise ImportError(
+                f"{cfg.video}: reading a video that is not a GIF needs the "
+                f"imageio package and its ffmpeg plugin, which are not "
+                f"installed; a GIF needs neither") from e
+        reader = io.get_reader(cfg.video)
     for i, frame in enumerate(reader):
         frame = _normalize(np.asarray(frame))
         bayer, hr = extract_bayer(frame, cfg.downsampling)
@@ -155,9 +165,7 @@ def prepare_video(cfg: PrepareConfig, dataset: Optional[str] = None,
         if cfg.operator == "binning":
             lr = binning(bayer, cfg.reduction, cfg.scale)
         else:
-            import cv2
-            flag = getattr(cv2, f"INTER_{cfg.operator.upper()}")
-            lr = cv_resize(bayer, flag, cfg.scale)
+            lr = cv_resize(bayer, cfg.operator, cfg.scale)
         lr_rgb = pack_demosaic(lr)
 
         png.imwrite(os.path.join(dataset, "lr_frames", scene,

@@ -6,13 +6,16 @@ offline preparation, so (HR, LR) pairs are physically consistent; the
 analytic-GT flow sequences (shift, rotation, zoom, a moving occluder) that
 ``tools/validate_torch.py`` trains on; and ``synth_scene``, the dense
 multi-view scene of the scene-space gather. ``write_sr_dataset``,
-``write_flow_scene`` and ``write_scene_dir`` lay such data out on disk as
-the commands read it, PNGs through the port's codec.
+``write_flow_scene``, ``write_scene_dir`` and ``write_sparse_model`` lay
+such data out on disk as the commands read it, PNGs through the port's
+codec.
 """
 
 from __future__ import annotations
 
 import os
+import struct
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -264,21 +267,66 @@ def write_flow_scene(root: str, scene: str, frames: np.ndarray,
 
 
 def write_scene_dir(d: str, imgs: np.ndarray, depths: np.ndarray,
-                    poses: np.ndarray, bds: np.ndarray) -> None:
+                    poses: np.ndarray, bds: np.ndarray,
+                    jpegs: Optional[Sequence[bytes]] = None) -> None:
     """A dense COLMAP scene directory as ``scene-space`` reads it:
     ``poses_bounds.npy``, ``images/im_%04d.png`` and their geometric depth
     maps ``stereo/depth_maps/im_%04d.png.geometric.bin``; the arrays are
-    :func:`synth_scene`'s."""
+    :func:`synth_scene`'s. With ``jpegs`` (one file's bytes a frame) the
+    images are those files, ``images/im_%04d.jpg``, in place of ``imgs``."""
     n, h, w = depths.shape
     os.makedirs(os.path.join(d, "images"), exist_ok=True)
     os.makedirs(os.path.join(d, "stereo", "depth_maps"), exist_ok=True)
     np.save(os.path.join(d, "poses_bounds.npy"),
             np.concatenate([poses.reshape(n, -1), bds], axis=1))
     for i in range(n):
-        name = f"im_{i:04d}.png"
-        png.imwrite(os.path.join(d, "images", name),
-                    (np.clip(imgs[i], 0, 1) * 255).astype(np.uint8))
+        if jpegs is not None:
+            name = f"im_{i:04d}.jpg"
+            with open(os.path.join(d, "images", name), "wb") as f:
+                f.write(jpegs[i])
+        else:
+            name = f"im_{i:04d}.png"
+            png.imwrite(os.path.join(d, "images", name),
+                        (np.clip(imgs[i], 0, 1) * 255).astype(np.uint8))
         with open(os.path.join(d, "stereo", "depth_maps",
                                name + ".geometric.bin"), "wb") as f:
             f.write(f"{w}&{h}&1&".encode())
             depths[i].astype(np.float32).tofile(f)
+
+
+def write_sparse_model(d: str, names: Sequence[str], h: int, w: int,
+                       seed: int = 3) -> None:
+    """A COLMAP binary sparse model (``cameras.bin``, ``images.bin``,
+    ``points3D.bin``) under ``d``, as ``scene-space read_matrices`` reads
+    it: one SIMPLE_RADIAL camera of ``w`` x ``h``, an image a name of
+    ``names`` (listed in reverse) with a seeded pose and two keypoints, and
+    4 points."""
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    n = len(names)
+    with open(os.path.join(d, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 2, w, h))
+        f.write(struct.pack("<dddd", 20.0, w / 2 + 0.5, h / 2 - 0.25, 0.01))
+    with open(os.path.join(d, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", n))
+        for i in range(n):
+            q = rng.randn(4)
+            q = q / np.linalg.norm(q)
+            f.write(struct.pack("<i", i + 1))
+            f.write(struct.pack("<dddd", *q))
+            f.write(struct.pack("<ddd", *rng.randn(3)))
+            f.write(struct.pack("<i", 1))
+            f.write(names[n - 1 - i].encode() + b"\x00")
+            f.write(struct.pack("<Q", 2))
+            f.write(struct.pack("<ddq", 1.5, 2.5, 1))
+            f.write(struct.pack("<ddq", 3.0, 4.0, -1))
+    with open(os.path.join(d, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 4))
+        for p in range(4):
+            f.write(struct.pack("<Q", p + 1))
+            f.write(struct.pack("<ddd", *(rng.randn(3) * 0.3 + [0, 0, 4])))
+            f.write(struct.pack("<BBB", 10, 20, 30))
+            f.write(struct.pack("<d", 0.5))
+            f.write(struct.pack("<Q", 2))
+            f.write(struct.pack("<iiii", 1, 0, 2, 1))

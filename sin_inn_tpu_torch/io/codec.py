@@ -1,10 +1,12 @@
 """The host loops of the port's image codecs, native or numpy.
 
-``io/codec.cpp`` holds the PNG row unfilter and the GIF LZW encoder. It is
-built on first use with ``g++`` into ``sin_inn_tpu_torch/build`` (listed in
-``.gitignore``) under a name that carries a hash of the source and the
-flags, as ``data/native.py`` builds the batch loader, and is called through
-ctypes. Where ``g++`` is absent the numpy / Python routes below run instead;
+``io/codec.cpp`` holds the PNG row unfilter, the GIF LZW encoder and
+decoder, the passes of ``io/resize.py`` and the JPEG decoder of
+``io/jpeg.py``. It is built on first use with ``g++`` into
+``sin_inn_tpu_torch/build`` (listed in ``.gitignore``) under a name that
+carries a hash of the source and the flags, as ``data/native.py`` builds the
+batch loader (with ``-ffp-contract=off``, so that no multiply-add is fused
+and the float resizes round as OpenCV's do), and is called through ctypes. Where ``g++`` is absent the numpy / Python routes below run instead;
 :func:`route_counts` tells which route each call took. A compiler that is
 present but fails on the source raises. This is host code, not a kernel.
 """
@@ -22,6 +24,8 @@ import numpy as np
 from sin_inn_tpu_torch.data import native
 
 SOURCE = Path(__file__).resolve().with_name("codec.cpp")
+FLAGS = native.CXX_FLAGS + ("-ffp-contract=off",)
+LIBS = ("-lpthread",)
 
 # calls taken by each route since the last reset
 _ROUTES = {"native": 0, "numpy": 0}
@@ -49,16 +53,65 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(native.build_library(SOURCE, "libsininn_codec",
-                                                   cxx)))
+        lib = ctypes.CDLL(str(native.build_library(
+            SOURCE, "libsininn_codec", cxx, FLAGS, LIBS)))
         i64 = ctypes.c_int64
         u8p = ctypes.POINTER(ctypes.c_uint8)
+        vp = ctypes.c_void_p
         lib.png_unfilter.argtypes = [u8p, i64, i64, i64, u8p]
         lib.png_unfilter.restype = i64
         lib.gif_lzw.argtypes = [u8p, i64, i64, u8p, i64]
         lib.gif_lzw.restype = i64
+        for name in ("resize_sep_f32", "resize_sep_f64"):
+            getattr(lib, name).argtypes = [vp, i64, i64, i64, vp, i64, i64,
+                                           vp, vp, vp, vp, i64, i64]
+            getattr(lib, name).restype = None
+        lib.resize_sep_u8.argtypes = [vp, i64, i64, i64, vp, i64, i64, vp,
+                                      vp, vp, vp, i64, i64, i64]
+        lib.resize_sep_u8.restype = None
+        lib.gif_unlzw.argtypes = [vp, i64, i64, vp, i64]
+        lib.gif_unlzw.restype = i64
+        for name in ("resize_lerp_f32", "resize_lerp_f64"):
+            getattr(lib, name).argtypes = [vp, i64, i64, i64, vp, i64, i64,
+                                           vp, vp, vp, vp, vp, vp]
+            getattr(lib, name).restype = None
+        lib.jpeg_scan.argtypes = [vp, i64, i64, i64, vp, vp, vp, i64, i64,
+                                  i64, i64, i64, i64, i64]
+        lib.jpeg_scan.restype = i64
+        lib.jpeg_idct.argtypes = [vp, vp, i64, i64, vp]
+        lib.jpeg_idct.restype = None
+        lib.jpeg_upsample.argtypes = [vp, i64, i64, i64, i64, i64, vp, i64,
+                                      i64]
+        lib.jpeg_upsample.restype = None
+        lib.jpeg_ycc_rgb.argtypes = [vp, vp, vp, i64, vp]
+        lib.jpeg_ycc_rgb.restype = None
+        for t in ("u8", "f32", "f64"):
+            fast = getattr(lib, f"resize_area_fast_{t}")
+            fast.argtypes = [vp, i64, i64, i64, vp, i64, i64, i64, i64]
+            fast.restype = None
+            gen = getattr(lib, f"resize_area_{t}")
+            gen.argtypes = [vp, i64, i64, i64, vp, i64, i64, vp, vp, vp, i64,
+                            vp, vp, vp, i64]
+            gen.restype = None
         _lib = lib
     return _lib
+
+
+def loaded() -> Optional[ctypes.CDLL]:
+    """The native library, built on first use, or None without ``g++``.
+    The caller counts the route it takes with :func:`count`."""
+    return _load()
+
+
+def count(route: str) -> None:
+    _ROUTES[route] += 1
+
+
+def ptr(a: np.ndarray) -> int:
+    """The address of a C-contiguous array's first element."""
+    if not a.flags.c_contiguous:
+        raise ValueError("native codec buffers must be C-contiguous")
+    return a.ctypes.data
 
 
 def available() -> bool:
@@ -190,3 +243,67 @@ def _lzw_python(idx, min_code: int) -> bytes:
     if bits:
         out.append(acc & 0xff)
     return bytes(out)
+
+
+def unlzw(data: bytes, min_code: int, npix: int) -> np.ndarray:
+    """The GIF LZW code stream ``data`` (sub-blocks joined) -> up to
+    ``npix`` uint8 palette indices: fewer where the stream ends early."""
+    if not 1 <= min_code <= 11:
+        raise ValueError(f"GIF minimum code size {min_code} is not in 1-11")
+    out = np.zeros(npix, np.uint8)
+    lib = _load()
+    if lib is None:
+        _ROUTES["numpy"] += 1
+        got = _unlzw_python(data, min_code, out)
+    else:
+        _ROUTES["native"] += 1
+        src = np.frombuffer(data, np.uint8)
+        got = lib.gif_unlzw(src.ctypes.data if src.size else None, src.size,
+                            min_code, out.ctypes.data, npix)
+    return out[:got]
+
+
+def _unlzw_python(data: bytes, min_code: int, out: np.ndarray) -> int:
+    clear, eoi = 1 << min_code, (1 << min_code) + 1
+    table = [bytes([i]) for i in range(clear)] + [b"", b""]
+    width, prev = min_code + 1, None
+    acc = bits = pos = 0
+    res = bytearray()
+    npix = len(out)
+    while len(res) < npix:
+        while bits < width and pos < len(data):
+            acc |= data[pos] << bits
+            bits += 8
+            pos += 1
+        if bits < width:
+            break
+        code = acc & ((1 << width) - 1)
+        acc >>= width
+        bits -= width
+        if code == clear:
+            table = table[:eoi + 1]
+            width, prev = min_code + 1, None
+            continue
+        if code == eoi:
+            break
+        if prev is None:
+            if code >= clear:
+                break
+            res += table[code]
+            prev = table[code]
+            continue
+        if code < len(table):
+            cur = table[code]
+        elif code == len(table):
+            cur = prev + prev[:1]
+        else:
+            break
+        res += cur
+        if len(table) < 4096:
+            table.append(prev + cur[:1])
+            if len(table) == 1 << width and width < 12:
+                width += 1
+        prev = cur
+    n = min(len(res), npix)
+    out[:n] = np.frombuffer(bytes(res[:n]), np.uint8)
+    return n

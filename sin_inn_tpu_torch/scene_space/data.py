@@ -4,8 +4,8 @@ A copy of ``sin_inn_tpu/scene_space/data.py``: ``ImagesData`` reads one
 frame's image and depth map a ``__getitem__``, for scenes too large to load
 at once (``pose_utils.load_data`` is the eager path the CLI takes). Poses and
 bounds are read once; images and depth maps on demand, as numpy arrays on
-the host. PNG images go through the port's codec (``io/png.py``); JPEG ones
-through ``imageio``, imported only for them (:func:`read_image`).
+the host. PNG and JPEG images go through the port's codecs (``io/png.py``,
+``io/jpeg.py``; :func:`read_image`).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from sin_inn_tpu_torch.io import png
+from sin_inn_tpu_torch.io import jpeg, png
 from sin_inn_tpu_torch.scene_space.colmap import pair_depth_maps, read_depth_bin
 from sin_inn_tpu_torch.scene_space.gather import unpack_matrices
 
@@ -23,16 +23,11 @@ _IMG_EXT = (".png", ".jpg", ".jpeg")
 
 
 def read_image(p: str) -> np.ndarray:
-    """A scene image as ``imageio.v2.imread`` returns it: PNG through the
-    port's codec, JPEG through imageio, which it then needs."""
-    if p.lower().endswith(".png"):
-        return png.imread(p)
-    try:
-        import imageio.v2 as io
-    except ImportError as e:
-        raise ImportError(f"{p}: JPEG images need the imageio package, "
-                          f"which is not installed; PNG needs none") from e
-    return io.imread(p)
+    """A scene image as ``imageio.v2.imread`` returns it: PNG and JPEG
+    through the port's codecs (``io/png.py``, ``io/jpeg.py``)."""
+    if p.lower().endswith((".jpg", ".jpeg")):
+        return jpeg.imread(p)
+    return png.imread(p)
 
 
 class ImagesData:

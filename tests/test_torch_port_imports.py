@@ -83,16 +83,12 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok"' not in res.stdout
 
 
-# the only functions of the port that import imageio or cv2: video files,
-# JPEG images and the resizes (every PNG and GIF goes through io/png.py and
-# io/gif.py)
+# the only functions of the port that import imageio: video files that are
+# not GIFs (every PNG, GIF and JPEG goes through io/png.py, io/gif.py and
+# io/jpeg.py, every resize through io/resize.py; cv2 nowhere)
 MEDIA_IMPORTS = {
-    ("data/flow_media.py", "_resize_frames"): {"cv2"},
     ("data/flow_media.py", "load_video_clip"): {"imageio"},
-    ("data/prepare.py", "extract_bayer"): {"cv2"},
-    ("data/prepare.py", "cv_resize"): {"cv2"},
-    ("data/prepare.py", "prepare_video"): {"imageio", "cv2"},
-    ("scene_space/data.py", "read_image"): {"imageio"},
+    ("data/prepare.py", "prepare_video"): {"imageio"},
 }
 
 

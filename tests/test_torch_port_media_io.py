@@ -239,6 +239,15 @@ def test_native_codec_builds_in_the_ignored_build_dir():
     lib = Path(codec._load()._name)
     assert lib.parent == native.BUILD_DIR
     assert lib.name.startswith("libsininn_codec-") and lib.suffix == ".so"
+    # keyed by the source and its flags (no fused multiply-add), and
+    # nothing of it lands in native/ or beside the source
+    assert lib == native.library_path(codec.SOURCE, "libsininn_codec",
+                                      codec.FLAGS, codec.LIBS)
+    assert "-ffp-contract=off" in codec.FLAGS
+    assert not [p for p in native.SOURCE.parent.iterdir()
+                if "codec" in p.name]
+    assert [p.name for p in codec.SOURCE.parent.iterdir()
+            if p.suffix in (".so", ".o", ".tmp")] == []
     ignored = (native.BUILD_DIR.parents[1] / ".gitignore").read_text()
     assert "sin_inn_tpu_torch/build/" in ignored.splitlines()
 

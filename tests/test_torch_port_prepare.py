@@ -48,7 +48,7 @@ def test_cv_resize_matches_jax(operator):
 
     flag = getattr(cv2, f"INTER_{operator.upper()}")
     bayer = np.random.RandomState(0).rand(32, 48)
-    np.testing.assert_array_equal(TP.cv_resize(bayer, flag, 2),
+    np.testing.assert_array_equal(TP.cv_resize(bayer, operator, 2),
                                   JP.cv_resize(bayer, flag, 2))
 
 
