@@ -202,11 +202,13 @@ nothing of JAX or of the JAX package. Phases:
     out of it; ``find_lr`` over its five LRs x 8 steps at batch 8 (4 K1-K4
     launches a step; each LR's score and the pick printed); and
     ``run_sr_train`` with ``profile_steps=3`` (6 steps): its trace holds
-    exactly 3 x 4 events of each of K1-K4 by CUDA symbol.
+    exactly 3 x 4 events of each of K1-K4 by CUDA symbol, and the
+    program's spans nested in its 3 ``driver.sr_step`` spans.
 15. the flow exchange and the dataset entry points at Sintel size:
     ``run_flow_train`` with ``profile_steps=2`` on the RBF net and the
     default local windows (its trace holds 2 x each step's launches of K7
-    backward, K5 local, K6 local and K6 local grads, by CUDA symbol); the
+    backward, K5 local, K6 local and K6 local grads, by CUDA symbol, and
+    the program's spans nested in its 2 ``driver.flow_step`` spans); the
     RBF checkpoint through
     ``run_flow_export``, ``torch.load`` and a fresh net with
     ``import_torch``: a pair's flows bitwise equal; a PFF spatial
@@ -886,7 +888,6 @@ def _planted_faults(K, n: str, p, x, g, len1: int, reference, slack):
             edit(partials)
             return real(partials)
 
-        planted.launches = 0
         K.reduce_weight_grads = planted
         try:
             dp, dx = getattr(K, n)(p, x, g, CLAMP, len1)
@@ -3583,6 +3584,28 @@ def trace_kernel_counts(path: str, names):
             for n in names}, len(kernels)
 
 
+def trace_spans(path: str, step: str, n: int) -> dict:
+    """The program's spans in a Chrome trace (``core/profiler.py``'s):
+    exactly ``n`` ``step`` spans, every other span inside its parent and
+    under one of them. Returns the seconds under each span name."""
+    with open(path) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "program_span"]
+    by = {e["args"]["id"]: e for e in spans}
+    steps = sum(e["name"] == step for e in spans)
+    check(steps == n, f"trace {path}: {steps} {step} spans, want {n}")
+    out = {}
+    for e in spans:
+        p = by.get(e["args"]["parent"])
+        check(p is None or (p["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                            <= p["ts"] + p["dur"]),
+              f"trace {path}: {e['name']} outside its parent")
+        check(by.get(e["args"]["unit"], {}).get("name") == step,
+              f"trace {path}: {e['name']} under no {step}")
+        out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] * 1e-6
+    return out
+
+
 @contextlib.contextmanager
 def _recording(module, name: str, into: list):
     """Record what ``module.name`` returns while the block runs."""
@@ -3784,12 +3807,13 @@ def phase_sr_tooling(dev, card: str, smi_line: str, work: str):
     in_trace, n_kernels = trace_kernel_counts(trace, COUPLING)
     check(in_trace == {n: 3 * 4 for n in COUPLING},
           f"trace of 3 steps: {in_trace}, want 12 of each")
+    spans = trace_spans(trace, "driver.sr_step", 3)
     stats["profile"] = {"trace_bytes": os.path.getsize(trace),
                         "kernel_events": n_kernels, "counts": in_trace,
-                        "seconds": run_s}
+                        "seconds": run_s, "span_s": spans}
     print(f"[sr tools] run_sr_train --profile 3: {run_s:.1f} s; trace "
           f"{os.path.getsize(trace) / 2 ** 20:.1f} MiB, {n_kernels} kernel "
-          f"events, K1-K4 {in_trace}")
+          f"events, K1-K4 {in_trace}; spans (s) {spans}")
     return counts, stats
 
 
@@ -3837,11 +3861,14 @@ def phase_flow_exchange(dev, card: str, smi_line: str):
         in_trace, n_kernels = trace_kernel_counts(out["trace"], per_step)
         check(in_trace == {k: 2 * v for k, v in per_step.items()},
               f"trace of 2 steps: {in_trace}, want 2 x {per_step}")
+        spans = trace_spans(out["trace"], "driver.flow_step", 2)
         stats["profile"] = {"trace_bytes": os.path.getsize(out["trace"]),
-                            "kernel_events": n_kernels, "counts": in_trace}
+                            "kernel_events": n_kernels, "counts": in_trace,
+                            "span_s": spans}
         print(f"[flow exchange] flow train --profile 2: {run_s:.1f} s with "
               f"the trace; {n_kernels} kernel events, "
-              f"{os.path.getsize(out['trace']) / 2 ** 20:.1f} MiB; {in_trace}")
+              f"{os.path.getsize(out['trace']) / 2 ** 20:.1f} MiB; {in_trace};"
+              f" spans (s) {spans}")
 
         # the RBF round trip: export, torch.load, import; bitwise
         path_rbf = LP.run_flow_export(cfg.replace(input_video="x/rbf_scene"))

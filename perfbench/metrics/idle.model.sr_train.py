@@ -1,0 +1,10 @@
+"""idle.model.sr_train: the share of the span session's window, in %, in which
+the card was idle while the innermost span open on the main thread was
+``model.inn``: the INN's forward and inverse passes in the SR loss
+(``harness/spans.py``)."""
+
+from harness.spans import idle_share
+
+
+def read(run):
+    return idle_share(run, "model.inn")

@@ -27,8 +27,8 @@ does everything the JAX package does:
   ``--flow-producer`` (``data/flow_media.py``), and the scene-space
   multi-view gather with its ``scene-space`` command (``scene_space/``);
 - the tooling of both training commands: the auto-tuner
-  (``train/tuner.py``), the profiler (``core/profiler.py``) and the native
-  batch loader (``data/native.py``);
+  (``train/tuner.py``), the profiler with the program's spans and counters
+  (``core/profiler.py``) and the native batch loader (``data/native.py``);
 - data preparation and the ``prepare`` command (``data/prepare.py``);
 - PNG frames read and written, GIFs read and written, JPEG scene images
   read and frames resized by its own code (``io/png.py``, ``io/gif.py``,

@@ -84,8 +84,9 @@ def _sr_parser(sub):
     ap.add_argument("--wandb", action="store_true",
                     help="log metrics and sample frames to wandb too")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="write one torch.profiler trace of N train steps "
-                         "into <checkpoints>/trace")
+                    help="write one torch.profiler trace of N train steps, "
+                         "with the program's spans over its operators and "
+                         "kernels, into <checkpoints>/trace")
     ap.add_argument("--auto_lr", action="store_true",
                     help="LR range test before training (auto_lr_find)")
     ap.add_argument("--auto_batch", action="store_true",
@@ -241,8 +242,9 @@ def _flow_parser(sub):
                     help="log metrics and the flow / occlusion videos to "
                          "wandb too")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="write one torch.profiler trace of N train steps "
-                         "into <checkpoints>/<scene>/<name>/trace")
+                    help="write one torch.profiler trace of N train steps, "
+                         "with the program's spans over its operators and "
+                         "kernels, into <checkpoints>/<scene>/<name>/trace")
     ap.add_argument("--import-torch", default=None, metavar="CKPT",
                     help="seed weights, encoding buffers and the controller "
                          "mask from a reference torch/Lightning flow "

@@ -44,9 +44,9 @@ the differentiable ops (counterparts of ``make_fused_coupling_full`` and
 ``make_fused_coupling_full_inv``): K1 or K2 forward, K3 or K4 backward, with
 only the input and the weights saved.
 
-Each wrapper counts its launches in a plain integer attribute
-(``fused_glow_forward_1x1.launches`` and so on); :func:`launch_counts`
-reads them all.
+Each wrapper counts its launches in the profiler's counters
+(``launches.fused_glow_forward_1x1`` and so on, ``core/profiler.py``);
+:func:`launch_counts` reads them all.
 """
 
 from __future__ import annotations
@@ -58,6 +58,8 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from sin_inn_tpu_torch.core.profiler import (count, counters,
+                                             reset_counters)
 from sin_inn_tpu_torch.ops.coupling import glow_log_e
 from sin_inn_tpu_torch.ops.cuda import _build
 
@@ -472,8 +474,8 @@ def _launch_backward(params: Dict, x: torch.Tensor, g: torch.Tensor,
             *[t.data_ptr() for t in leaves], float(clamp),
             scratch.data_ptr(), partials.data_ptr(), chunks, stream)
         _raise_on(err, lib, "coupling_1x1_bwd")
-        (fused_glow_inverse_backward_1x1 if inverse
-         else fused_glow_backward_1x1).launches += 1
+        count("launches.fused_glow_inverse_backward_1x1" if inverse
+              else "launches.fused_glow_backward_1x1")
     grads = reduce_weight_grads(partials)
     len2 = c - len1
     sizes = [len2 * hidden, hidden, hidden * 2 * len1, 2 * len1,
@@ -525,7 +527,7 @@ def fused_glow_forward_1x1(params: Dict, x: torch.Tensor, clamp: float,
     if x.numel() == 0:
         return torch.empty_like(x)
     out = _launch(params, x, clamp, len1, inverse=False)
-    fused_glow_forward_1x1.launches += 1
+    count("launches.fused_glow_forward_1x1")
     return out
 
 
@@ -537,7 +539,7 @@ def fused_glow_inverse_1x1(params: Dict, y: torch.Tensor, clamp: float,
     if y.numel() == 0:
         return torch.empty_like(y)
     out = _launch(params, y, clamp, len1, inverse=True)
-    fused_glow_inverse_1x1.launches += 1
+    count("launches.fused_glow_inverse_1x1")
     return out
 
 
@@ -589,7 +591,7 @@ def reduce_weight_grads(partials: torch.Tensor) -> torch.Tensor:
             partials.data_ptr(), blocks, slot, out.data_ptr(),
             torch.cuda.current_stream(partials.device).cuda_stream)
     _raise_on(err, lib, "reduce_partials")
-    reduce_weight_grads.launches += 1
+    count("launches.reduce_weight_grads")
     return out
 
 
@@ -645,14 +647,12 @@ def fused_coupling(params: Dict, x: torch.Tensor, clamp: float, len1: int,
 KERNELS = (fused_glow_forward_1x1, fused_glow_inverse_1x1,
            fused_glow_backward_1x1, fused_glow_inverse_backward_1x1,
            reduce_weight_grads)
-for _k in KERNELS:
-    _k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    c = counters()
+    return {k.__name__: c.get(f"launches.{k.__name__}", 0) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    reset_counters(tuple(f"launches.{k.__name__}" for k in KERNELS))

@@ -35,7 +35,8 @@ raises a ValueError naming the limit. No entry point reaches this
 module: the INN keeps its 3x3 couplings on the convolution route, as the
 JAX package does (``models/inn.py``).
 
-Each wrapper counts its launches in a plain integer attribute;
+Each wrapper counts its launches in the profiler's counters
+(``launches.half_coupling_3x3`` and so on, ``core/profiler.py``);
 :func:`launch_counts` reads them.
 """
 
@@ -50,6 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from sin_inn_tpu_torch.core.profiler import (count, counters,
+                                             reset_counters)
 from sin_inn_tpu_torch.ops import coupling as C
 from sin_inn_tpu_torch.ops import subnet as S
 from sin_inn_tpu_torch.ops.coupling import glow_log_e
@@ -291,7 +294,7 @@ def half_coupling_3x3(sub_params: Dict, x_in: torch.Tensor,
             float(clamp), packed.data_ptr(),
             torch.cuda.current_stream(x_in.device).cuda_stream)
     _raise_on(err, lib, "coupling_3x3")
-    half_coupling_3x3.launches += 1
+    count("launches.half_coupling_3x3")
     return y
 
 
@@ -350,7 +353,7 @@ def half_coupling_3x3_backward(sub_params: Dict, x_in: torch.Tensor,
             float(clamp), packed.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "coupling_3x3_bwd")
-    half_coupling_3x3_backward.launches += 1
+    count("launches.half_coupling_3x3_backward")
     del h_buf, gz_buf, gr_buf, packed
     sums = K.reduce_weight_grads(partials)
     n1 = (9 * cin + 1) * hid
@@ -481,14 +484,12 @@ def make_fused_coupling3_banded(clamp: float, len1: int):
 
 
 KERNELS = (half_coupling_3x3, half_coupling_3x3_backward)
-for _k in KERNELS:
-    _k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    c = counters()
+    return {k.__name__: c.get(f"launches.{k.__name__}", 0) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    reset_counters(tuple(f"launches.{k.__name__}" for k in KERNELS))

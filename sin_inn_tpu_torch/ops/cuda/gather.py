@@ -41,9 +41,10 @@ along the effective displacement p - (x, y), with that displacement's own
 
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel
 or raises, a CPU tensor takes the plain version, in the forward and in the
-backward alike. ``gather_region.launches``, ``gather_region_grads.launches``,
-``gather_region_local.launches`` and ``gather_region_local_grads.launches``
-count kernel launches.
+backward alike. The profiler's counters ``launches.gather_region``,
+``launches.gather_region_grads``, ``launches.gather_region_local`` and
+``launches.gather_region_local_grads`` (``core/profiler.py``) count kernel
+launches; :func:`launch_counts` reads them.
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ from typing import Dict, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from sin_inn_tpu_torch.core.profiler import (count, counters,
+                                             reset_counters)
 from sin_inn_tpu_torch.ops.cuda import _build
 from sin_inn_tpu_torch.ops.warp import scale_shift
 
@@ -265,7 +268,7 @@ def _gather_forward(a: torch.Tensor, flow: torch.Tensor, max_dy: int,
     if a.numel() == 0:
         return torch.empty_like(a)
     out = _launch(a, flow, max_dy, max_dx, coord)
-    gather_region.launches += 1
+    count("launches.gather_region")
     return out
 
 
@@ -284,7 +287,7 @@ def gather_region_grads(a: torch.Tensor, flow: torch.Tensor,
         return (torch.empty_like(a), flow.new_zeros(flow.shape[:3]),
                 flow.new_zeros(flow.shape[:3]))
     out, dp = _launch(a, flow, max_dy, max_dx, coord, payload)
-    gather_region_grads.launches += 1
+    count("launches.gather_region_grads")
     return out, dp[..., 0], dp[..., 1]
 
 
@@ -353,7 +356,7 @@ def _gather_local_forward(a: torch.Tensor, flow: torch.Tensor,
     if a.numel() == 0:
         return torch.empty_like(a)
     out = _launch(a, flow, loc_dy, loc_dx, coord, off_src=off_src)
-    gather_region_local.launches += 1
+    count("launches.gather_region_local")
     return out
 
 
@@ -371,7 +374,7 @@ def gather_region_local_grads(a: torch.Tensor, flow: torch.Tensor,
         return (torch.empty_like(a), flow.new_zeros(flow.shape[:3]),
                 flow.new_zeros(flow.shape[:3]))
     out, dp = _launch(a, flow, loc_dy, loc_dx, coord, payload, off_src)
-    gather_region_local_grads.launches += 1
+    count("launches.gather_region_local_grads")
     return out, dp[..., 0], dp[..., 1]
 
 
@@ -450,14 +453,12 @@ def resample2d_region_local(img: torch.Tensor, flow: torch.Tensor,
 
 KERNELS = (gather_region, gather_region_grads, gather_region_local,
            gather_region_local_grads)
-for _k in KERNELS:
-    _k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    c = counters()
+    return {k.__name__: c.get(f"launches.{k.__name__}", 0) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    reset_counters(tuple(f"launches.{k.__name__}" for k in KERNELS))

@@ -61,8 +61,10 @@ a launch (``scratch_bytes``: 385 MB at the flow path's shape); the forward
 needs none.
 
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel
-or raises, a CPU tensor takes the plain version. ``fused_inr_forward.launches``
-and ``fused_inr_backward.launches`` count kernel launches.
+or raises, a CPU tensor takes the plain version. The profiler's counters
+``launches.fused_inr_forward`` and ``launches.fused_inr_backward``
+(``core/profiler.py``) count kernel launches; :func:`launch_counts` reads
+them.
 """
 
 from __future__ import annotations
@@ -74,6 +76,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 from torch.autograd.function import once_differentiable
 
+from sin_inn_tpu_torch.core.profiler import (count, counters,
+                                             reset_counters)
 from sin_inn_tpu_torch.ops.cuda import _build
 from sin_inn_tpu_torch.ops.cuda.coupling import reduce_weight_grads
 from sin_inn_tpu_torch.ops.encodings import ff_apply, rbf_apply
@@ -507,7 +511,7 @@ def _launch_backward(kind: str, enc: Dict, net: _Net, layers: Layers,
                                  scratch.data_ptr(), partials.data_ptr(),
                                  slots, stream)
         _raise_on(err, lib, "inr_bwd")
-        fused_inr_backward.launches += 1
+        count("launches.fused_inr_backward")
     flat = reduce_weight_grads(partials)
     grads, at = [], 0
     for w, b in zip(call.ws, call.bs):
@@ -530,7 +534,7 @@ def _launch_forward(kind: str, enc: Dict, net: _Net, layers: Layers,
         err = lib.sininn_inr_fwd(*call.shape, *call.operands,
                                  out.data_ptr(), stream)
         _raise_on(err, lib, "inr_fwd")
-        fused_inr_forward.launches += 1
+        count("launches.fused_inr_forward")
     return out
 
 
@@ -623,14 +627,12 @@ def fused_inr(kind: str, enc: Dict, layers: Layers, x: torch.Tensor,
 
 
 KERNELS = (fused_inr_forward, fused_inr_backward)
-fused_inr_forward.launches = 0
-fused_inr_backward.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    c = counters()
+    return {k.__name__: c.get(f"launches.{k.__name__}", 0) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    reset_counters(tuple(f"launches.{k.__name__}" for k in KERNELS))

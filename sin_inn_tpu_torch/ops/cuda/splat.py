@@ -55,8 +55,9 @@ of K6 local in gradient mode with ``off_src`` and raw coordinates.
 
 Routing is by the tensor's device alone: a CUDA tensor launches the kernel
 or raises, a CPU tensor takes the plain versions, in the forward and in the
-backward alike. ``splat_region.launches`` and ``splat_region_local.launches``
-count K5 and K5 local launches.
+backward alike. The profiler's counters ``launches.splat_region`` and
+``launches.splat_region_local`` (``core/profiler.py``) count K5 and K5
+local launches; :func:`launch_counts` reads them.
 """
 
 from __future__ import annotations
@@ -68,6 +69,8 @@ from typing import Dict, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from sin_inn_tpu_torch.core.profiler import (count, counters,
+                                             reset_counters)
 from sin_inn_tpu_torch.ops.cuda import _build
 from sin_inn_tpu_torch.ops.cuda.gather import (RAW, aligned_offsets,
                                                check_offsets,
@@ -233,7 +236,7 @@ def splat_forward(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
     if values.numel() == 0:
         return torch.zeros_like(values)
     out = _launch(values, flow, max_dy, max_dx)
-    splat_region.launches += 1
+    count("launches.splat_region")
     return out
 
 
@@ -286,7 +289,7 @@ def splat_local_forward(values: torch.Tensor, flow: torch.Tensor,
     if values.numel() == 0:
         return torch.zeros_like(values)
     out = _launch(values, flow, loc_dy, loc_dx, off_out)
-    splat_region_local.launches += 1
+    count("launches.splat_region_local")
     return out
 
 
@@ -338,14 +341,12 @@ def softsplat_region_local_with_coverage(inp: torch.Tensor,
 
 
 KERNELS = (splat_region, splat_region_local)
-for _k in KERNELS:
-    _k.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    c = counters()
+    return {k.__name__: c.get(f"launches.{k.__name__}", 0) for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    reset_counters(tuple(f"launches.{k.__name__}" for k in KERNELS))

@@ -42,6 +42,7 @@ import torch
 
 from sin_inn_tpu_torch.core.config import FlowConfig
 from sin_inn_tpu_torch.core.device import resolve_device
+from sin_inn_tpu_torch.core.profiler import span
 from sin_inn_tpu_torch.models import controllers as ctrl
 from sin_inn_tpu_torch.models.inr import (INRSpec, build_inr, flat_leaves,
                                           fused_spatial_mask_format,
@@ -175,7 +176,8 @@ def flow_forward(spec: INRSpec, params, consts, times: torch.Tensor, h: int,
                                      ctrl_state, times, h, w, pts)
     if stash is not None:
         stash.update(kept)
-    out = inr_apply(spec, params, consts, pts, mask=mask)
+    with span("model.inr"):
+        out = inr_apply(spec, params, consts, pts, mask=mask)
     flows = out.reshape(times.shape[0], h, w, 4) * scale
     return flows[..., :2].contiguous(), flows[..., 2:].contiguous()
 
@@ -354,8 +356,9 @@ def flow_loss(spec: INRSpec, cfg: FlowConfig, params, consts, batch: Dict,
     stash: Dict = {}
     flow12, flow21 = flow_forward(spec, params, consts, batch["times"], h, w,
                                   batch["scale"], ctrl_cfg, ctrl_state, stash)
-    loss, aux = photometric_flow_loss(cfg, frame1, frame2, flow12, flow21,
-                                      group)
+    with span("flow_ops.photometric"):
+        loss, aux = photometric_flow_loss(cfg, frame1, frame2, flow12,
+                                          flow21, group)
     aux["stash"] = stash
     if "gt_flow" in batch:
         aux["epe"] = epe(flow12.detach(), batch["gt_flow"])
@@ -424,16 +427,19 @@ def make_flow_train_step(spec: INRSpec, cfg: FlowConfig, mesh=None):
 
     def step(state: FlowTrainState, consts, batch) -> Dict:
         group = data_group(mesh, batch)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = flow_loss(spec, cfg, state.params, consts, batch,
-                              state.ctrl_cfg, state.ctrl_state, group)
-        loss.backward()
-        sync_grads(mesh, state.optimizer.param_groups[0]["params"])
-        state.optimizer.step()
-        metrics = reduce_metrics(
-            mesh, {k: v for k, v in aux.items()
-                   if k not in ("stash", "point_loss")}, MONITOR_KEYS)
-        with torch.no_grad():
+        with span("step.loss"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, aux = flow_loss(spec, cfg, state.params, consts, batch,
+                                  state.ctrl_cfg, state.ctrl_state, group)
+        with span("step.backward"):
+            loss.backward()
+        with span("step.optimizer"):
+            sync_grads(mesh, state.optimizer.param_groups[0]["params"])
+            state.optimizer.step()
+        with span("step.controller"), torch.no_grad():
+            metrics = reduce_metrics(
+                mesh, {k: v for k, v in aux.items()
+                       if k not in ("stash", "point_loss")}, MONITOR_KEYS)
             state.ctrl_state = controller_step(
                 state.ctrl_cfg, state.ctrl_state,
                 dict(aux, loss=metrics["loss"]), batch, group)

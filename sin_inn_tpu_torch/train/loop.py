@@ -46,10 +46,11 @@ import torch
 from sin_inn_tpu_torch.core import rng as R
 from sin_inn_tpu_torch.core.checkpoint import CheckpointStore
 from sin_inn_tpu_torch.core.config import FlowConfig, SRConfig
-from sin_inn_tpu_torch.core.device import resolve_device
+from sin_inn_tpu_torch.core.device import (host_float, resolve_device,
+                                           to_card, to_host)
 from sin_inn_tpu_torch.core.metrics import MetricsWriter
 from sin_inn_tpu_torch.core.preempt import GracefulStop
-from sin_inn_tpu_torch.core.profiler import TraceWindow
+from sin_inn_tpu_torch.core.profiler import TraceWindow, span
 from sin_inn_tpu_torch.data import flow_media
 from sin_inn_tpu_torch.data.flo import write_flo
 from sin_inn_tpu_torch.data.flow_viz import flow_to_image
@@ -128,7 +129,7 @@ def _stop_any(stop, mesh: Optional[Mesh]) -> bool:
         torch.device("cuda", torch.cuda.current_device())
         if dist.get_backend() == "nccl" else "cpu"))
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
-    return bool(t.item())
+    return bool(host_float(t))
 
 
 class _NullWriter:
@@ -313,9 +314,11 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
         for epoch in range(start_epoch, cfg.epochs):
             for sup_batch in cached:
                 rows = batch_rows(sup_batch)
-                unsup_batch = (place(unsup.random_batch(rows))
-                               if use_tcr else None)
-                aux = step(state, sup_batch, unsup_batch, step_gen)
+                with span("driver.sr_step"):
+                    with span("data.batch"):
+                        unsup_batch = (place(unsup.random_batch(rows))
+                                       if use_tcr else None)
+                    aux = step(state, sup_batch, unsup_batch, step_gen)
                 tracer.tick()
                 frames_done += rows
 
@@ -339,10 +342,11 @@ def run_sr_train(cfg: SRConfig, video: Optional[SRVideo] = None,
                         state.params, val_cached[0]["lr"][:1],
                         R.step_fold(R.named_fold(dev_root, "media"), epoch))
                     writer.log_image(epoch, "media/sample_hr",
-                                     fr[0].cpu().numpy())
-                last_metrics = {k: float(v) for k, v in aux.items()}
+                                     to_host(fr[0]))
+                last_metrics = {k: host_float(v) for k, v in aux.items()}
                 last_metrics.update(
-                    {k: float(v) / max(vn, 1) for k, v in vm_acc.items()})
+                    {k: host_float(v) / max(vn, 1)
+                     for k, v in vm_acc.items()})
                 last_metrics["frames_per_sec"] = frames_done / max(
                     time.time() - t0, 1e-9)
                 writer.log(epoch, last_metrics)
@@ -380,7 +384,7 @@ def sr_test_frames(cfg: SRConfig, video: SRVideo, state,
     lr_batches = ({"lr": b["lr"]} for b in unsup.batches(cfg.val_batch_size))
     for i, batch in enumerate(prefetch_to_device(lr_batches, device)):
         frames = infer(state.params, batch["lr"], R.step_fold(infer_gen, i))
-        yield from frames.cpu().numpy()
+        yield from to_host(frames)
 
 
 def run_sr_test(cfg: SRConfig, video: Optional[SRVideo] = None,
@@ -767,7 +771,7 @@ def _refit_window_bounds(cfg: FlowConfig, auto: Dict, fh: int, fw: int,
 
 def _to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict:
     """A media batch on ``device``; ``scale`` stays a Python float."""
-    return {k: (float(v) if k == "scale" else torch.from_numpy(v).to(device))
+    return {k: (float(v) if k == "scale" else to_card(v, device))
             for k, v in batch.items()}
 
 
@@ -779,7 +783,7 @@ def _warn_if_outgrown(cfg: FlowConfig, m: Dict, epoch: int) -> bool:
     log = logging.getLogger(__name__)
     dy, dx = cfg.splat_max_dy, cfg.splat_max_dx
     if "flow_dev_y" in m and cfg.splat_local_dy:
-        dvy, dvx = float(m["flow_dev_y"]), float(m["flow_dev_x"])
+        dvy, dvx = host_float(m["flow_dev_y"]), host_float(m["flow_dev_x"])
         ldy = cfg.splat_local_dy
         ldx = cfg.splat_local_dx or dx
         if dvy > ldy - 3 or dvx > ldx - 3:
@@ -792,7 +796,7 @@ def _warn_if_outgrown(cfg: FlowConfig, m: Dict, epoch: int) -> bool:
                 epoch)
             return True
         return False
-    fy, fx = float(m["flow_max_y"]), float(m["flow_max_x"])
+    fy, fx = host_float(m["flow_max_y"]), host_float(m["flow_max_x"])
     if fy > dy - 1 or (dx is not None and fx > dx - 1):
         log.warning(
             "flow magnitude (|fy| %.1f, |fx| %.1f px) exceeds the splat "
@@ -932,21 +936,22 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
             mon_epoch = []
             for bi in rng.permutation(len(cached)):
                 batch = cached[bi]
-                m = step(state, consts, batch)
+                with span("driver.flow_step"):
+                    m = step(state, consts, batch)
+                    if refit_on and "flow_max_y" in m:
+                        mon_epoch.append(torch.stack(
+                            [m["flow_max_y"], m["flow_max_x"]]
+                            + ([m["flow_dev_y"], m["flow_dev_x"]]
+                               if "flow_dev_y" in m else [])))
                 tracer.tick()
                 pairs_done += batch_rows(batch)
-                if refit_on and "flow_max_y" in m:
-                    mon_epoch.append(torch.stack(
-                        [m["flow_max_y"], m["flow_max_x"]]
-                        + ([m["flow_dev_y"], m["flow_dev_x"]]
-                           if "flow_dev_y" in m else [])))
             if mon_epoch:
                 vec = torch.stack(mon_epoch).amax(dim=0)
                 mon_since = (vec if mon_since is None
                              else torch.maximum(mon_since, vec))
             if ((epoch + 1) % cfg.effective_val_iter == 0
                     or epoch == cfg.epochs - 1):
-                last = {k: float(v) for k, v in m.items()}
+                last = {k: host_float(v) for k, v in m.items()}
                 last["frames_per_sec"] = pairs_done / max(time.time() - t0,
                                                           1e-9)
                 if do_val:
@@ -960,7 +965,7 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
                         nb = int(vb["times"].shape[0])
                         epe_sum = epe_sum + FT.epe(f12, vb["gt_flow"]) * nb
                         n += nb
-                    last["val_epe"] = float(epe_sum) / max(n, 1)
+                    last["val_epe"] = host_float(epe_sum) / max(n, 1)
                 writer.log(epoch, last)
             saved = (epoch + 1) % save_every == 0 or epoch == cfg.epochs - 1
             stopping = _stop_any(stop, mesh)
@@ -969,7 +974,7 @@ def run_flow_train(cfg: FlowConfig, media=None, scene: str = "scene",
                     state.params, consts, state.step,
                     state.optimizer.state_dict(), state.ctrl_state))
             if saved and refit_on and mon_since is not None:
-                v = mon_since.tolist()
+                v = to_host(mon_since).tolist()
                 mon_since = None
                 since = {"fy": v[0], "fx": v[1],
                          "dvy": v[2] if len(v) > 2 else None,
@@ -1032,20 +1037,32 @@ def flow_test_outputs(cfg: FlowConfig, media: flow_media.FlowMedia, spec,
     flows: List[np.ndarray] = []
     masks: List[np.ndarray] = []
     epes: List[float] = []
+    batches = media.batches(cfg.test_batch)
     with torch.no_grad():
-        for batch in media.batches(cfg.test_batch):
-            times = torch.from_numpy(batch["times"]).to(device)
-            f12, f21 = FT.flow_infer(spec, params, consts, times,
-                                     float(batch["scale"]), h, w, ctrl_cfg,
-                                     ctrl_state)
-            if "gt_flow" in batch:
-                gt = torch.from_numpy(batch["gt_flow"]).to(device)
-                epes.append(float(FT.epe(f12, gt)))
-            flows.append(f12.cpu().numpy())
-            if occl is not None:
-                masks.append(occl(f12, f21, cfg.occl_thresh).cpu().numpy())
-    return {"flow12": np.concatenate(flows),
-            "masks": np.concatenate(masks) if masks else None,
+        for _ in range(0, len(media), cfg.test_batch):
+            with span("driver.flow_query"):
+                with span("data.batch"):
+                    batch = next(batches)
+                    times = to_card(batch["times"], device)
+                    gt = (to_card(batch["gt_flow"], device)
+                          if "gt_flow" in batch else None)
+                f12, f21 = FT.flow_infer(spec, params, consts, times,
+                                         float(batch["scale"]), h, w,
+                                         ctrl_cfg, ctrl_state)
+                if gt is not None:
+                    with span("flow_ops.epe"):
+                        epes.append(host_float(FT.epe(f12, gt)))
+                with span("data.to_host"):
+                    flows.append(to_host(f12))
+                if occl is not None:
+                    with span("flow_ops.occlusion"):
+                        mask = occl(f12, f21, cfg.occl_thresh)
+                    with span("data.to_host"):
+                        masks.append(to_host(mask))
+    with span("data.to_host"):
+        flow12 = np.concatenate(flows)
+        masks = np.concatenate(masks) if masks else None
+    return {"flow12": flow12, "masks": masks,
             "epe": float(np.mean(epes)) if epes else None}
 
 
@@ -1132,13 +1149,13 @@ def interpolate_frames(cfg: FlowConfig, media: flow_media.FlowMedia, spec,
     to_u8 = lambda f: (np.clip(f, 0.0, 1.0) * 255).astype(np.uint8)
     frames_out = []
     for i in range(len(video) - 1):
-        pair = torch.from_numpy(video[i:i + 2]).to(device)
+        pair = to_card(video[i:i + 2], device)
         frames_out.append(to_u8(video[i]))
         for k in range(1, factor):
             mid = FT.frame_interp(spec, cfg, params, consts, float(times[i]),
                                   pair, k / factor, scale, ctrl_cfg,
                                   ctrl_state)
-            frames_out.append(to_u8(torch.clamp(mid, 0.0, 1.0).cpu().numpy()))
+            frames_out.append(to_u8(to_host(torch.clamp(mid, 0.0, 1.0))))
     frames_out.append(to_u8(video[-1]))
     return np.stack(frames_out)
 
@@ -1233,10 +1250,10 @@ def sintel_scene_flows(cfg: FlowConfig, media: flow_media.FlowMedia, spec,
     flows = []
     for i, batch in enumerate(media.batches(1)):
         f12, _ = FT.flow_infer(spec, params, consts,
-                               torch.from_numpy(batch["times"]).to(device),
+                               to_card(batch["times"], device),
                                float(batch["scale"]), h, w, ctrl_cfg,
                                ctrl_state)
-        flows.append(f12[0].cpu().numpy())
+        flows.append(to_host(f12[0]))
         if outdir is not None:
             write_flo(path.join(outdir, f"frame_{i + 1:04d}.flo"), flows[-1])
     return np.stack(flows)

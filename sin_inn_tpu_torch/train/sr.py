@@ -32,6 +32,7 @@ import torch
 from sin_inn_tpu_torch.core import rng as R
 from sin_inn_tpu_torch.core.config import SRConfig
 from sin_inn_tpu_torch.core.device import resolve_device
+from sin_inn_tpu_torch.core.profiler import span
 from sin_inn_tpu_torch.models.inn import (build_inn_spec, init_inn, inn_apply,
                                           flat_params, params_to)
 from sin_inn_tpu_torch.ops import losses as L
@@ -164,8 +165,9 @@ def sr_loss(params, spec, cfg: SRConfig, sup: Dict, unsup: Optional[Dict],
     lr_z = torch.cat([lr.to(zdt), z], dim=-1)
 
     # forward pass: HR -> (LR || z)
-    lr_z_hat = inn_apply(spec, params, hr.to(zdt), remat=cfg.remat,
-                         tp=tp).to(hr.dtype)
+    with span("model.inn"):
+        lr_z_hat = inn_apply(spec, params, hr.to(zdt), remat=cfg.remat,
+                             tp=tp).to(hr.dtype)
     fwd_loss = cfg.lambda_fwd_rec * L.reconstruction(
         lr_z_hat[..., :cfg.lr_dims], lr)
     if cfg.lambda_fwd_mmd:
@@ -176,8 +178,9 @@ def sr_loss(params, spec, cfg: SRConfig, sup: Dict, unsup: Optional[Dict],
             lr_z_hat[..., cfg.lr_dims:])
 
     # inverse pass: (LR || z) -> HR
-    hr_hat = inn_apply(spec, params, lr_z, rev=True, remat=cfg.remat,
-                       tp=tp).to(hr.dtype)
+    with span("model.inn"):
+        hr_hat = inn_apply(spec, params, lr_z, rev=True, remat=cfg.remat,
+                           tp=tp).to(hr.dtype)
     bwd_loss = cfg.lambda_bwd_rec * L.reconstruction(hr_hat, hr)
     if cfg.lambda_bwd_mmd:
         bwd_loss = bwd_loss + cfg.lambda_bwd_mmd * L.mmd(hr_hat, hr, rev=True,
@@ -198,14 +201,16 @@ def sr_loss(params, spec, cfg: SRConfig, sup: Dict, unsup: Optional[Dict],
                                    scale=1.0 / cfg.scale,
                                    stop_grad=cfg.tcr_stop_grad)
             tcr_lr_z = torch.cat([tcr_lr.to(zdt), zi], dim=-1)
-            tcr_hr_hat = inn_apply(spec, params, tcr_lr_z, rev=True,
-                                   remat=cfg.remat,
-                                   tp=tp).to(lr_u.dtype)
-            hr_hat_tcr = tcr_transform(
-                inn_apply(spec, params, lr_zi, rev=True, remat=cfg.remat,
-                          tp=tp).to(lr_u.dtype),
-                rand, cfg.rotation, cfg.translation,
-                stop_grad=cfg.tcr_stop_grad)
+            with span("model.inn"):
+                tcr_hr_hat = inn_apply(spec, params, tcr_lr_z, rev=True,
+                                       remat=cfg.remat,
+                                       tp=tp).to(lr_u.dtype)
+            with span("model.inn"):
+                hr_hat_i = inn_apply(spec, params, lr_zi, rev=True,
+                                     remat=cfg.remat, tp=tp).to(lr_u.dtype)
+            hr_hat_tcr = tcr_transform(hr_hat_i, rand, cfg.rotation,
+                                       cfg.translation,
+                                       stop_grad=cfg.tcr_stop_grad)
             total = total + L.reconstruction(tcr_hr_hat, hr_hat_tcr)
         tcr_loss = cfg.lambda_bwd_tcr / cfg.tcr_iters * total
 
@@ -232,19 +237,22 @@ def make_train_step(spec, cfg: SRConfig, mesh=None):
     def step(state: SRTrainState, sup: Dict, unsup: Optional[Dict] = None,
              gen: Optional[torch.Generator] = None,
              draws: Optional[SRDraws] = None) -> Dict[str, torch.Tensor]:
-        if draws is None:
-            if gen is None:
-                raise ValueError("pass a generator or explicit draws")
-            _, h, w, _ = sup["lr"].shape
-            draws = draw_sr_noise(R.step_fold(gen, state.step), cfg,
-                                  batch_rows(sup), h, w)
-        draws = shard_draws(draws, mesh, sup, unsup)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = sr_loss(state.params, spec, cfg, sup, unsup, draws, mesh,
-                            tp_couplings(mesh, state.shardings))
-        loss.backward()
-        sync_grads(mesh, state.optimizer.param_groups[0]["params"])
-        state.optimizer.step()
+        if draws is None and gen is None:
+            raise ValueError("pass a generator or explicit draws")
+        with span("step.loss"):
+            if draws is None:
+                _, h, w, _ = sup["lr"].shape
+                draws = draw_sr_noise(R.step_fold(gen, state.step), cfg,
+                                      batch_rows(sup), h, w)
+            draws = shard_draws(draws, mesh, sup, unsup)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, aux = sr_loss(state.params, spec, cfg, sup, unsup, draws,
+                                mesh, tp_couplings(mesh, state.shardings))
+        with span("step.backward"):
+            loss.backward()
+        with span("step.optimizer"):
+            sync_grads(mesh, state.optimizer.param_groups[0]["params"])
+            state.optimizer.step()
         state.step += 1
         return reduce_metrics(mesh, aux)
 

@@ -1126,6 +1126,49 @@ def test_trace_sessions_hold_every_launch(dev, tmp_path):
         assert len(kernels) == 400, (i, len(kernels))
 
 
+@pytest.mark.parametrize("cpu_ops", [False, True])
+def test_span_encloses_its_launches_on_the_trace_clock(dev, tmp_path,
+                                                       cpu_ops):
+    """Ten sessions, of CUDA activity alone (the benchmark's span session)
+    and with the host's operators (``TraceWindow``'s): a span around 200
+    launches of one kernel, put on the trace's clock by the anchors,
+    encloses each of their ``cudaLaunchKernel`` events, and the anchors at
+    the session's two ends agree within 20 us."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sin_inn_tpu_torch.core import profiler as P
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                      if cpu_ops else [])
+    x = torch.ones(1 << 16, device=dev)
+    x.add_(1.0)
+    torch.cuda.synchronize()
+    for i in range(10):
+        with profile(activities=acts) as prof:
+            P.settle(dev)
+            first = P.anchor(dev)
+            P.enable_spans()
+            with P.span("test.launches"):
+                for _ in range(200):
+                    x.add_(1.0)
+            spans = P.collect_spans()
+            last = P.anchor(dev)
+        path = str(tmp_path / f"{i}.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        offsets = P.clock_offsets(events, first, last)
+        assert abs(offsets[1] - offsets[0]) <= 20.0, offsets
+        (s,) = P.span_events(spans, offsets, (first[0][0], last[-1][1]))
+        launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                    and e.get("name", "").startswith("cudaLaunchKernel")]
+        assert len(launches) == 200, (i, len(launches))
+        assert all(s["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                   <= s["ts"] + s["dur"] for e in launches), (i, offsets)
+
+
 def test_flow_exchange_round_trip_on_the_card(dev, tmp_path):
     """PFF spatial (the fused forward's slabs at W = 64) through export and
     --import-torch: flows within 1e-5 + 1e-5 |ref| (the mask travels as

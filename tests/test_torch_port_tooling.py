@@ -3,8 +3,8 @@ package on the CPU: the LR range test (per-LR scores within 1e-4 relative
 of JAX's with the same init, carried over with ``models/convert.py``, and
 the noise JAX draws; each loss within 1e-5 relative; the same LR picked),
 the batch probe (stops only on ``torch.cuda.OutOfMemoryError``, releases
-the failed probe's tensors, lets every other exception through), the step
-timer, the trace window (exactly N steps traced; none with N <= 0), the
+the failed probe's tensors, lets every other exception through), the
+trace window (exactly N steps traced; none with N <= 0), the
 ``--profile`` traces of both training loops, wandb media through a stand-in
 module, the new CLI flags, and the native loader bit for bit against numpy
 and the JAX package's loader.
@@ -228,16 +228,6 @@ def test_run_sr_train_auto_batch_auto_lr_and_profile(tmp_path, video,
 
 # -- profiler ----------------------------------------------------------------
 
-def test_step_timer():
-    t = P.StepTimer(window=3)
-    t.start()
-    for _ in range(5):
-        t.stop()
-    assert len(t._times) == 3
-    assert t.mean >= 0.0 and t.throughput(8) >= 0.0
-    assert P.StepTimer().throughput(8) == 0.0
-
-
 class _FakeProfiler:
     def __init__(self, events):
         self.events = events
@@ -254,7 +244,7 @@ def test_trace_window_traces_exactly_n_steps(monkeypatch, tmp_path, n):
     """The steps between the start (exclusive) and the stop (inclusive)."""
     events = []
     monkeypatch.setattr(P, "_profiler", lambda d: _FakeProfiler(events))
-    monkeypatch.setattr(P, "_export", lambda prof, logdir: "trace.json")
+    monkeypatch.setattr(P, "_export", lambda prof, logdir, *a: "trace.json")
     tw = P.TraceWindow(str(tmp_path), n, warmup=2, device="cpu")
     traced = 0
     for _ in range(20):
@@ -268,7 +258,7 @@ def test_trace_window_traces_exactly_n_steps(monkeypatch, tmp_path, n):
 def test_trace_window_off_and_close(monkeypatch, tmp_path):
     events = []
     monkeypatch.setattr(P, "_profiler", lambda d: _FakeProfiler(events))
-    monkeypatch.setattr(P, "_export", lambda prof, logdir: "trace.json")
+    monkeypatch.setattr(P, "_export", lambda prof, logdir, *a: "trace.json")
     off = P.TraceWindow(str(tmp_path), 0, device="cpu")
     for _ in range(10):
         off.tick()
