@@ -46,8 +46,10 @@ import torch
 from sin_inn_tpu_torch.core import rng as R
 from sin_inn_tpu_torch.core.checkpoint import CheckpointStore
 from sin_inn_tpu_torch.core.config import FlowConfig, SRConfig
-from sin_inn_tpu_torch.core.device import (host_float, resolve_device,
-                                           to_card, to_host)
+from sin_inn_tpu_torch.core.device import (host_buffer, host_float,
+                                           resolve_device, to_card,
+                                           to_card_async, to_host,
+                                           to_host_async, wait_card)
 from sin_inn_tpu_torch.core.metrics import MetricsWriter
 from sin_inn_tpu_torch.core.preempt import GracefulStop
 from sin_inn_tpu_torch.core.profiler import TraceWindow, span
@@ -1030,40 +1032,54 @@ def flow_test_outputs(cfg: FlowConfig, media: flow_media.FlowMedia, spec,
     ``cfg.test_batch`` pairs per INR query, under the controller's mask for
     a progressive net. Returns numpy arrays:
     ``flow12`` (P, H, W, 2), ``masks`` (P, H, W, 1) or None, and ``epe``
-    (the mean end-point error against the GT, or None without GT)."""
+    (the mean end-point error against the GT, or None without GT).
+
+    The host waits for the card once, at the end: each query's times and
+    GT (views of ``media``'s, no frame) go up, and its flows and masks
+    come down into the call's own host buffers (page-locked on a CUDA
+    device), as copies queued without a wait. The arrays returned are
+    views of those buffers, fresh each call."""
     device = resolve_device(cfg.device)
     occl = OCCLUSIONS.get(cfg.occl)
+    n = len(media)
     h, w = media.video.shape[1:3]
-    flows: List[np.ndarray] = []
-    masks: List[np.ndarray] = []
-    epes: List[float] = []
-    batches = media.batches(cfg.test_batch)
+    flows = host_buffer((n, h, w, 2), torch.float32, device)
+    masks = (host_buffer((n, h, w, 1), torch.float32, device)
+             if occl is not None else None)
+    epes: List[torch.Tensor] = []
     with torch.no_grad():
-        for _ in range(0, len(media), cfg.test_batch):
+        for s in range(0, n, cfg.test_batch):
+            e = min(s + cfg.test_batch, n)
             with span("driver.flow_query"):
                 with span("data.batch"):
-                    batch = next(batches)
-                    times = to_card(batch["times"], device)
-                    gt = (to_card(batch["gt_flow"], device)
-                          if "gt_flow" in batch else None)
+                    times = to_card_async(media.times[s:e], device)
+                    gt = (to_card_async(media.flow[s:e], device)
+                          if media.gt_available else None)
                 f12, f21 = FT.flow_infer(spec, params, consts, times,
-                                         float(batch["scale"]), h, w,
+                                         float(media.flow_scale), h, w,
                                          ctrl_cfg, ctrl_state)
                 if gt is not None:
                     with span("flow_ops.epe"):
-                        epes.append(host_float(FT.epe(f12, gt)))
+                        epes.append(FT.epe(f12, gt))
                 with span("data.to_host"):
-                    flows.append(to_host(f12))
+                    to_host_async(f12, flows[s:e])
                 if occl is not None:
                     with span("flow_ops.occlusion"):
                         mask = occl(f12, f21, cfg.occl_thresh)
                     with span("data.to_host"):
-                        masks.append(to_host(mask))
-    with span("data.to_host"):
-        flow12 = np.concatenate(flows)
-        masks = np.concatenate(masks) if masks else None
-    return {"flow12": flow12, "masks": masks,
-            "epe": float(np.mean(epes)) if epes else None}
+                        to_host_async(mask, masks[s:e])
+        with span("data.to_host"):
+            if epes:
+                epe_host = host_buffer((len(epes),), torch.float32, device)
+                to_host_async(torch.stack(epes), epe_host)
+            wait_card(device)
+    # the mean over float64 of the queries' float32 values, as of a list of
+    # floats
+    epe = (float(np.mean(epe_host.numpy().astype(np.float64)))
+           if epes else None)
+    return {"flow12": flows.numpy(),
+            "masks": masks.numpy() if masks is not None else None,
+            "epe": epe}
 
 
 def run_flow_test(cfg: FlowConfig, media=None, scene: str = "scene",

@@ -1169,6 +1169,48 @@ def test_span_encloses_its_launches_on_the_trace_clock(dev, tmp_path,
                    <= s["ts"] + s["dur"] for e in launches), (i, offsets)
 
 
+def test_flow_test_outputs_wait_once_on_the_card(dev):
+    """``flow_test_outputs`` on the card, its copies queued through
+    page-locked buffers: flows and masks bitwise what a loop of the same
+    queries copied back one by one gives, one host wait a call, the same
+    bytes each way, and a first call's arrays unchanged by a second."""
+    import numpy as np
+    from torch_port_helpers import flow_test_per_query
+
+    from sin_inn_tpu_torch.core import profiler as P
+    from sin_inn_tpu_torch.core.config import FlowConfig
+    from sin_inn_tpu_torch.data.flow_media import FlowMedia
+    from sin_inn_tpu_torch.data.synthetic import moving_texture_video
+    from sin_inn_tpu_torch.train import flow as FT
+    from sin_inn_tpu_torch.train import loop as L
+
+    cfg = FlowConfig(net="RBF", num_frequencies=64, hidden_dim=64,
+                     num_layers=2, device="cuda", test_batch=3)
+    spec, params, consts, _, _ = FT.build_flow_model(R.root_generator(0),
+                                                     cfg, dev)
+    frames, h, w = 9, 40, 64
+    gt = np.random.RandomState(3).randn(frames - 1, h, w, 2).astype(
+        np.float32)
+    media = FlowMedia(moving_texture_video(frames, h, w, seed=2), gt)
+    flows, masks, epe = flow_test_per_query(cfg, media, spec, params, consts)
+    P.reset_counters(("host_syncs", "h2d_bytes", "d2h_bytes"))
+    first = L.flow_test_outputs(cfg, media, spec, params, consts)
+    c = P.counters()
+    assert c["host_syncs"] == 1
+    assert c["h2d_bytes"] == (frames - 1) * 4 + gt.nbytes
+    assert c["d2h_bytes"] == 3 * 4 + first["flow12"].nbytes + \
+        first["masks"].nbytes
+    assert np.array_equal(first["flow12"], flows)
+    assert np.array_equal(first["masks"], masks)
+    assert first["epe"] == epe
+    kept = {k: first[k].copy() for k in ("flow12", "masks")}
+    second = L.flow_test_outputs(cfg, media, spec, params, consts)
+    for k in ("flow12", "masks"):
+        assert not np.shares_memory(first[k], second[k]), k
+        assert np.array_equal(first[k], kept[k]), k
+        assert np.array_equal(second[k], kept[k]), k
+
+
 def test_flow_exchange_round_trip_on_the_card(dev, tmp_path):
     """PFF spatial (the fused forward's slabs at W = 64) through export and
     --import-torch: flows within 1e-5 + 1e-5 |ref| (the mask travels as

@@ -4,9 +4,10 @@ their parent and unit ids on a stack per thread; the counters' registry
 and the kernel modules' ``launch_counts`` / ``reset_launch_counts`` views
 onto it; the clock offsets from anchor calls; ``TraceWindow`` and the
 ``--profile`` traces of both training loops carry the spans nested in
-their N steps on the trace's clock; ``flow_test_outputs`` counts five host
-waits a query (times and GT to the device, the EPE, the flow and the mask
-back) and opens its layer spans. The card's clock is checked in
+their N steps on the trace's clock; ``flow_test_outputs`` waits for the
+device once a call, whatever its queries, moves the bytes its queries need
+and opens its layer spans, and gives what a loop of its queries gives, in
+arrays of its own each call. The card's clock is checked in
 ``tests/test_torch_port_cuda.py``."""
 
 import json
@@ -31,6 +32,7 @@ from sin_inn_tpu_torch.ops.cuda import inr as K7
 from sin_inn_tpu_torch.ops.cuda import splat as K5
 from sin_inn_tpu_torch.train import flow as FT
 from sin_inn_tpu_torch.train import loop as L
+from torch_port_helpers import flow_test_per_query
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 
@@ -371,10 +373,9 @@ def flow_model():
 
 
 @pytest.mark.parametrize("frames, batch", [(7, 2), (7, 4), (9, 8)])
-def test_flow_test_outputs_count_five_host_waits_a_query(flow_model, frames,
-                                                         batch):
-    """Times and GT to the device, the EPE, the flow and the mask back: five
-    waits a query, and the bytes each moved."""
+def test_flow_test_outputs_wait_once_a_call(flow_model, frames, batch):
+    """Times and GT to the device, the EPEs, the flows and the masks back,
+    queued without a wait: one wait a call, and the bytes each moved."""
     cfg, spec, params, consts = flow_model
     video = moving_texture_video(frames, H, W, seed=2)
     gt = np.random.RandomState(3).randn(frames - 1, H, W, 2).astype(
@@ -388,7 +389,7 @@ def test_flow_test_outputs_count_five_host_waits_a_query(flow_model, frames,
     c = P.counters()
     pairs = frames - 1
     queries = -(-pairs // batch)
-    assert c["host_syncs"] == 5 * queries
+    assert c["host_syncs"] == 1
     assert c["h2d_bytes"] == pairs * 4 + gt.nbytes
     assert c["d2h_bytes"] == queries * 4 + out["flow12"].nbytes + \
         out["masks"].nbytes
@@ -397,6 +398,7 @@ def test_flow_test_outputs_count_five_host_waits_a_query(flow_model, frames,
     for n in ("data.batch", "model.inr", "flow_ops.epe",
               "flow_ops.occlusion"):
         assert names.count(n) == queries, n
+    # a flow and a mask copy queued a query, and the call's one wait
     assert names.count("data.to_host") == 2 * queries + 1
     by = _tree(spans)
     for s in spans:
@@ -404,11 +406,41 @@ def test_flow_test_outputs_count_five_host_waits_a_query(flow_model, frames,
             assert by[s.unit].name == "driver.flow_query", s.name
 
 
-def test_flow_test_outputs_without_gt_wait_three_times_a_query(flow_model):
+def test_flow_test_outputs_without_gt_wait_once_a_call(flow_model):
     cfg, spec, params, consts = flow_model
     media = FlowMedia(moving_texture_video(5, H, W, seed=2))
-    P.reset_counters("host_syncs")
+    P.reset_counters(("host_syncs", "h2d_bytes", "d2h_bytes"))
     out = L.flow_test_outputs(cfg.replace(test_batch=2), media, spec,
                               params, consts)
     assert out["epe"] is None and out["flow12"].shape == (4, H, W, 2)
-    assert P.counters()["host_syncs"] == 3 * 2
+    c = P.counters()
+    assert c["host_syncs"] == 1
+    assert c["h2d_bytes"] == 4 * 4
+    assert c["d2h_bytes"] == out["flow12"].nbytes + out["masks"].nbytes
+
+
+@pytest.mark.parametrize("frames, batch", [(7, 2), (7, 3), (9, 8), (5, 8)])
+@pytest.mark.parametrize("with_gt", [True, False])
+def test_flow_test_outputs_are_a_loop_of_its_queries(flow_model, frames,
+                                                     batch, with_gt):
+    """Bitwise what a loop of the same queries gives (``FT.flow_infer``,
+    ``occlusion_wang``, ``FT.epe``), with batches that divide the pairs and
+    batches that do not; a second call returns arrays of its own and leaves
+    the first call's as they were."""
+    cfg, spec, params, consts = flow_model
+    cfg = cfg.replace(test_batch=batch)
+    gt = (np.random.RandomState(3).randn(frames - 1, H, W, 2).astype(
+        np.float32) if with_gt else None)
+    media = FlowMedia(moving_texture_video(frames, H, W, seed=2), gt)
+    flows, masks, epe = flow_test_per_query(cfg, media, spec, params, consts)
+    first = L.flow_test_outputs(cfg, media, spec, params, consts)
+    kept = {k: first[k].copy() for k in ("flow12", "masks")}
+    assert np.array_equal(first["flow12"], flows)
+    assert np.array_equal(first["masks"], masks)
+    assert first["epe"] == epe
+    second = L.flow_test_outputs(cfg, media, spec, params, consts)
+    for k in ("flow12", "masks"):
+        assert not np.shares_memory(first[k], second[k]), k
+        assert np.array_equal(first[k], kept[k]), k
+        assert np.array_equal(second[k], kept[k]), k
+    assert second["epe"] == epe

@@ -342,3 +342,32 @@ def k5_tiles_model(values: torch.Tensor, flow: torch.Tensor, max_dy: int,
                 out[b, r0:r0 + nr, c0:c0 + nc] = res.reshape(
                     nr, _B, c)[:, :nc]
     return out
+
+
+def flow_test_per_query(cfg, media, spec, params, consts):
+    """(flow12, masks, epe) of ``media``'s pairs by a plain loop of
+    ``cfg.test_batch`` pairs a query on ``cfg.device``: ``FT.flow_infer``,
+    ``occlusion_wang`` and ``FT.epe``, each query's outputs copied back
+    before the next (``epe`` the mean of the queries' EPEs, None without
+    GT)."""
+    from sin_inn_tpu_torch.ops.occlusion import occlusion_wang
+    from sin_inn_tpu_torch.train import flow as FT
+
+    dev = torch.device(cfg.device)
+    h, w = media.video.shape[1:3]
+    flows, masks, epes = [], [], []
+    with torch.no_grad():
+        for s in range(0, len(media), cfg.test_batch):
+            idx = np.arange(s, min(s + cfg.test_batch, len(media)))
+            b = media.sample(idx)
+            f12, f21 = FT.flow_infer(
+                spec, params, consts, torch.from_numpy(b["times"]).to(dev),
+                float(b["scale"]), h, w)
+            if "gt_flow" in b:
+                epes.append(float(FT.epe(
+                    f12, torch.from_numpy(b["gt_flow"]).to(dev))))
+            flows.append(f12.cpu().numpy())
+            masks.append(occlusion_wang(f12, f21, cfg.occl_thresh)
+                         .cpu().numpy())
+    return (np.concatenate(flows), np.concatenate(masks),
+            float(np.mean(epes)) if epes else None)
